@@ -1,0 +1,190 @@
+"""Encoder-decoder generative-retrieval model over semantic-ID sequences
+(counterpart of rqvae_tpu/models/retrieval.py), eval mode.
+
+Embedding sum: level-offset sem-ID table + learned absolute positions over
+flat token positions, with the user's hash-bucket token prepended to the
+history; the future side is a learned BOS then fut + token-type embeddings;
+RMSNorm then an input projection to the attention width on both streams.
+Dropout is a training feature and is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from rqvae_tpu_torch.data.schemas import TokenizedSeqBatch
+from rqvae_tpu_torch.models import embeddings, transformer
+from rqvae_tpu_torch.models.normalize import rms_norm, rms_norm_init
+from rqvae_tpu_torch.models.transformer import TransformerConfig
+from rqvae_tpu_torch.utils import initializers
+from rqvae_tpu_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class RetrievalConfig:
+    embedding_dim: int = 128
+    attn_dim: int = 512
+    dropout: float = 0.3
+    num_heads: int = 8
+    n_layers: int = 8              # encoder + decoder total; split in half
+    num_embeddings: int = 256      # codebook size
+    sem_id_dim: int = 4            # n_layers_rqvae + 1 (dedup dim)
+    max_pos: int = 80              # max flat token positions (N * sem_id_dim)
+    user_hash_buckets: int = 2000
+    input_dropout: float = 0.5
+    mlp_hidden_dim: int = 1024
+
+    @property
+    def transformer(self) -> TransformerConfig:
+        return TransformerConfig(
+            d_model=self.attn_dim, num_heads=self.num_heads, dropout=self.dropout,
+            encoder_layers=self.n_layers // 2, decoder_layers=self.n_layers // 2,
+            mlp_hidden_dim=self.mlp_hidden_dim,
+        )
+
+
+class ModelOutput(NamedTuple):
+    loss: torch.Tensor     # scalar
+    logits: torch.Tensor   # (B, D, K)
+    loss_d: torch.Tensor   # (D,) per-position loss
+
+
+def init(gen: torch.Generator, cfg: RetrievalConfig, *, device=None):
+    """Random parameters with the JAX pytree layout; on ``cuda`` unless
+    ``device`` says otherwise."""
+    dev = resolve_device(device)
+    e, a = cfg.embedding_dim, cfg.attn_dim
+    return {
+        "bos": initializers.uniform01(gen, (e,), device=dev),
+        "norm": rms_norm_init(e, device=dev),
+        "norm_cxt": rms_norm_init(e, device=dev),
+        "sem_emb": embeddings.sem_id_embedder_init(gen, cfg.num_embeddings, cfg.sem_id_dim, e,
+                                                   device=dev),
+        "user_emb": embeddings.user_id_embedder_init(gen, cfg.user_hash_buckets, e, device=dev),
+        "wpe": initializers.normal(gen, (cfg.max_pos, e), device=dev),
+        "tte": initializers.normal(gen, (cfg.sem_id_dim, e), device=dev),
+        "in_proj": initializers.linear(gen, e, a, device=dev),
+        "in_proj_context": initializers.linear(gen, e, a, device=dev),
+        "out_proj": initializers.linear(gen, a, cfg.num_embeddings, device=dev),
+        "transformer": transformer.init(gen, cfg.transformer, device=dev),
+    }
+
+
+def embed_context(params, cfg: RetrievalConfig, batch: TokenizedSeqBatch):
+    """History stream: [user token, wpe + sem-ID embeddings] and its mask."""
+    b, n = batch.sem_ids.shape
+    sem = embeddings.sem_id_embed(params["sem_emb"], batch.sem_ids, batch.token_type_ids,
+                                  cfg.num_embeddings, batch.seq_mask)
+    # positions past max_pos reuse the last row, as JAX's clamping gather does
+    pos = torch.arange(n, device=sem.device).clamp(max=params["wpe"].shape[0] - 1)
+    sem = sem + params["wpe"][pos][None, :, :]
+    user = embeddings.user_id_embed(params["user_emb"], batch.user_ids)
+    ctx = torch.cat([user[:, None, :], sem], dim=1)
+    ones = torch.ones((b, 1), dtype=torch.bool, device=batch.seq_mask.device)
+    return ctx, torch.cat([ones, batch.seq_mask], dim=1)
+
+
+def _fut_embed(params, cfg: RetrievalConfig, sem_ids_fut, token_type_ids_fut):
+    fut = embeddings.sem_id_embed(params["sem_emb"], sem_ids_fut, token_type_ids_fut,
+                                  cfg.num_embeddings)
+    return fut + params["tte"][token_type_ids_fut.long()]
+
+
+def embed_future(params, cfg: RetrievalConfig, batch: TokenizedSeqBatch):
+    """Target stream: [BOS, fut embedding + token-type embedding]."""
+    b = batch.sem_ids.shape[0]
+    bos = params["bos"].expand(b, 1, cfg.embedding_dim)
+    if batch.sem_ids_fut is None:
+        return bos
+    return torch.cat([bos, _fut_embed(params, cfg, batch.sem_ids_fut,
+                                      batch.token_type_ids_fut)], dim=1)
+
+
+def predict(params, cfg: RetrievalConfig, batch: TokenizedSeqBatch, *, cached_context=None):
+    """Shared trunk: embed, project, transform. Returns (decoder output
+    (B, Nf, A), encoder context (B, Nc, A), context mask)."""
+    ctx_emb, ctx_mask = embed_context(params, cfg, batch)
+    fut_emb = embed_future(params, cfg, batch)
+    h_ctx = rms_norm(ctx_emb, params["norm"])
+    h_fut = rms_norm(fut_emb, params["norm_cxt"])
+    ctx_in = h_ctx @ params["in_proj_context"].to(h_ctx.dtype)
+    fut_in = h_fut @ params["in_proj"].to(h_fut.dtype)
+    out, context = transformer.apply(params["transformer"], cfg.transformer, fut_in, ctx_in,
+                                     ctx_mask, cached_context=cached_context)
+    return out, context, ctx_mask
+
+
+def cross_entropy_ignore(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-position CE, 0 where the target is -1 or outside [0, K)."""
+    valid = (targets >= 0) & (targets < logits.shape[-1])
+    safe = targets.long().clamp(0, logits.shape[-1] - 1)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return torch.where(valid, nll, 0.0)
+
+
+def forward(params, cfg: RetrievalConfig, batch: TokenizedSeqBatch) -> ModelOutput:
+    """Eval-loss forward: CE summed over the sem-ID tuple, meaned over batch."""
+    out, _, _ = predict(params, cfg, batch)
+    logits = (out @ params["out_proj"].to(out.dtype))[:, :-1, :]
+    unred = cross_entropy_ignore(logits, batch.sem_ids_fut)
+    return ModelOutput(loss=torch.mean(torch.sum(unred, dim=1)), logits=logits,
+                       loss_d=torch.mean(unred, dim=0))
+
+
+class GenerationCache(NamedTuple):
+    """Per-batch-row beam-search state: every decoder block's cross K/V
+    (computed once from the encoder output) and the encoder key mask."""
+
+    kv: tuple                  # transformer.cross_kv output, entries (B, Nc, H, Dh)
+    ctx_mask: torch.Tensor     # (B, Nc) bool
+
+
+def encode_for_generation(params, cfg: RetrievalConfig,
+                          batch: TokenizedSeqBatch) -> GenerationCache:
+    """Run the encoder once and cache cross-attention K/V per decoder block."""
+    ctx_emb, ctx_mask = embed_context(params, cfg, batch)
+    h_ctx = rms_norm(ctx_emb, params["norm"])
+    ctx_in = h_ctx @ params["in_proj_context"].to(h_ctx.dtype)
+    context = transformer.encode(params["transformer"], cfg.transformer, ctx_in, ctx_mask)
+    kv = transformer.cross_kv(params["transformer"], cfg.transformer, context)
+    return GenerationCache(kv=tuple(kv), ctx_mask=ctx_mask)
+
+
+def forward_generate_cached(params, cfg: RetrievalConfig, cache: GenerationCache,
+                            sem_ids_fut: Optional[torch.Tensor],
+                            token_type_ids_fut: Optional[torch.Tensor], *,
+                            beams: int, n_rows: int) -> torch.Tensor:
+    """Logits (n_rows, K) at the last fut position, reprocessing the whole
+    prefix against the cached cross K/V: the reference for the fast path."""
+    bos = params["bos"].expand(n_rows, 1, cfg.embedding_dim)
+    if sem_ids_fut is None:
+        fut_emb = bos
+    else:
+        fut_emb = torch.cat([bos, _fut_embed(params, cfg, sem_ids_fut, token_type_ids_fut)],
+                            dim=1)
+    h_fut = rms_norm(fut_emb, params["norm_cxt"])
+    fut_in = h_fut @ params["in_proj"].to(h_fut.dtype)
+    out = transformer.decode_with_kv(params["transformer"], cfg.transformer, fut_in,
+                                     cache.kv, cache.ctx_mask, beams=beams)
+    return out[:, -1, :] @ params["out_proj"].to(out.dtype)
+
+
+def decode_token_cached(params, cfg: RetrievalConfig, cache: GenerationCache, self_kv,
+                        token_ids: Optional[torch.Tensor], token_type: int, *,
+                        beams: int, n_rows: int):
+    """Single-token generation step: embeds only the newest fut token
+    (``None`` = BOS) and decodes it against both caches.
+    Returns (logits (n_rows, K), new self_kv)."""
+    if token_ids is None:
+        emb = params["bos"].expand(n_rows, 1, cfg.embedding_dim)
+    else:
+        tt = torch.full((n_rows, 1), token_type, dtype=torch.int32, device=token_ids.device)
+        emb = _fut_embed(params, cfg, token_ids[:, None], tt)
+    h = rms_norm(emb, params["norm_cxt"])
+    x_in = h @ params["in_proj"].to(h.dtype)
+    out, self_kv = transformer.decode_step_with_kv(params["transformer"], cfg.transformer, x_in,
+                                                   self_kv, cache.kv, cache.ctx_mask, beams=beams)
+    return out[:, -1, :] @ params["out_proj"].to(out.dtype), self_kv

@@ -1,0 +1,193 @@
+"""Pre-RMSNorm encoder-decoder transformer (counterpart of
+rqvae_tpu/models/transformer.py), eval mode (no dropout).
+
+Block: x + selfattn(rmsnorm(x)); decoder blocks add cross-attention whose
+query reads rmsnorm of the BLOCK INPUT x, not of the self-attention output
+(a quirk of the original model kept for parity); then out = a + mlp(rmsnorm(a)).
+Fused qkv projection for self-attention, separate q / kv for cross; no bias.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from rqvae_tpu_torch.models import mlp
+from rqvae_tpu_torch.models.normalize import rms_norm, rms_norm_init
+from rqvae_tpu_torch.ops import attention as attn_ops
+from rqvae_tpu_torch.utils import initializers
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    d_model: int
+    num_heads: int
+    dropout: float = 0.0
+    encoder_layers: int = 4
+    decoder_layers: int = 4
+    mlp_hidden_dim: int = 1024
+
+    def __post_init__(self):
+        if self.d_model % self.num_heads:
+            raise ValueError("d_model % num_heads != 0")
+
+
+def _attn_init(gen, d_model: int, cross: bool, device):
+    lin = lambda i, o: initializers.linear(gen, i, o, device=device)  # noqa: E731
+    if cross:
+        return {"wq": lin(d_model, d_model), "wkv": lin(d_model, 2 * d_model),
+                "proj": lin(d_model, d_model)}
+    return {"wqkv": lin(d_model, 3 * d_model), "proj": lin(d_model, d_model)}
+
+
+def _block_init(gen, cfg: TransformerConfig, cross: bool, device):
+    params = {
+        "attn": _attn_init(gen, cfg.d_model, False, device),
+        "attn_norm": rms_norm_init(cfg.d_model, device=device),
+        "ff_norm": rms_norm_init(cfg.d_model, device=device),
+        "ff_mlp": mlp.init(gen, cfg.d_model, (cfg.mlp_hidden_dim,), cfg.d_model, device=device),
+    }
+    if cross:
+        params["cross_attn"] = _attn_init(gen, cfg.d_model, True, device)
+        params["cross_attn_norm"] = rms_norm_init(cfg.d_model, device=device)
+    return params
+
+
+def init(gen: torch.Generator, cfg: TransformerConfig, *, device="cpu"):
+    return {
+        "encoder": [_block_init(gen, cfg, False, device) for _ in range(cfg.encoder_layers)],
+        "decoder": [_block_init(gen, cfg, True, device) for _ in range(cfg.decoder_layers)],
+    }
+
+
+def _self_attention(p, x, num_heads, *, causal, k_mask):
+    q, k, v = torch.chunk(x @ p["wqkv"].to(x.dtype), 3, dim=-1)
+    out = attn_ops.attend(
+        attn_ops.split_heads(q, num_heads), attn_ops.split_heads(k, num_heads),
+        attn_ops.split_heads(v, num_heads), causal=causal, k_mask=k_mask,
+    )
+    return attn_ops.merge_heads(out) @ p["proj"].to(x.dtype)
+
+
+def _cross_attention(p, x, context, num_heads, *, k_mask):
+    q = x @ p["wq"].to(x.dtype)
+    k, v = torch.chunk(context @ p["wkv"].to(x.dtype), 2, dim=-1)
+    out = attn_ops.attend(
+        attn_ops.split_heads(q, num_heads), attn_ops.split_heads(k, num_heads),
+        attn_ops.split_heads(v, num_heads), causal=False, k_mask=k_mask,
+    )
+    return attn_ops.merge_heads(out) @ p["proj"].to(x.dtype)
+
+
+def _block_apply(p, cfg: TransformerConfig, x, *, causal: bool, self_k_mask=None,
+                 context=None, cross_k_mask=None):
+    attn_out = x + _self_attention(p["attn"], rms_norm(x, p["attn_norm"]), cfg.num_heads,
+                                   causal=causal, k_mask=self_k_mask)
+    if context is not None:
+        # quirk parity: the cross query reads the BLOCK INPUT x, not attn_out
+        attn_out = attn_out + _cross_attention(
+            p["cross_attn"], rms_norm(x, p["cross_attn_norm"]), context, cfg.num_heads,
+            k_mask=cross_k_mask,
+        )
+    return attn_out + mlp.apply(p["ff_mlp"], rms_norm(attn_out, p["ff_norm"]))
+
+
+def encode(params, cfg: TransformerConfig, context_in: torch.Tensor,
+           context_mask: torch.Tensor) -> torch.Tensor:
+    """Non-causal self-attention stack over the history (B, Nc, d_model)."""
+    x = context_in
+    for block in params["encoder"]:
+        x = _block_apply(block, cfg, x, causal=False, self_k_mask=context_mask)
+    return x
+
+
+def decode(params, cfg: TransformerConfig, x: torch.Tensor, context: torch.Tensor,
+           context_mask: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention + cross-attention to the encoder output."""
+    for block in params["decoder"]:
+        x = _block_apply(block, cfg, x, causal=True, context=context,
+                         cross_k_mask=context_mask)
+    return x
+
+
+def apply(params, cfg: TransformerConfig, x, context_in, context_mask, *,
+          cached_context=None):
+    """Full encoder-decoder pass; ``cached_context`` skips the encoder.
+    Returns (decoder output, encoder context)."""
+    context = encode(params, cfg, context_in, context_mask) if cached_context is None \
+        else cached_context
+    return decode(params, cfg, x, context, context_mask), context
+
+
+def cross_kv(params, cfg: TransformerConfig, context: torch.Tensor):
+    """Every decoder block's cross-attention (k, v), each (B, Nc, H, Dh),
+    computed once from the encoder output: the generation loop's cache."""
+    out = []
+    for block in params["decoder"]:
+        k, v = torch.chunk(context @ block["cross_attn"]["wkv"].to(context.dtype), 2, dim=-1)
+        out.append((attn_ops.split_heads(k, cfg.num_heads),
+                    attn_ops.split_heads(v, cfg.num_heads)))
+    return out
+
+
+def _fold_beams(x: torch.Tensor, beams: int) -> torch.Tensor:
+    """(B*beams, Nf, H, Dh) -> (B, beams*Nf, H, Dh): a row's beams share its
+    cross K/V, so they ride the query axis of one attention call."""
+    bk, nf, h, dh = x.shape
+    return x.reshape(bk // beams, beams * nf, h, dh)
+
+
+def _unfold_beams(x: torch.Tensor, beams: int) -> torch.Tensor:
+    b, bn, h, dh = x.shape
+    return x.reshape(b * beams, bn // beams, h, dh)
+
+
+def _cross_from_cache(block, hc, ck, cv, context_mask, num_heads, beams, dtype):
+    p = block["cross_attn"]
+    qf = _fold_beams(attn_ops.split_heads(hc @ p["wq"].to(hc.dtype), num_heads), beams)
+    of = attn_ops.attend(qf, ck, cv, causal=False, k_mask=context_mask)
+    return attn_ops.merge_heads(_unfold_beams(of, beams)) @ p["proj"].to(dtype)
+
+
+def decode_with_kv(params, cfg: TransformerConfig, x: torch.Tensor, kv,
+                   context_mask: torch.Tensor, *, beams: int = 1) -> torch.Tensor:
+    """Full-prefix generation decoder against the cached cross K/V."""
+    for block, (ck, cv) in zip(params["decoder"], kv):
+        attn_out = x + _self_attention(block["attn"], rms_norm(x, block["attn_norm"]),
+                                       cfg.num_heads, causal=True, k_mask=None)
+        hc = rms_norm(x, block["cross_attn_norm"])  # quirk: block input x
+        attn_out = attn_out + _cross_from_cache(block, hc, ck, cv, context_mask,
+                                                cfg.num_heads, beams, x.dtype)
+        x = attn_out + mlp.apply(block["ff_mlp"], rms_norm(attn_out, block["ff_norm"]))
+    return x
+
+
+def decode_step_with_kv(params, cfg: TransformerConfig, x_new: torch.Tensor, self_kv, kv,
+                        context_mask: torch.Tensor, *, beams: int = 1):
+    """Single-token decoder step with a growing self-attention KV cache.
+
+    ``x_new`` (B*beams, 1, d_model) is the newest token; ``self_kv`` is None
+    (first token) or per block (k, v), each (B*beams, T, H, Dh). The newest
+    position attends every cached one, so causality needs no mask.
+    Returns (x_out, new self_kv with T+1 entries)."""
+    x = x_new
+    new_kv = []
+    for li, (block, (ck, cv)) in enumerate(zip(params["decoder"], kv)):
+        h = rms_norm(x, block["attn_norm"])
+        p = block["attn"]
+        q1, k1, v1 = (attn_ops.split_heads(t, cfg.num_heads)
+                      for t in torch.chunk(h @ p["wqkv"].to(h.dtype), 3, dim=-1))
+        if self_kv is None:
+            k_full, v_full = k1, v1
+        else:
+            pk, pv = self_kv[li]
+            k_full = torch.cat([pk, k1], dim=1)
+            v_full = torch.cat([pv, v1], dim=1)
+        new_kv.append((k_full, v_full))
+        sa = attn_ops.merge_heads(attn_ops.attend(q1, k_full, v_full, causal=False))
+        attn_out = x + sa @ p["proj"].to(x.dtype)
+        hc = rms_norm(x, block["cross_attn_norm"])  # quirk: block input x
+        attn_out = attn_out + _cross_from_cache(block, hc, ck, cv, context_mask,
+                                                cfg.num_heads, beams, x.dtype)
+        x = attn_out + mlp.apply(block["ff_mlp"], rms_norm(attn_out, block["ff_norm"]))
+    return x, tuple(new_kv)

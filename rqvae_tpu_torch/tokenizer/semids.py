@@ -1,0 +1,208 @@
+"""Semantic-ID tokenizer: corpus precompute, dedup column, prefix membership
+(counterpart of rqvae_tpu/tokenizer/semids.py).
+
+Same rank-chained index as the JAX package: the level-l key of a corpus row
+is ``rank_{l-1}(prefix[:-1]) * base_l + token_l``, where the rank indexes
+the previous level's distinct sorted key table, so keys stay below
+``n_items * max(bases)`` at any depth or codebook size.
+
+Keys are int64 here (torch has no sort / searchsorted for uint32) and the
+padding sentinel is ``torch.iinfo(torch.int64).max``, so the index requires
+``n_items * max(bases) < 2**63``. The JAX package keys in uint32 (uint64
+under x64); keys compare by value, so both give the same tables and masks.
+
+Where JAX relies on a gather clamping an out-of-range index, the port clamps
+explicitly (torch raises on CPU and asserts on the device).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from rqvae_tpu_torch.data.schemas import SeqBatch, TokenizedSeqBatch
+from rqvae_tpu_torch.models import rqvae as rqvae_lib
+from rqvae_tpu_torch.ops.children_window import children_window
+
+KEY_DTYPE = torch.int64
+SENTINEL = torch.iinfo(KEY_DTYPE).max
+
+
+class CorpusIndex:
+    """Corpus semantic-ID table + sorted distinct prefix keys per length.
+
+    ``sorted_keys[l]`` holds the distinct keys of length-(l+1) prefixes,
+    pushed left and padded to n_items with ``SENTINEL``; ``n_distinct[l]``
+    is the real count. ``bases`` are the per-dim radices: codebook_size for
+    the ID levels, ``max(codebook_size, max_dedup + 2)`` for the dedup column.
+    """
+
+    def __init__(self, cached_ids: torch.Tensor, sorted_keys: torch.Tensor,
+                 bases: tuple, codebook_size: int, n_distinct: tuple):
+        self.cached_ids = cached_ids      # (n_items, D) int32
+        self.sorted_keys = sorted_keys    # (D, n_items) int64
+        self.bases = tuple(int(b) for b in bases)
+        self.codebook_size = int(codebook_size)
+        self.n_distinct = tuple(int(n) for n in n_distinct)
+
+    @property
+    def n_items(self) -> int:
+        return self.cached_ids.shape[0]
+
+
+def _check_key_range(n_items: int, bases) -> None:
+    span = n_items * max(int(b) for b in bases)
+    if span >= 2**63 - 1:  # strict: the dtype max is the padding sentinel
+        raise ValueError(f"rank-chained keys need {span} values for n_items={n_items}, "
+                         f"bases {tuple(bases)}: beyond int64")
+
+
+def dedup_column(sem_ids: torch.Tensor, codebook_size: int = 0) -> torch.Tensor:
+    """Occurrence rank of each row's tuple in corpus order: row i gets the
+    number of rows j < i with an identical tuple. ``codebook_size`` is kept
+    for API compatibility and unused.
+
+    jnp.lexsort becomes successive stable argsorts, least significant column
+    first; starting from corpus order makes the position the final tie-break.
+    No packed key, so any codebook size and depth works."""
+    n, d = sem_ids.shape
+    arange = torch.arange(n, device=sem_ids.device)
+    order = arange
+    for i in range(d - 1, -1, -1):
+        order = order[torch.argsort(sem_ids[order, i], stable=True)]
+    s = sem_ids[order]
+    first = torch.ones(n, dtype=torch.bool, device=sem_ids.device)
+    if n > 1:
+        first[1:] = torch.any(s[1:] != s[:-1], dim=1)
+    start = torch.cummax(torch.where(first, arange, 0), dim=0).values
+    out = torch.empty(n, dtype=torch.int32, device=sem_ids.device)
+    out[order] = (arange - start).to(torch.int32)
+    return out
+
+
+def precompute_corpus_ids(params, cfg: rqvae_lib.RqVaeConfig, corpus_x: torch.Tensor, *,
+                          chunk_size: int = 4096) -> CorpusIndex:
+    """Tokenize the corpus in ``chunk_size``-row chunks with the frozen RQ-VAE
+    (one ``rq_tokenize`` launch per chunk), append the dedup column and build
+    the prefix index."""
+    with torch.no_grad():
+        sem_ids = torch.cat([
+            rqvae_lib.encode_and_tokenize(params, cfg, corpus_x[i:i + chunk_size])
+            for i in range(0, corpus_x.shape[0], chunk_size)
+        ], dim=0)
+    dedup = dedup_column(sem_ids, cfg.codebook_size)
+    cached = torch.cat([sem_ids, dedup[:, None]], dim=-1)
+    return build_index(cached, cfg.codebook_size)
+
+
+def build_index(cached_ids: torch.Tensor, codebook_size: int) -> CorpusIndex:
+    """Rank-chained sorted distinct-key tables for every prefix length 1..D."""
+    n, d = cached_ids.shape
+    max_dedup = int(cached_ids[:, -1].max())
+    bases = (codebook_size,) * (d - 1) + (max(codebook_size, max_dedup + 2),)
+    _check_key_range(n, bases)
+    dev = cached_ids.device
+    rows, n_distinct = [], []
+    rank = torch.zeros(n, dtype=KEY_DTYPE, device=dev)
+    for level in range(d):
+        keys = rank * bases[level] + cached_ids[:, level].to(KEY_DTYPE)
+        skeys = torch.sort(keys).values
+        first = torch.ones(n, dtype=torch.bool, device=dev)
+        if n > 1:
+            first[1:] = skeys[1:] != skeys[:-1]
+        uniq = torch.where(first, skeys, SENTINEL)
+        # firsts first, in sorted order (argsort of a bool needs an int key)
+        order = torch.argsort((~first).to(torch.int8), stable=True)
+        table = uniq[order]
+        rows.append(table)
+        n_distinct.append(int(first.sum()))
+        rank = torch.searchsorted(table, keys)
+    return CorpusIndex(cached_ids, torch.stack(rows, dim=0), bases, codebook_size,
+                       tuple(n_distinct))
+
+
+def exists_prefix(index: CorpusIndex, prefix: torch.Tensor) -> torch.Tensor:
+    """Membership of ID-prefixes (..., L), 1 <= L <= D, in the corpus -> bool (...)."""
+    length = prefix.shape[-1]
+    _, ok = _prefix_rank(index, prefix.reshape(math.prod(prefix.shape[:-1]), length))
+    return ok.reshape(prefix.shape[:-1])
+
+
+def _prefix_rank(index: CorpusIndex, flat_prefix: torch.Tensor):
+    """(rank, ok) of each length-L prefix row in level L-1's distinct table."""
+    length = flat_prefix.shape[-1]
+    dev = flat_prefix.device
+    rank = torch.zeros(flat_prefix.shape[0], dtype=KEY_DTYPE, device=dev)
+    ok = torch.ones(flat_prefix.shape[0], dtype=torch.bool, device=dev)
+    for i in range(length):
+        key = rank * index.bases[i] + flat_prefix[:, i].to(KEY_DTYPE)
+        table = index.sorted_keys[i]
+        pos = torch.searchsorted(table, key).clamp(0, table.shape[0] - 1)
+        ok &= (table[pos] == key) & (pos < index.n_distinct[i])
+        rank = pos
+    return rank, ok
+
+
+def children_window_inputs(index: CorpusIndex, prefix: torch.Tensor):
+    """The children-window operands for a (R, L) prefix batch:
+    (table, lo int32, cnt int32, key0 int64), each per row but the table."""
+    length = prefix.shape[-1]
+    table = index.sorted_keys[length]
+    radix = index.bases[length]
+    rank, ok = _prefix_rank(index, prefix)
+    key0 = rank * radix
+    lo = torch.searchsorted(table, key0)
+    # upper bound from the run's largest possible key: rank+1 keys belong to
+    # the next parent; rank*radix + radix-1 < n_distinct*radix, no overflow
+    hi = torch.searchsorted(table, key0 + (radix - 1), side="right")
+    hi = torch.clamp(hi, max=index.n_distinct[length])
+    hi = torch.where(ok, hi, lo)
+    cnt = torch.clamp(hi - lo, min=0)
+    return table, lo.to(torch.int32), cnt.to(torch.int32), key0
+
+
+def children_mask(index: CorpusIndex, prefix: torch.Tensor) -> torch.Tensor:
+    """Valid-next-token mask for every prefix: (..., L) int -> (..., K) bool.
+
+    Beam prefixes are valid and the level's table holds distinct sorted keys,
+    so a prefix's children form one contiguous run: binary-search the run
+    bounds, read one K-wide window of child tokens per row (the
+    ``children_window`` kernel), and scatter a (rows, K) mask. For L = 0 pass
+    shape (..., 0); the run is the whole level-1 table."""
+    k = index.codebook_size
+    batch_shape = prefix.shape[:-1]
+    n_rows = math.prod(batch_shape)
+    flat = prefix.reshape(n_rows, prefix.shape[-1])
+    table, lo, cnt, key0 = children_window_inputs(index, flat)
+    child = children_window(table, lo, cnt, key0, window=k, k_tokens=k)
+    hits = torch.zeros((flat.shape[0], k + 1), dtype=torch.bool, device=prefix.device)
+    hits.scatter_(1, child.long(), True)
+    return hits[:, :k].reshape(*batch_shape, k)
+
+
+def max_duplicates(index: CorpusIndex) -> int:
+    """Largest dedup value; must stay < codebook_size for the decoder's
+    level-offset embedding table."""
+    return int(index.cached_ids[:, -1].max())
+
+
+def tokenize_sequences(index: CorpusIndex, batch: SeqBatch) -> TokenizedSeqBatch:
+    """Cached-ID gather: item-ID sequences -> semantic-ID token sequences."""
+    b, n = batch.ids.shape
+    d = index.cached_ids.shape[-1]
+    n_items = index.cached_ids.shape[0]
+    safe_ids = batch.ids.long().clamp(0, n_items - 1)
+    sem_ids = index.cached_ids[safe_ids].reshape(b, n * d)
+    seq_mask = torch.repeat_interleave(batch.seq_mask, d, dim=1)
+    sem_ids = torch.where(seq_mask, sem_ids, -1)
+    ids_fut = batch.ids_fut.long().clamp(0, n_items - 1).reshape(b)
+    sem_ids_fut = index.cached_ids[ids_fut].reshape(b, d)
+    levels = torch.arange(d, dtype=torch.int32, device=batch.ids.device)
+    return TokenizedSeqBatch(
+        user_ids=batch.user_ids,
+        sem_ids=sem_ids,
+        sem_ids_fut=sem_ids_fut,
+        seq_mask=seq_mask,
+        token_type_ids=levels.repeat(b, n),
+        token_type_ids_fut=levels.repeat(b, 1),
+    )
