@@ -1,40 +1,59 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: Amazon serving, then
+ML-32M decoder training and ML-32M serving.
 
-Drives ``rqvae_tpu_torch`` end to end at the shipped Amazon widths, with
-random weights made from a seed and a seeded synthetic corpus:
+Drives ``rqvae_tpu_torch`` end to end at the shipped widths, with random
+weights made from a seed and seeded synthetic data:
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from ``rqvae_tpu_torch/csrc`` (one nvcc per
+  2. build the four CUDA kernels from ``rqvae_tpu_torch/csrc`` (one nvcc per
      source, in parallel) and print the build time;
-  3. main path: tokenize the 12,101 x 768 corpus with the RQ-VAE
-     (``precompute_corpus_ids``: 3 x 256 x 32 codebooks, fp32, 4,096-row
-     chunks), tokenize 256 users x 20 history items, run constrained beam
-     search (``generate_next_sem_ids``: k = 32, exhaustive candidates, bf16
-     decoder weights: 4 + 4 layers, width 512, 8 heads) and count h@k / NDCG;
-  4. check that both kernels were launched on that path (launch counts are
-     zeroed just before it and read just after);
-  5. compare each kernel with its plain PyTorch twin on the main path's own
-     inputs (the corpus codes per 4,096-row chunk; the beam search's four
-     children_window operand sets, recorded in a rerun): ids and child
-     tokens exactly (apart from counted near-ties of the tokenizer's
-     argmin), sums / residuals / losses to 1e-5;
-  6. check the outputs: every beam that is not penalised is a corpus item,
-     log-probas are finite and sorted, and a 4-user fp32 run on the GPU
-     agrees with the same run on the CPU (the plain twins);
-  7. time each kernel and its twin, and the serving path; trace one beam
-     search with torch.profiler for the device's busy share and top ops.
+  3. Amazon serving main path: tokenize the 12,101 x 768 corpus with the
+     RQ-VAE (``precompute_corpus_ids``: 3 x 256 x 32 codebooks, fp32,
+     4,096-row chunks), tokenize 256 users x 20 history items, run
+     constrained beam search (``generate_next_sem_ids``: k = 32, exhaustive
+     candidates, bf16 decoder weights: 4 + 4 layers, width 512, 8 heads) and
+     count h@k / NDCG; check that rq_tokenize and children_window were
+     launched (counts zeroed just before, read just after);
+  4. compare those two kernels with their plain PyTorch twins on the main
+     path's own inputs; check the beams (corpus members, finite, sorted) and
+     a 4-user fp32 GPU run against the same run on the CPU;
+  5. ML-32M train step, the ``bench.py --profile ml32m`` shape: batch 256,
+     200-item histories cut by the crop-length distribution (801 encoder
+     tokens), an 84,432-item corpus of random 3-level tuples plus the dedup
+     column, 4 + 4 layers, width 512, 8 heads, fp32 master params, bf16
+     compute, ``adamw(3e-4, 0.035)``, ``make_train_step(accum=1)``: 3 warm-up
+     and 10 timed steps; the flash forward and backward kernels must run 4
+     times each per step (the encoder's self-attention);
+  6. the same batch through ``bucket_slices`` / ``make_bucketed_fns`` with
+     2 buckets (``configs/decoder_ml32m.json``): groups padded below 256
+     tokens go dense, as in JAX;
+  7. each flash kernel against its plain twin on one encoder layer's own
+     operands, recorded in a rerun of the step (first 16 batch rows, N =
+     801; the upstream gradient scaled to unit RMS): bf16 to 2e-2, fp32 to
+     1e-4, plus a causal case, a random key mask with fully masked rows and
+     a mask whose first two key tiles are all masked;
+  8. a 2-user fp32 train step (dropout 0) on the GPU against the CPU: loss
+     to 1e-4 relative, every gradient leaf to 1e-3 of its max-abs;
+  9. ML-32M serving: 64 users x 801 tokens against the 84,432-item index,
+     k = 32, 256 candidates, through the flash forward kernel;
+ 10. time every kernel, its twin and the library call beside it; dense
+     ``sdpa`` against ``flash_attention`` at N = 801 and 81; trace one
+     Amazon beam search and one ML-32M train step with torch.profiler.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 work runs in fp32.
 
 Prints the nvidia-smi line, a ``{"kernels": [...]}`` line, a
-``{"serving": {...}}`` line and, last, ``{"ok": true, "device": {...}}``.
-Any failure exits non-zero before the last line; so does a machine without
-a GPU. Run from the repository root: ``python3 chip_smoke.py``.
+``{"serving": {...}}`` line, a ``{"train": {...}}`` line and, last,
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
+last line; so does a machine without a GPU. Run from the repository root:
+``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -46,8 +65,14 @@ N_HIST = 20
 BEAMS = 32
 SEED = 0
 
+ML_BATCH = 256
+ML_HIST = 200
+ML_ITEMS = 84432
+ML_GEN_BATCH = 64
+
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32, outside the tensor cores
+BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 
 
 def log(msg: str) -> None:
@@ -112,7 +137,8 @@ def main() -> int:
 
     # ---- build every kernel of the path from the checkout's sources ----
     t0 = time.perf_counter()
-    logs = _cuda_build.build_all(["rq_tokenize", "children_window"])
+    logs = _cuda_build.build_all(["rq_tokenize", "children_window", "flash_attention_fwd",
+                                  "flash_attention_bwd"])
     build_s = time.perf_counter() - t0
     for name, text in logs.items():
         for line in text.splitlines():
@@ -297,12 +323,347 @@ def main() -> int:
                    build_s=build_s, batch=BATCH, beams=BEAMS, corpus_items=N_ITEMS,
                    generate_profile=_profile(lambda: generation.generate_next_sem_ids(
                        dec_params, dec_cfg, index, tok, k=BEAMS, n_candidates=256)))
+    del rq_params, corpus, index, dec_params, params32, chunks, cw_inputs, big, out, again
+
+    # ---- ML-32M: decoder training, then long-context serving ----
+    train, ml_serving, flash_kernels = _ml32m(dev)
+    kernels += flash_kernels
+    serving["ml32m"] = ml_serving
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
+    print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _crop_lengths(rng, count: int, n_hist: int):
+    """History lengths of the reference's random-crop subsample applied to
+    full n_hist-item windows: the ML-32M training length distribution
+    (``bench.py --profile ml32m`` draws them the same way)."""
+    import numpy as np
+
+    seqlen = n_hist + 1
+    start = rng.randint(0, seqlen - 2, (count,))
+    end = start + rng.randint(3, n_hist + 2, (count,))
+    return np.minimum(end, seqlen) - start - 1
+
+
+def _seq_batch(ids, ids_fut, user_ids, dev):
+    """A SeqBatch from numpy item ids (-1 padded); features are unused by
+    decoder training, so they are placeholders."""
+    import torch
+
+    from rqvae_tpu_torch.data.schemas import SeqBatch
+
+    ids_t = torch.from_numpy(ids).to(dev)
+    return SeqBatch(user_ids=torch.from_numpy(user_ids).to(dev), ids=ids_t,
+                    ids_fut=torch.from_numpy(ids_fut).to(dev),
+                    x=torch.zeros(ids.shape + (1,), device=dev),
+                    x_fut=torch.zeros(ids_fut.shape + (1,), device=dev), seq_mask=ids_t >= 0)
+
+
+def _ml32m(dev):
+    """Phases 5-10: ML-32M decoder training (flat and bucketed), the flash
+    kernels against their twins, GPU vs CPU, ML-32M serving and the
+    timings. Returns (train dict, serving dict, kernel entries)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from rqvae_tpu_torch.data.schemas import TokenizedSeqBatch
+    from rqvae_tpu_torch.models import generation, retrieval
+    from rqvae_tpu_torch.ops import attention as attn_ops
+    from rqvae_tpu_torch.ops import flash_attention as fa
+    from rqvae_tpu_torch.ops.children_window import children_window
+    from rqvae_tpu_torch.tokenizer import semids
+    from rqvae_tpu_torch.train import optim
+    from rqvae_tpu_torch.train import train_decoder as td
+    from rqvae_tpu_torch.utils import amp
+    from rqvae_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = retrieval.RetrievalConfig(embedding_dim=128, attn_dim=512, dropout=0.3, num_heads=8,
+                                    n_layers=8, num_embeddings=256, sem_id_dim=4,
+                                    max_pos=ML_HIST * 4)
+    rng = np.random.RandomState(SEED)
+    base = torch.from_numpy(rng.randint(0, 256, (ML_ITEMS, 3)).astype(np.int32)).to(dev)
+    cached = torch.cat([base, semids.dedup_column(base, 256)[:, None]], dim=1)
+    index = semids.build_index(cached, codebook_size=256)
+    ids = rng.randint(0, ML_ITEMS, (ML_BATCH, ML_HIST)).astype(np.int32)
+    lengths = _crop_lengths(rng, ML_BATCH, ML_HIST)
+    mask = np.arange(ML_HIST)[None, :] < lengths[:, None]
+    ids = np.where(mask, ids, -1)
+    ids_fut = rng.randint(0, ML_ITEMS, (ML_BATCH, 1)).astype(np.int32)
+    users = np.arange(ML_BATCH, dtype=np.int32)
+    flat = _seq_batch(ids, ids_fut, users, dev)
+    flat = type(flat)(*(t[None] for t in flat))   # the step's leading accum axis
+    params = retrieval.init(torch.Generator().manual_seed(SEED), cfg, device=dev)
+    opt = optim.adamw(3e-4, 0.035)
+    opt_state = opt.init(params)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    step = td.make_train_step(cfg, opt, index, 1, torch.bfloat16, 4)
+    log(f"ML-32M batch: {ML_BATCH} rows, mean history {float(lengths.mean()):.1f} items, "
+        f"{ML_HIST * 4 + 1} encoder tokens padded; corpus {ML_ITEMS} items, "
+        f"{index.n_distinct[-1]} distinct ids, max dedup {semids.max_duplicates(index)}")
+
+    # ---- phase 5: flat train step, the main path of this slice, counted ----
+    losses = []
+    for _ in range(3):
+        params, opt_state, m = step(params, opt_state, flat, gen)
+        losses.append(float(m["total_loss"]))
+    torch.cuda.synchronize()
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = 10
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        params, opt_state, m = step(params, opt_state, flat, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    losses.append(float(m["total_loss"]))
+    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                "flash_attention_bwd": fa.flash_attention_bwd.launches}
+    log(f"ML-32M flat step: {step_ms:.1f} ms, losses {losses}, launches {launches}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite training loss {losses}")
+    for name, n in launches.items():
+        check(n == 4 * n_steps, f"{name}: {n} launches in {n_steps} steps, expected 4 per step")
+    flat_out = dict(train_step_ms=step_ms, train_examples_per_s=ML_BATCH / (step_ms / 1e3),
+                    steps_timed=n_steps, losses=losses, batch=ML_BATCH,
+                    encoder_tokens=ML_HIST * 4 + 1,
+                    flash_fwd_per_step=launches["flash_attention_fwd"] / n_steps,
+                    flash_bwd_per_step=launches["flash_attention_bwd"] / n_steps,
+                    peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+    # ---- phase 6: the same batch, length-bucketed (2 groups) ----
+    grad_accum, apply = td.make_bucketed_fns(cfg, opt, index, torch.bfloat16, 4)
+    groups = []
+    for rows, length in td.bucket_slices(mask.sum(axis=1), 2):
+        groups.append((_seq_batch(ids[rows, :length], ids_fut[rows], rows.astype(np.int32), dev),
+                       len(rows), length))
+
+    def bucketed_step(params, opt_state, record=None):
+        grads = tree_map(torch.zeros_like, params)
+        loss = torch.zeros((), device=dev)
+        loss_d = torch.zeros((4,), device=dev)
+        for batch, _, _ in groups:
+            before = fa.flash_attention_fwd.launches
+            grads, loss, loss_d = grad_accum(params, grads, loss, loss_d, batch, gen, 0.5)
+            if record is not None:
+                record.append(fa.flash_attention_fwd.launches - before)
+        params, opt_state = apply(params, opt_state, grads)
+        return params, opt_state, loss
+
+    per_group = []
+    for _ in range(3):
+        params, opt_state, loss = bucketed_step(params, opt_state)
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        params, opt_state, loss = bucketed_step(params, opt_state, per_group if i == 0 else None)
+    torch.cuda.synchronize()
+    bucket_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    check(math.isfinite(float(loss)), f"non-finite bucketed loss {float(loss)}")
+    group_info = []
+    for (_, rows, length), n_fwd in zip(groups, per_group):
+        tokens = 4 * length + 1
+        group_info.append(dict(rows=rows, items=length, tokens=tokens, flash=n_fwd > 0))
+        check((n_fwd == 4) == (tokens >= attn_ops.FLASH_MIN_LEN),
+              f"group of {tokens} tokens: {n_fwd} flash launches")
+    log(f"ML-32M bucketed step: {bucket_ms:.1f} ms, groups {group_info}")
+    bucketed_out = dict(train_step_ms=bucket_ms, train_examples_per_s=ML_BATCH / (bucket_ms / 1e3),
+                        loss=float(loss), groups=group_info,
+                        flash_fwd_launches=fa.flash_attention_fwd.launches,
+                        flash_bwd_launches=fa.flash_attention_bwd.launches)
+
+    # ---- phase 7: each flash kernel against its twin, on the step's operands ----
+    rec = {}
+    real_flash = attn_ops.flash_attention
+
+    def record(q, k, v, *, k_mask=None, causal=False):
+        out = real_flash(q, k, v, k_mask=k_mask, causal=causal)
+        if not rec:  # the first call of a step: encoder layer 0
+            rec.update(q=q.detach(), k=k.detach(), v=v.detach(), k_mask=k_mask)
+            out.register_hook(lambda g: rec.__setitem__("g", g.detach()))
+        return out
+
+    attn_ops.flash_attention = record
+    try:
+        params, opt_state, _ = step(params, opt_state, flat, gen)
+    finally:
+        attn_ops.flash_attention = real_flash
+    torch.cuda.synchronize()
+    check(set(rec) == {"q", "k", "v", "k_mask", "g"}, f"recorded {sorted(rec)}")
+    q, k, v, km, g = rec["q"], rec["k"], rec["v"], rec["k_mask"], rec["g"]
+    log(f"recorded layer-0 operands: q {tuple(q.shape)} {q.dtype} strides {q.stride()}, "
+        f"g rms {float(g.float().pow(2).mean().sqrt()):.3e}")
+    small = 16
+    qs, ks, vs, kms = q[:small], k[:small], v[:small], km[:small]
+    gs = g[:small].float()
+    gs = (gs / gs.pow(2).mean().sqrt()).to(g.dtype)
+    holes = torch.rand(km[:small].shape, device=dev, generator=gen) < 0.5
+    holes[:2] = False   # two rows with no valid key
+    late = torch.zeros_like(kms)
+    late[:, 130:] = True  # the first two 64-key tiles all masked, valid keys after
+    checks, errs = [], {"fwd": 0.0, "bwd": 0.0}
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for case, case_mask, causal in (("train", kms, False), ("causal", kms, True),
+                                        ("holes", holes, False), ("late", late, False)):
+            a = [t.to(dtype) for t in (qs, ks, vs, gs)]
+            out, mm, inv = fa.flash_attention_fwd(*a[:3], k_mask=case_mask, causal=causal)
+            ref = fa.flash_attention_plain(*a[:3], k_mask=case_mask, causal=causal)
+            got = fa.flash_attention_bwd(*a, mm, inv, k_mask=case_mask, causal=causal)
+            want = fa.flash_attention_bwd_plain(*a, k_mask=case_mask, causal=causal)
+            torch.cuda.synchronize()
+            row = {"dtype": str(dtype)[6:], "case": case, "tol": tol}
+            for name, x, y in (("out", out, ref), ("dq", got[0], want[0]), ("dk", got[1], want[1]),
+                               ("dv", got[2], want[2])):
+                x, y = x.float(), y.float()
+                row[name] = float((x - y).abs().max())
+                row[name + "_max_abs"] = float(y.abs().max())
+                check(bool(torch.isfinite(x).all()), f"flash {case} {dtype} {name}: non-finite")
+                check(torch.allclose(x, y, rtol=tol, atol=tol),
+                      f"flash {case} {dtype} {name} differs from the plain twin by {row[name]}")
+            if case == "holes":
+                check(float(out[:2].abs().max()) == 0.0, "fully masked rows are not zero")
+            if dtype == torch.bfloat16 and case == "train":
+                errs = {"fwd": row["out"], "bwd": max(row["dq"], row["dk"], row["dv"])}
+            checks.append(row)
+            log(f"flash vs plain {row}")
+    del out, ref, got, want
+
+    # ---- phase 8: 2-user fp32 train step, GPU against CPU ----
+    cpu = torch.device("cpu")
+    cfg0 = dataclasses.replace(cfg, dropout=0.0, input_dropout=0.0)
+    two = _seq_batch(ids[:2], ids_fut[:2], users[:2], dev)
+    index_cpu = semids.CorpusIndex(index.cached_ids.to(cpu), index.sorted_keys.to(cpu),
+                                   index.bases, index.codebook_size, index.n_distinct)
+    p_gpu = tree_map(lambda t: t.detach().clone(), params)
+    loss_g, _, grads_g = td.value_and_grad(td._make_microbatch_loss(cfg0, index, torch.float32),
+                                           p_gpu, two, None)
+    loss_c, _, grads_c = td.value_and_grad(
+        td._make_microbatch_loss(cfg0, index_cpu, torch.float32), _to_device(p_gpu, cpu),
+        type(two)(*(t.to(cpu) for t in two)), None)
+    loss_rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    leaf_rel = 0.0
+    for a, b in zip(tree_leaves(grads_g), tree_leaves(grads_c)):
+        err = float((a.cpu() - b).abs().max())
+        scale = float(b.abs().max())
+        check(err <= 1e-3 * scale + 1e-12, f"GPU vs CPU gradient leaf differs: {err} of {scale}")
+        leaf_rel = max(leaf_rel, err / scale if scale else 0.0)
+    check(loss_rel <= 1e-4, f"GPU vs CPU fp32 loss differs by {loss_rel} relative")
+    log(f"2-user fp32 step GPU vs CPU: loss {float(loss_c):.6f}, rel err {loss_rel:.2e}, "
+        f"worst leaf {leaf_rel:.2e} of its max-abs")
+    del p_gpu, grads_g, grads_c
+
+    # ---- phase 9: ML-32M serving through the flash forward kernel ----
+    n_tok = ML_HIST * 4
+    gen_params = amp.cast_floating(params, torch.bfloat16)
+    tok = TokenizedSeqBatch(
+        user_ids=torch.arange(ML_GEN_BATCH, device=dev, dtype=torch.int32),
+        sem_ids=torch.from_numpy(rng.randint(0, 256, (ML_GEN_BATCH, n_tok)).astype(np.int32)).to(dev),
+        sem_ids_fut=None, seq_mask=torch.ones((ML_GEN_BATCH, n_tok), dtype=torch.bool, device=dev),
+        token_type_ids=torch.arange(4, device=dev, dtype=torch.int32).repeat(ML_GEN_BATCH, ML_HIST),
+        token_type_ids_fut=None)
+
+    def serve():
+        return generation.generate_next_sem_ids(gen_params, cfg, index, tok, k=BEAMS,
+                                                n_candidates=256)
+
+    fa.flash_attention_fwd.launches = 0
+    children_window.launches = 0
+    out = serve()
+    torch.cuda.synchronize()
+    serve_launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                      "children_window": children_window.launches}
+    check(serve_launches["flash_attention_fwd"] == 4,
+          f"ML-32M serving: {serve_launches} (the encoder's 4 layers take the flash kernel)")
+    check(bool(torch.isfinite(out.log_probas).all()), "ML-32M serving: non-finite log-probas")
+    live = out.log_probas > generation.INVALID_PENALTY / 2
+    check(bool(semids.exists_prefix(index, out.sem_ids)[live].all()),
+          "ML-32M serving: an unpenalised beam is not a corpus item")
+    ml_gen_ms = wall_ms(serve, 5)
+    ml_serving = dict(generate_ms=ml_gen_ms, queries_per_s=ML_GEN_BATCH / (ml_gen_ms / 1e3),
+                      batch=ML_GEN_BATCH, encoder_tokens=n_tok + 1, beams=BEAMS,
+                      corpus_items=ML_ITEMS, launches=serve_launches,
+                      live_beams=int(live.sum()))
+    log(f"ML-32M serving: {ml_serving}")
+    del gen_params, out
+
+    # ---- phase 10: timings at the full training shape ----
+    train_profile = _profile(lambda: step(params, opt_state, flat, gen), top=12)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    b, h, n, dh = q.shape
+    bias = fa.mask_bias(km, b, n, dev)
+    fwd_out, mm, inv = fa.flash_attention_fwd(q, k, v, k_mask=km)
+    kernel_ms = {"fwd": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, k_mask=km), 5, warmup=1),
+                 "bwd": cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, g, mm, inv, k_mask=km), 3,
+                                warmup=1)}
+    plain_ms = {"fwd": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, k_mask=km), 3, warmup=1),
+                "bwd": cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, g, k_mask=km), 3,
+                               warmup=1)}
+    torch.cuda.empty_cache()
+    lib_mask = bias[:, None, None, :].to(q.dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask), 10)
+    sdpa_fwd_bwd = cuda_ms(lambda: torch.autograd.backward(
+        F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask), g), 10)
+    del leaves
+    fwd_flops = 4 * b * h * n * n * dh
+    elt = q.element_size()
+    fwd_bytes = elt * 4 * b * h * n * dh + 4 * b * n + 8 * b * h * n
+    bwd_bytes = elt * 7 * b * h * n * dh + 4 * b * n + 8 * b * h * n
+    flash_kernels = []
+    for name, flops, nbytes, line, lib in (
+            ("flash_attention_fwd", fwd_flops, fwd_bytes, 41, sdpa_fwd),
+            ("flash_attention_bwd", fwd_flops * 10 // 4, bwd_bytes, 121, sdpa_fwd_bwd - sdpa_fwd)):
+        t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        short = name.rsplit("_", 1)[1]
+        flash_kernels.append(dict(
+            name=name, route="cuda", source=f"rqvae_tpu_torch/csrc/{name}.cu",
+            replaces=f"rqvae_tpu/ops/flash_attention.py:{line}",
+            launches=launches[name], max_abs_err=errs[short], ms=kernel_ms[short],
+            plain_ms=plain_ms[short], bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops > t_bytes else "bytes", library_ms=lib))
+    log(f"flash kernels at B={b}, H={h}, N={n}, Dh={dh} {q.dtype}: {flash_kernels}")
+
+    # dense sdpa (the port's plain path) against flash_attention, BNHD operands
+    # from one fused qkv product as the transformer makes them
+    cut = {}
+    for n_tok_cut in (801, 81):
+        qkv = torch.randn((b, n_tok_cut, 3 * h * dh), device=dev, generator=gen).to(torch.bfloat16)
+        qkv.requires_grad_(True)
+        qb, kb, vb = (attn_ops.split_heads(t, h) for t in torch.chunk(qkv, 3, dim=-1))
+        keep = torch.ones((b, n_tok_cut), dtype=torch.bool, device=dev)
+        dense_mask = attn_ops.build_mask(n_tok_cut, n_tok_cut, k_mask=keep)
+        grad = torch.randn((b, n_tok_cut, h, dh), device=dev, generator=gen).to(torch.bfloat16)
+
+        def dense():
+            return attn_ops.sdpa(qb, kb, vb, dense_mask)
+
+        def flash():
+            return real_flash(qb.transpose(1, 2), kb.transpose(1, 2), vb.transpose(1, 2),
+                              k_mask=keep).transpose(1, 2)
+
+        with torch.no_grad():
+            fwd = {"dense": cuda_ms(dense, 5, warmup=1), "flash": cuda_ms(flash, 5, warmup=1)}
+        both = {"dense": cuda_ms(lambda: dense().backward(grad), 3, warmup=1),
+                "flash": cuda_ms(lambda: flash().backward(grad), 3, warmup=1)}
+        cut[str(n_tok_cut)] = dict(fwd_ms=fwd, fwd_bwd_ms=both)
+        del qkv, qb, kb, vb, grad
+        torch.cuda.empty_cache()
+    log(f"dense vs flash at B={b}: {cut}")
+
+    train = dict(flat=flat_out, bucketed=bucketed_out, flash_checks=checks,
+                 gpu_vs_cpu=dict(users=2, tokens=ML_HIST * 4 + 1, loss_rel_err=loss_rel,
+                                 worst_leaf_rel_err=leaf_rel),
+                 sdpa_library_ms=dict(fwd=sdpa_fwd, fwd_bwd=sdpa_fwd_bwd),
+                 dense_vs_flash=cut, train_profile=train_profile)
+    return train, ml_serving, flash_kernels
 
 
 def _profile(fn, top: int = 8) -> dict:

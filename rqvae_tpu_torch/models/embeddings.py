@@ -10,8 +10,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from rqvae_tpu_torch.utils import initializers
+from rqvae_tpu_torch.utils.device import resolve_device
 
 
 def _round_up(n: int, m: int) -> int:
@@ -19,7 +21,8 @@ def _round_up(n: int, m: int) -> int:
 
 
 def sem_id_embedder_init(gen: torch.Generator, num_embeddings: int, sem_ids_dim: int,
-                         embedding_dim: int, *, device="cpu") -> torch.Tensor:
+                         embedding_dim: int, *, device=None) -> torch.Tensor:
+    device = resolve_device(device)
     rows = _round_up(num_embeddings * sem_ids_dim + 1, 16)
     table = initializers.normal(gen, (rows, embedding_dim), device=device)
     table[num_embeddings * sem_ids_dim:] = 0.0
@@ -28,19 +31,25 @@ def sem_id_embedder_init(gen: torch.Generator, num_embeddings: int, sem_ids_dim:
 
 def sem_id_embed(table: torch.Tensor, sem_ids: torch.Tensor, token_type_ids: torch.Tensor,
                  num_embeddings: int, seq_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Level-offset lookup; invalid positions hit the (zeroed) last row."""
+    """Level-offset lookup; invalid positions hit the (zeroed) last row.
+
+    ``F.embedding`` rather than ``table[idx]``: the same gather, but its CUDA
+    backward sums duplicate rows in parallel, where advanced indexing's
+    backward walks each row's duplicates serially (the padding row alone
+    takes ~140k lookups in an ML-32M batch). The padding row still gets its
+    gradient, as in JAX (no ``padding_idx``)."""
     padding_idx = table.shape[0] - 1
     idx = token_type_ids.long() * num_embeddings + sem_ids.long()
     if seq_mask is not None:
         idx = torch.where(seq_mask, idx, padding_idx)
-    return table[idx.clamp(0, padding_idx)]
+    return F.embedding(idx.clamp(0, padding_idx), table)
 
 
 def user_id_embedder_init(gen: torch.Generator, num_buckets: int, embedding_dim: int, *,
-                          device="cpu") -> torch.Tensor:
-    return initializers.normal(gen, (num_buckets, embedding_dim), device=device)
+                          device=None) -> torch.Tensor:
+    return initializers.normal(gen, (num_buckets, embedding_dim), device=resolve_device(device))
 
 
 def user_id_embed(table: torch.Tensor, user_ids: torch.Tensor) -> torch.Tensor:
     """Hashing trick: bucket = |id| mod num_buckets."""
-    return table[torch.abs(user_ids.long()) % table.shape[0]]
+    return F.embedding(torch.abs(user_ids.long()) % table.shape[0], table)

@@ -1,20 +1,25 @@
-"""Bias-free SiLU MLP (counterpart of rqvae_tpu/models/mlp.py), eval mode.
+"""Bias-free SiLU MLP (counterpart of rqvae_tpu/models/mlp.py).
 
 Params are a list of (in, out) weight matrices; compute dtype follows ``x``.
+In training, dropout follows each SiLU, drawn from the caller's generator.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
+from rqvae_tpu_torch.models.dropout import dropout as _dropout
 from rqvae_tpu_torch.models.normalize import l2norm
 from rqvae_tpu_torch.utils import initializers
+from rqvae_tpu_torch.utils.device import resolve_device
 
 
 def init(gen: torch.Generator, input_dim: int, hidden_dims: Sequence[int],
-         out_dim: int, *, device="cpu") -> List[torch.Tensor]:
+         out_dim: int, *, device=None) -> List[torch.Tensor]:
+    """Weights [(d0, d1), (d1, d2), ...] on ``device`` (cuda unless told otherwise)."""
+    device = resolve_device(device)
     dims = [input_dim, *hidden_dims, out_dim]
     return [
         initializers.linear(gen, d_in, d_out, device=device)
@@ -22,9 +27,11 @@ def init(gen: torch.Generator, input_dim: int, hidden_dims: Sequence[int],
     ]
 
 
-def apply(params: List[torch.Tensor], x: torch.Tensor, *,
-          normalize: bool = False) -> torch.Tensor:
-    """SiLU between layers, never after the last; optional final l2norm."""
+def apply(params: List[torch.Tensor], x: torch.Tensor, *, dropout: float = 0.0,
+          normalize: bool = False, training: bool = False,
+          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """SiLU between layers, never after the last, dropout after each SiLU
+    when training; optional final l2norm."""
     in_dim = params[0].shape[0]
     if x.shape[-1] != in_dim:
         raise ValueError(f"Invalid input dim: expected {in_dim}, found {x.shape[-1]}")
@@ -32,7 +39,7 @@ def apply(params: List[torch.Tensor], x: torch.Tensor, *,
     for i, w in enumerate(params):
         x = x @ w.to(x.dtype)
         if i != n - 1:
-            x = F.silu(x)
+            x = _dropout(F.silu(x), dropout, training, generator)
     if normalize:
         x = l2norm(x)
     return x

@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from rqvae_tpu_torch.utils.device import resolve_device
+
 
 def l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     """F.normalize(p=2) semantics: x / max(||x||, eps)."""
@@ -19,5 +21,5 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     return normed.to(x.dtype) * weight
 
 
-def rms_norm_init(dim: int, *, dtype=torch.float32, device="cpu") -> torch.Tensor:
-    return torch.ones((dim,), dtype=dtype, device=device)
+def rms_norm_init(dim: int, *, dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.ones((dim,), dtype=dtype, device=resolve_device(device))

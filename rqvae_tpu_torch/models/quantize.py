@@ -12,6 +12,7 @@ import torch
 
 from rqvae_tpu_torch.models.normalize import l2norm
 from rqvae_tpu_torch.utils import initializers
+from rqvae_tpu_torch.utils.device import resolve_device
 
 
 class QuantizeForwardMode(enum.Enum):
@@ -32,7 +33,8 @@ class QuantizeOutput(NamedTuple):
 
 
 def init(gen: torch.Generator, n_embed: int, embed_dim: int,
-         sim_vq: bool = False, *, device="cpu"):
+         sim_vq: bool = False, *, device=None):
+    device = resolve_device(device)
     params = {"codebook": initializers.uniform01(gen, (n_embed, embed_dim), device=device)}
     if sim_vq:
         params["sim_proj"] = initializers.linear(gen, embed_dim, embed_dim, device=device)

@@ -1,11 +1,12 @@
 """Encoder-decoder generative-retrieval model over semantic-ID sequences
-(counterpart of rqvae_tpu/models/retrieval.py), eval mode.
+(counterpart of rqvae_tpu/models/retrieval.py).
 
 Embedding sum: level-offset sem-ID table + learned absolute positions over
 flat token positions, with the user's hash-bucket token prepended to the
 history; the future side is a learned BOS then fut + token-type embeddings;
 RMSNorm then an input projection to the attention width on both streams.
-Dropout is a training feature and is not ported yet.
+In training, ``input_dropout`` applies to both normalised streams and the
+transformer's own dropout inside it, all drawn from one ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -13,9 +14,11 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from rqvae_tpu_torch.data.schemas import TokenizedSeqBatch
 from rqvae_tpu_torch.models import embeddings, transformer
+from rqvae_tpu_torch.models.dropout import dropout as _dropout
 from rqvae_tpu_torch.models.normalize import rms_norm, rms_norm_init
 from rqvae_tpu_torch.models.transformer import TransformerConfig
 from rqvae_tpu_torch.utils import initializers
@@ -89,7 +92,7 @@ def embed_context(params, cfg: RetrievalConfig, batch: TokenizedSeqBatch):
 def _fut_embed(params, cfg: RetrievalConfig, sem_ids_fut, token_type_ids_fut):
     fut = embeddings.sem_id_embed(params["sem_emb"], sem_ids_fut, token_type_ids_fut,
                                   cfg.num_embeddings)
-    return fut + params["tte"][token_type_ids_fut.long()]
+    return fut + F.embedding(token_type_ids_fut.long(), params["tte"])
 
 
 def embed_future(params, cfg: RetrievalConfig, batch: TokenizedSeqBatch):
@@ -102,17 +105,20 @@ def embed_future(params, cfg: RetrievalConfig, batch: TokenizedSeqBatch):
                                       batch.token_type_ids_fut)], dim=1)
 
 
-def predict(params, cfg: RetrievalConfig, batch: TokenizedSeqBatch, *, cached_context=None):
+def predict(params, cfg: RetrievalConfig, batch: TokenizedSeqBatch, *, training: bool = False,
+            generator: Optional[torch.Generator] = None, cached_context=None):
     """Shared trunk: embed, project, transform. Returns (decoder output
     (B, Nf, A), encoder context (B, Nc, A), context mask)."""
     ctx_emb, ctx_mask = embed_context(params, cfg, batch)
     fut_emb = embed_future(params, cfg, batch)
-    h_ctx = rms_norm(ctx_emb, params["norm"])
-    h_fut = rms_norm(fut_emb, params["norm_cxt"])
+    h_ctx = _dropout(rms_norm(ctx_emb, params["norm"]), cfg.input_dropout, training, generator)
+    h_fut = _dropout(rms_norm(fut_emb, params["norm_cxt"]), cfg.input_dropout, training,
+                     generator)
     ctx_in = h_ctx @ params["in_proj_context"].to(h_ctx.dtype)
     fut_in = h_fut @ params["in_proj"].to(h_fut.dtype)
     out, context = transformer.apply(params["transformer"], cfg.transformer, fut_in, ctx_in,
-                                     ctx_mask, cached_context=cached_context)
+                                     ctx_mask, training=training, generator=generator,
+                                     cached_context=cached_context)
     return out, context, ctx_mask
 
 
@@ -125,9 +131,11 @@ def cross_entropy_ignore(logits: torch.Tensor, targets: torch.Tensor) -> torch.T
     return torch.where(valid, nll, 0.0)
 
 
-def forward(params, cfg: RetrievalConfig, batch: TokenizedSeqBatch) -> ModelOutput:
-    """Eval-loss forward: CE summed over the sem-ID tuple, meaned over batch."""
-    out, _, _ = predict(params, cfg, batch)
+def forward(params, cfg: RetrievalConfig, batch: TokenizedSeqBatch, *, training: bool = False,
+            generator: Optional[torch.Generator] = None) -> ModelOutput:
+    """Training / eval-loss forward: CE summed over the sem-ID tuple, meaned
+    over the batch. ``training`` turns dropout on (``generator`` required)."""
+    out, _, _ = predict(params, cfg, batch, training=training, generator=generator)
     logits = (out @ params["out_proj"].to(out.dtype))[:, :-1, :]
     unred = cross_entropy_ignore(logits, batch.sem_ids_fut)
     return ModelOutput(loss=torch.mean(torch.sum(unred, dim=1)), logits=logits,

@@ -5,17 +5,23 @@ Block: x + selfattn(rmsnorm(x)); decoder blocks add cross-attention whose
 query reads rmsnorm of the BLOCK INPUT x, not of the self-attention output
 (a quirk of the original model kept for parity); then out = a + mlp(rmsnorm(a)).
 Fused qkv projection for self-attention, separate q / kv for cross; no bias.
+In training (``training=True`` with a ``torch.Generator``) dropout applies
+where the JAX package puts it: after ``attn_norm``, after
+``cross_attn_norm``, inside the FFN and after the FFN.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from rqvae_tpu_torch.models import mlp
+from rqvae_tpu_torch.models.dropout import dropout as _dropout
 from rqvae_tpu_torch.models.normalize import rms_norm, rms_norm_init
 from rqvae_tpu_torch.ops import attention as attn_ops
 from rqvae_tpu_torch.utils import initializers
+from rqvae_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +59,8 @@ def _block_init(gen, cfg: TransformerConfig, cross: bool, device):
     return params
 
 
-def init(gen: torch.Generator, cfg: TransformerConfig, *, device="cpu"):
+def init(gen: torch.Generator, cfg: TransformerConfig, *, device=None):
+    device = resolve_device(device)
     return {
         "encoder": [_block_init(gen, cfg, False, device) for _ in range(cfg.encoder_layers)],
         "decoder": [_block_init(gen, cfg, True, device) for _ in range(cfg.decoder_layers)],
@@ -80,43 +87,55 @@ def _cross_attention(p, x, context, num_heads, *, k_mask):
 
 
 def _block_apply(p, cfg: TransformerConfig, x, *, causal: bool, self_k_mask=None,
-                 context=None, cross_k_mask=None):
-    attn_out = x + _self_attention(p["attn"], rms_norm(x, p["attn_norm"]), cfg.num_heads,
+                 context=None, cross_k_mask=None, training: bool = False,
+                 generator: Optional[torch.Generator] = None):
+    drop = lambda t: _dropout(t, cfg.dropout, training, generator)  # noqa: E731
+    attn_out = x + _self_attention(p["attn"], drop(rms_norm(x, p["attn_norm"])), cfg.num_heads,
                                    causal=causal, k_mask=self_k_mask)
     if context is not None:
         # quirk parity: the cross query reads the BLOCK INPUT x, not attn_out
         attn_out = attn_out + _cross_attention(
-            p["cross_attn"], rms_norm(x, p["cross_attn_norm"]), context, cfg.num_heads,
+            p["cross_attn"], drop(rms_norm(x, p["cross_attn_norm"])), context, cfg.num_heads,
             k_mask=cross_k_mask,
         )
-    return attn_out + mlp.apply(p["ff_mlp"], rms_norm(attn_out, p["ff_norm"]))
+    ff = mlp.apply(p["ff_mlp"], rms_norm(attn_out, p["ff_norm"]), dropout=cfg.dropout,
+                   training=training, generator=generator)
+    return attn_out + drop(ff)
 
 
 def encode(params, cfg: TransformerConfig, context_in: torch.Tensor,
-           context_mask: torch.Tensor) -> torch.Tensor:
+           context_mask: torch.Tensor, *, training: bool = False,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Non-causal self-attention stack over the history (B, Nc, d_model)."""
     x = context_in
     for block in params["encoder"]:
-        x = _block_apply(block, cfg, x, causal=False, self_k_mask=context_mask)
+        x = _block_apply(block, cfg, x, causal=False, self_k_mask=context_mask,
+                         training=training, generator=generator)
     return x
 
 
 def decode(params, cfg: TransformerConfig, x: torch.Tensor, context: torch.Tensor,
-           context_mask: torch.Tensor) -> torch.Tensor:
+           context_mask: torch.Tensor, *, training: bool = False,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Causal self-attention + cross-attention to the encoder output."""
     for block in params["decoder"]:
         x = _block_apply(block, cfg, x, causal=True, context=context,
-                         cross_k_mask=context_mask)
+                         cross_k_mask=context_mask, training=training, generator=generator)
     return x
 
 
 def apply(params, cfg: TransformerConfig, x, context_in, context_mask, *,
+          training: bool = False, generator: Optional[torch.Generator] = None,
           cached_context=None):
     """Full encoder-decoder pass; ``cached_context`` skips the encoder.
     Returns (decoder output, encoder context)."""
-    context = encode(params, cfg, context_in, context_mask) if cached_context is None \
-        else cached_context
-    return decode(params, cfg, x, context, context_mask), context
+    if cached_context is None:
+        context = encode(params, cfg, context_in, context_mask, training=training,
+                         generator=generator)
+    else:
+        context = cached_context
+    return decode(params, cfg, x, context, context_mask, training=training,
+                  generator=generator), context
 
 
 def cross_kv(params, cfg: TransformerConfig, context: torch.Tensor):

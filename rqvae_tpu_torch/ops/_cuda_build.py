@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
 ``<build dir>/<name>-<source hash>.so`` at first use, then loaded with
-ctypes. The source hash in the file name makes a stale library impossible
-to load. ``build_all`` starts one nvcc per source at once and waits for all.
+ctypes. The hash covers the source and every shared header (``csrc/*.cuh``),
+so a stale library is impossible to load. ``build_all`` starts one nvcc per source at once and waits for all.
 
 The build directory is ``build/kernels`` beside the package (listed in
 ``.gitignore``).
@@ -37,7 +37,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(ARCH_FLAGS).encode()).hexdigest()[:12]
+    text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(ARCH_FLAGS).encode()).hexdigest()[:12]
     return src, BUILD_DIR / f"{name}-{digest}.so"
 
 

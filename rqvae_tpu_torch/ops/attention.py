@@ -1,8 +1,15 @@
 """Masked scaled dot-product attention (counterpart of rqvae_tpu/ops/attention.py).
 
-Dense path only: at the Amazon serving shape (81 encoder tokens, 32
-beam-folded cross queries, <= 4 self keys) the JAX ``attend`` never reaches
-a Pallas kernel either. Layout is (batch, seq, heads, head_dim) throughout.
+``attend`` routes as the JAX one does: when Nq >= 256, Nk >= 256 and
+Dh >= 64 it goes to ``flash_attention`` (the hand-written CUDA kernels for
+CUDA tensors, their plain twin ``flash_attention_plain`` on the CPU);
+everything shorter takes the dense ``sdpa``. So the Amazon shapes (81
+encoder tokens, 32 beam-folded cross queries, <= 4 self keys) stay dense and
+the 801-token ML-32M encoder takes the kernel. The cut is the JAX package's,
+measured on a TPU v5e; it has not been re-measured on the H100. Layout is
+(batch, seq, heads, head_dim) throughout; the flash route sees the operands
+as (B, H, N, Dh) views through ``transpose(1, 2)``, which the kernels read
+by strides, so no copy is made at this boundary.
 
 ``sdpa`` is written as the JAX one is, not with
 ``F.scaled_dot_product_attention``: scores in fp32 (q and k upcast, the
@@ -17,7 +24,11 @@ from typing import Optional
 
 import torch
 
+from rqvae_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
 NEG_INF = -1e30
+FLASH_MIN_LEN = 256   # the JAX package's cut (Nq and Nk), with Dh >= 64
+FLASH_MIN_DH = 64
 
 
 def build_mask(q_len: int, k_len: int, *, causal: bool = False,
@@ -49,8 +60,13 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False,
            k_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Structured-mask attention entry point used by the transformer (the
-    dense branch of the JAX ``attend``)."""
+    """Structured-mask attention entry point used by the transformer.
+    ``k_mask`` (B, Nk) bool, True = attend."""
+    if (q.shape[1] >= FLASH_MIN_LEN and k.shape[1] >= FLASH_MIN_LEN
+            and q.shape[-1] >= FLASH_MIN_DH):
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        fn = flash_attention if q.device.type == "cuda" else flash_attention_plain
+        return fn(qh, kh, vh, k_mask=k_mask, causal=causal).transpose(1, 2)
     mask = build_mask(q.shape[1], k.shape[1], causal=causal, k_mask=k_mask, device=q.device)
     return sdpa(q, k, v, mask)
 
