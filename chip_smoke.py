@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU: Amazon serving, then
-ML-32M decoder training and ML-32M serving.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: Amazon serving, ML-32M
+decoder training and ML-32M serving, then stage-1 RQ-VAE training.
 
 Drives ``rqvae_tpu_torch`` end to end at the shipped widths, with random
 weights made from a seed and seeded synthetic data:
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build the four CUDA kernels from ``rqvae_tpu_torch/csrc`` (one nvcc per
+  2. build the five CUDA kernels from ``rqvae_tpu_torch/csrc`` (one nvcc per
      source, in parallel) and print the build time;
   3. Amazon serving main path: tokenize the 12,101 x 768 corpus with the
      RQ-VAE (``precompute_corpus_ids``: 3 x 256 x 32 codebooks, fp32,
@@ -39,23 +39,51 @@ weights made from a seed and seeded synthetic data:
      k = 32, 256 candidates, through the flash forward kernel;
  10. time every kernel, its twin and the library call beside it; dense
      ``sdpa`` against ``flash_attention`` at N = 801 and 81; trace one
-     Amazon beam search and one ML-32M train step with torch.profiler.
+     corpus tokenization, one Amazon beam search and one ML-32M train step
+     with torch.profiler;
+ 11. stage-1 flagship: ``train_rqvae.train`` on ``configs/rqvae_amazon.json``
+     (768 -> 512 -> 256 -> 128 -> 32, 3 x 256 codebooks, rotation trick,
+     batch 64, fp32) over 12,101 synthetic items (seed 0): k-means priming,
+     400 steps in device-resident chunks of 8, eval and a checkpoint at the
+     end; the loss must fall, the eval must tokenize through rq_tokenize and
+     the plain route must not launch rq_quantize_train (volume 8,192);
+ 12. stage-1 stretch (``bench.py``'s ``rqvae_stretch``: embed 64, 4 x 2048
+     codebooks, batch 1024, bf16 compute, 16 steps a chunk) on a 12,101 x 768
+     N(0, 1) corpus after k-means priming: rq_quantize_train must launch once
+     per step; ``id_diversity_metrics`` tokenizes the corpus through the
+     K-tiled rq_tokenize at 4 x 2048 x 64; one chunk is traced;
+ 13. rq_quantize_train against its twin on the stretch step's own encoder
+     output and codebooks (ids equal off near-ties, values to 1e-5), its
+     gradients (STE and rotation trick) against the plain per-level
+     ``quantize.apply`` chain to 1e-4 of each leaf's max-abs; the K-tiled
+     rq_tokenize against its twin at 4 x 2048 x 64 on the corpus chunks the
+     diversity metrics tokenized (their own ids) and on the step's rows; both
+     quantizer kernels at four odd shapes (part-filled code tiles, D = 3 and
+     128);
+ 14. two fp32 stage-1 steps at the Amazon widths, batch 64, GPU against CPU,
+     through both quantizer routes: loss to 1e-5 relative, gradient leaves to
+     1e-4 of their max-abs;
+ 15. the new kernel's times beside its twin's and its bound; the step time of
+     the fused and the plain route at both shapes (the module constant
+     ``FUSED_TRAIN_MIN_CODEBOOK_VOLUME`` forced each way).
 
 TF32 is switched off for matmuls and cuDNN, so fp32 work runs in fp32.
 
 Prints the nvidia-smi line, a ``{"kernels": [...]}`` line, a
-``{"serving": {...}}`` line, a ``{"train": {...}}`` line and, last,
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
-last line; so does a machine without a GPU. Run from the repository root:
-``python3 chip_smoke.py``.
+``{"serving": {...}}`` line, a ``{"train": {...}}`` line, a
+``{"train_rqvae": {...}}`` line and, last, ``{"ok": true, "device": {...}}``.
+Any failure exits non-zero before the last line; so does a machine without
+a GPU. Run from the repository root: ``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 N_ITEMS = 12101
@@ -69,6 +97,14 @@ ML_BATCH = 256
 ML_HIST = 200
 ML_ITEMS = 84432
 ML_GEN_BATCH = 64
+
+RQ_ITERS = 400          # stage-1 flagship steps
+STRETCH_BATCH = 1024    # bench.py's rqvae_stretch: 4 x 2048 codebooks, embed 64
+STRETCH_LEVELS = 4
+STRETCH_K = 2048
+STRETCH_EMBED = 64
+STRETCH_STEPS = 16      # steps per device-resident chunk
+STRETCH_CHUNKS = 3      # timed chunks
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32, outside the tensor cores
@@ -138,7 +174,7 @@ def main() -> int:
     # ---- build every kernel of the path from the checkout's sources ----
     t0 = time.perf_counter()
     logs = _cuda_build.build_all(["rq_tokenize", "children_window", "flash_attention_fwd",
-                                  "flash_attention_bwd"])
+                                  "flash_attention_bwd", "rq_quantize_train"])
     build_s = time.perf_counter() - t0
     for name, text in logs.items():
         for line in text.splitlines():
@@ -240,23 +276,18 @@ def main() -> int:
     cbs = rqvae.effective_codebooks(rq_params, rq_cfg).float().contiguous()
     chunks = [rqvae.encode(rq_params, rq_cfg, corpus[i:i + 4096]).float().contiguous()
               for i in range(0, N_ITEMS, 4096)]
-    n_ties = n_diff = 0
+    n_diff = n_ties = n_ties_d0 = 0
     rq_err = 0.0
     for z in chunks:
         k_out = rq_tokenize(z, cbs, commitment_weight=rq_cfg.commitment_weight)
-        p_out = rq_tokenize_plain(z, cbs, commitment_weight=rq_cfg.commitment_weight)
-        differ = (k_out.sem_ids != p_out.sem_ids).any(-1)
-        near = _near_ties(z, cbs, p_out.sem_ids)
-        check(not bool((differ & ~near).any()), "rq_tokenize ids differ off near-ties")
-        n_ties += int(near.sum())
-        n_diff += int(differ.sum())
-        same = ~differ
-        for a, b in zip(k_out[1:], p_out[1:]):
-            check(torch.allclose(a[same], b[same], rtol=1e-5, atol=1e-5),
-                  "rq_tokenize sums / residual / loss differ from the plain version")
-            rq_err = max(rq_err, float((a[same] - b[same]).abs().max()))
-    log(f"rq_tokenize vs plain: {n_diff} rows with other ids, {n_ties} near-tie rows, "
+        held = _hold_rq_tokenize(z, cbs, rq_cfg.commitment_weight, k_out)
+        n_diff, n_ties, n_ties_d0 = n_diff + held[0], n_ties + held[1], n_ties_d0 + held[2]
+        rq_err = max(rq_err, held[3])
+    log(f"rq_tokenize vs plain: {n_diff} rows with other ids, near-tie rows {n_ties} "
+        f"(gap < 1e-5 of ||r||^2 + ||cb||^2) / {n_ties_d0} (gap < 1e-5 of max(d0, 1)), "
         f"max |err| {rq_err:.2e}")
+    rq_check = dict(rows=N_ITEMS, id_rows_differ=n_diff, near_tie_rows_terms=n_ties,
+                    near_tie_rows_d0=n_ties_d0, max_abs_err=rq_err)
     z0 = chunks[0]
     b0, d0 = z0.shape
     n_lv, n_code = cbs.shape[:2]
@@ -321,6 +352,9 @@ def main() -> int:
     serving = dict(corpus_tokenize_ms=tok_ms, generate_ms=gen_ms,
                    queries_per_s=BATCH / (gen_ms / 1e3), first_main_path_ms=first_run_ms,
                    build_s=build_s, batch=BATCH, beams=BEAMS, corpus_items=N_ITEMS,
+                   rq_tokenize_check=rq_check,
+                   corpus_tokenize_profile=_profile(lambda: semids.precompute_corpus_ids(
+                       rq_params, rq_cfg, corpus)),
                    generate_profile=_profile(lambda: generation.generate_next_sem_ids(
                        dec_params, dec_cfg, index, tok, k=BEAMS, n_candidates=256)))
     del rq_params, corpus, index, dec_params, params32, chunks, cw_inputs, big, out, again
@@ -329,9 +363,15 @@ def main() -> int:
     train, ml_serving, flash_kernels = _ml32m(dev)
     kernels += flash_kernels
     serving["ml32m"] = ml_serving
+    torch.cuda.empty_cache()
+
+    # ---- stage-1 RQ-VAE training, flagship and stretch ----
+    train_rqvae, stage1_kernels = _stage1(dev)
+    kernels += stage1_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"train_rqvae": train_rqvae}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -666,6 +706,391 @@ def _ml32m(dev):
     return train, ml_serving, flash_kernels
 
 
+def _stage1(dev):
+    """Phases 11-15: stage-1 RQ-VAE training at the flagship (Amazon) and the
+    stretch shape, rq_quantize_train and the K-tiled rq_tokenize against their
+    twins, GPU vs CPU, and the route timings. Returns (train_rqvae dict,
+    kernel entries)."""
+    import numpy as np
+    import torch
+
+    from rqvae_tpu_torch.data.synthetic import synthetic_items
+    from rqvae_tpu_torch.models import quantize, rqvae
+    from rqvae_tpu_torch.ops import quantize_kernels as qk
+    from rqvae_tpu_torch.train import checkpoint, optim
+    from rqvae_tpu_torch.train import train_rqvae as tr
+    from rqvae_tpu_torch.utils import config as config_lib
+    from rqvae_tpu_torch.utils.logging import MetricsLogger
+    from rqvae_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    n_chunks = math.ceil(N_ITEMS / 4096)  # precompute_corpus_ids' chunks
+
+    # ---- phase 11: the flagship through train() ----
+    class Capture(MetricsLogger):
+        def __init__(self):
+            super().__init__(every=1)
+            self.records = []
+
+        def log(self, step, metrics, force=False):
+            self.records.append({"step": step, "t": time.perf_counter(),
+                                 **{k: float(np.asarray(v)) for k, v in metrics.items()}})
+
+    real_prime = rqvae.kmeans_prime
+    prime_ms = []
+
+    def timed_prime(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        primed = real_prime(*args, **kwargs)
+        torch.cuda.synchronize()
+        prime_ms.append((time.perf_counter() - t0) * 1e3)
+        return primed
+
+    config = pathlib.Path(__file__).resolve().parent / "configs" / "rqvae_amazon.json"
+    cap = Capture()
+    rqvae.kmeans_prime = timed_prime
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = config_lib.load_config(tr.RqVaeTrainConfig, str(config), [
+                "dataset=SYNTHETIC", f"synthetic_n_items={N_ITEMS}", f"seed={SEED}",
+                f"iterations={RQ_ITERS}", "steps_per_call=8", "log_every=100",
+                f"eval_every={RQ_ITERS}", f"save_model_every={RQ_ITERS}",
+                f"save_dir_root={tmp}/rqvae"])
+            qk.rq_tokenize.launches = 0
+            qk.rq_quantize_train.launches = 0
+            t0 = time.perf_counter()
+            flag_params = tr.train(cfg, logger=cap, device=dev)
+            torch.cuda.synchronize()
+            flag_s = time.perf_counter() - t0
+            flag_launches = {"rq_tokenize": qk.rq_tokenize.launches,
+                             "rq_quantize_train": qk.rq_quantize_train.launches}
+            saved = checkpoint.latest_step(f"{tmp}/rqvae")
+    finally:
+        rqvae.kmeans_prime = real_prime
+    acfg = cfg.model_config()
+    logs = [r for r in cap.records if "total_loss" in r]
+    evals = [r for r in cap.records if "eval_total_loss" in r]
+    losses = [r["total_loss"] for r in logs]
+    log(f"stage-1 flagship: {flag_s:.1f} s, losses {losses}, launches {flag_launches}, "
+        f"eval {evals}")
+    check([r["step"] for r in logs] == [1] + list(range(100, RQ_ITERS + 1, 100)),
+          f"flagship log steps {[r['step'] for r in logs]}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite flagship loss {losses}")
+    check(losses[-1] < losses[0], f"flagship loss did not fall: {losses}")
+    check(len(evals) == 1 and evals[0]["step"] == RQ_ITERS, f"flagship evals {evals}")
+    check(all(math.isfinite(v) for v in evals[0].values()), f"non-finite eval {evals}")
+    check(flag_launches == {"rq_tokenize": n_chunks, "rq_quantize_train": 0},
+          f"flagship launches {flag_launches}: the eval tokenizes through rq_tokenize, the "
+          f"plain route (volume {acfg.codebook_size * acfg.embed_dim}) skips rq_quantize_train")
+    check(saved == RQ_ITERS - 1, f"flagship checkpoint step {saved}")
+    step_ms = (logs[-1]["t"] - logs[0]["t"]) * 1e3 / (logs[-1]["step"] - logs[0]["step"])
+    flagship = dict(kmeans_prime_ms=prime_ms[0], train_step_ms=step_ms,
+                    train_examples_per_s=cfg.batch_size / (step_ms / 1e3), losses=losses,
+                    eval={k: v for k, v in evals[0].items() if k != "t"}, launches=flag_launches,
+                    wall_s=flag_s, checkpoint_step=saved, batch=cfg.batch_size,
+                    iterations=RQ_ITERS, steps_per_call=cfg.steps_per_call)
+
+    # ---- phase 12: the stretch shape, device-resident chunks on the fused route ----
+    mcfg = rqvae.RqVaeConfig(input_dim=INPUT_DIM, embed_dim=STRETCH_EMBED,
+                             hidden_dims=(512, 256, 128), codebook_size=STRETCH_K,
+                             n_layers=STRETCH_LEVELS, n_cat_feats=0,
+                             codebook_mode="ROTATION_TRICK")
+    check(mcfg.codebook_size * mcfg.embed_dim >= rqvae.FUSED_TRAIN_MIN_CODEBOOK_VOLUME,
+          "the stretch shape should take the fused route")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    corpus = torch.randn((N_ITEMS, INPUT_DIM), generator=gen, device=dev)
+    params = rqvae.init(torch.Generator().manual_seed(SEED), mcfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = rqvae.kmeans_prime(params, mcfg, corpus, gen)
+    torch.cuda.synchronize()
+    stretch_prime_ms = (time.perf_counter() - t0) * 1e3
+    opt = optim.adamw(5e-4, 0.01)
+    opt_state = opt.init(params)
+    chunk = tr.make_device_chunk(mcfg, opt, 1, torch.bfloat16, STRETCH_BATCH, STRETCH_STEPS)
+    params, opt_state, m = chunk(params, opt_state, corpus, gen, 0.2)  # warm-up
+    first_loss = float(m["total_loss"])
+    qk.rq_quantize_train.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(STRETCH_CHUNKS):
+        params, opt_state, m = chunk(params, opt_state, corpus, gen, 0.2)
+    torch.cuda.synchronize()
+    stretch_ms = (time.perf_counter() - t0) * 1e3 / (STRETCH_CHUNKS * STRETCH_STEPS)
+    stretch_launches = qk.rq_quantize_train.launches
+    last_loss = float(m["total_loss"])
+    check(stretch_launches == STRETCH_CHUNKS * STRETCH_STEPS,
+          f"rq_quantize_train: {stretch_launches} launches in {STRETCH_CHUNKS * STRETCH_STEPS} "
+          "stretch steps, expected one per step")
+    check(math.isfinite(first_loss) and math.isfinite(last_loss),
+          f"non-finite stretch loss {first_loss}, {last_loss}")
+    # the corpus chunks that the diversity metrics tokenize, with the ids
+    # they got, are recorded to be held against the twin in phase 13
+    div_calls = []
+    real_tok = rqvae.rq_tokenize
+
+    def record_tok(z, cbs, commitment_weight):
+        out = real_tok(z, cbs, commitment_weight=commitment_weight)
+        div_calls.append((z.detach().clone(), cbs.detach().clone(), commitment_weight, out))
+        return out
+
+    qk.rq_tokenize.launches = 0
+    rqvae.rq_tokenize = record_tok
+    try:
+        div = tr.id_diversity_metrics(params, mcfg, corpus)
+        torch.cuda.synchronize()
+    finally:
+        rqvae.rq_tokenize = real_tok
+    div_launches = qk.rq_tokenize.launches
+    check(div_launches == n_chunks, f"stretch diversity metrics: {div_launches} rq_tokenize launches")
+    log(f"stage-1 stretch: {stretch_ms:.2f} ms/step, loss {first_loss:.4f} -> {last_loss:.4f}, "
+        f"k-means priming {stretch_prime_ms:.0f} ms, diversity {div}")
+    stretch_profile = _profile(lambda: chunk(params, opt_state, corpus, gen, 0.2), top=10)
+    stretch = dict(train_step_ms=stretch_ms, train_examples_per_s=STRETCH_BATCH / (stretch_ms / 1e3),
+                   kmeans_prime_ms=stretch_prime_ms, losses=[first_loss, last_loss],
+                   rq_quantize_train_launches=stretch_launches,
+                   steps_timed=STRETCH_CHUNKS * STRETCH_STEPS, batch=STRETCH_BATCH,
+                   steps_per_call=STRETCH_STEPS,
+                   diversity={k: float(v) for k, v in div.items()},
+                   rq_tokenize_launches=div_launches, chunk_profile=stretch_profile)
+
+    # ---- phase 13: the kernels against their twins on the stretch step's operands ----
+    rec = {}
+    real_fused = rqvae.rq_quantize_train
+
+    def record(x, cbs, mode, beta):
+        rec.setdefault("x", x.detach().clone())
+        rec.setdefault("cbs", cbs.detach().clone())
+        return real_fused(x, cbs, mode, beta)
+
+    rqvae.rq_quantize_train = record
+    try:
+        one = tr.make_device_chunk(mcfg, opt, 1, torch.bfloat16, STRETCH_BATCH, 1)
+        params, opt_state, _ = one(params, opt_state, corpus, gen, 0.2)
+    finally:
+        rqvae.rq_quantize_train = real_fused
+    torch.cuda.synchronize()
+    check(rec["x"].dtype == torch.bfloat16
+          and tuple(rec["x"].shape) == (STRETCH_BATCH, STRETCH_EMBED),
+          f"recorded encoder output {rec['x'].dtype} {tuple(rec['x'].shape)}")
+    xs = rec["x"].float().contiguous()
+    cbs = rec["cbs"].float().contiguous()
+    with torch.no_grad():
+        k_out = qk.rq_quantize_train(xs, cbs, "ROTATION_TRICK", 0.25)
+        p_out = qk.rq_quantize_train_plain(xs, cbs, commitment_weight=0.25)
+    near = _near_ties(xs, cbs, p_out.sem_ids)
+    differ = (k_out.sem_ids != p_out.sem_ids).any(-1)
+    check(not bool((differ & ~near).any()), "rq_quantize_train ids differ off near-ties")
+    same = ~differ
+    train_err = 0.0
+    for name in ("embeddings", "residuals", "quantize_loss"):
+        a, b = getattr(k_out, name)[same], getattr(p_out, name)[same]
+        check(torch.allclose(a, b, rtol=1e-5, atol=1e-5),
+              f"rq_quantize_train {name} differs from the plain twin")
+        train_err = max(train_err, float((a - b).abs().max()))
+    log(f"rq_quantize_train vs plain: {int(differ.sum())} rows with other ids, "
+        f"{int(near.sum())} near-tie rows, max |err| {train_err:.2e}")
+
+    # gradients: the Function on the card against the plain per-level chain,
+    # on the rows without a near-tie (there the two may pick other codes)
+    keep = ~near
+    w = torch.randn((STRETCH_EMBED, 16), generator=gen, device=dev) / 8.0
+
+    def readout(embs, q_loss):
+        z = torch.sum(embs, dim=-1) @ w
+        return torch.mean(torch.sum(z * z, dim=-1)) + torch.mean(q_loss)
+
+    grad_checks = {}
+    for mode in ("STE", "ROTATION_TRICK"):
+        xa, ca = xs[keep].clone().requires_grad_(True), cbs.clone().requires_grad_(True)
+        o = qk.rq_quantize_train(xa, ca, mode, 0.25)
+        got = torch.autograd.grad(readout(o.embeddings, o.quantize_loss), (xa, ca))
+        xb, cb_ = xs[keep].clone().requires_grad_(True), cbs.clone().requires_grad_(True)
+        res, embs, q_loss = xb, [], 0.0
+        for level in range(cbs.shape[0]):
+            q = quantize.apply({"codebook": cb_[level]}, res,
+                               mode=quantize.QuantizeForwardMode[mode], commitment_weight=0.25,
+                               training=True)
+            q_loss = q_loss + q.loss
+            res = res - q.embeddings
+            embs.append(q.embeddings)
+        want = torch.autograd.grad(readout(torch.stack(embs, dim=-1), q_loss), (xb, cb_))
+        row = {}
+        for name, a, b in (("x", got[0], want[0]), ("codebooks", got[1], want[1])):
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            check(err <= 1e-4 * scale, f"rq_quantize_train {mode} d{name}: {err} of {scale}")
+            row[name] = err / scale
+        grad_checks[mode] = row
+    log(f"rq_quantize_train gradients vs the plain chain ({int(keep.sum())} rows), "
+        f"error / max-abs: {grad_checks}")
+
+    # the K-tiled rq_tokenize at 4 x 2048 x 64: the ids that the diversity
+    # metrics got on each corpus chunk (4,096 rows twice, then the 3,909-row
+    # tail: 512 blocks of 8 rows, the last one part-filled), and the step's
+    # own 1,024 rows
+    with torch.no_grad():
+        tok_cases = [(f"diversity chunk {i}", z, c, beta, out)
+                     for i, (z, c, beta, out) in enumerate(div_calls)]
+        tok_cases.append(("stretch batch", xs, cbs, 0.25, qk.rq_tokenize(xs, cbs)))
+        tok_checks = {}
+        for name, z, c, beta, out in tok_cases:
+            n_diff, n_near, n_near_d0, err = _hold_rq_tokenize(z, c, beta, out)
+            tok_checks[name] = dict(rows=z.shape[0], id_rows_differ=n_diff, near_tie_rows=n_near,
+                                    near_tie_rows_d0=n_near_d0, max_abs_err=err)
+    chunk_rows = [z.shape[0] for _, z, *_ in tok_cases[:-1]]
+    check(chunk_rows == [min(4096, N_ITEMS - i) for i in range(0, N_ITEMS, 4096)],
+          f"diversity chunks {chunk_rows}")
+    log(f"K-tiled rq_tokenize vs plain at 4x2048x64: {tok_checks}")
+
+    # odd shapes the main paths do not give: a part-filled last code tile
+    # (K = 7, 300, 1000 against 512-code tiles), D padded to a multiple of 4
+    # (D = 3), D = 128, and row counts that leave the last block part-filled
+    odd_checks = {}
+    with torch.no_grad():
+        for b_odd, n_lv, k_odd, d_odd in ((37, 2, 32, 16), (100, 3, 300, 128), (513, 2, 1000, 64),
+                                          (5, 1, 7, 3)):
+            x_odd = torch.randn((b_odd, d_odd), generator=gen, device=dev)
+            cb_odd = torch.randn((n_lv, k_odd, d_odd), generator=gen, device=dev) * 0.7
+            shape = f"{b_odd}x{n_lv}x{k_odd}x{d_odd}"
+            n_diff, n_near, _, err = _hold_rq_tokenize(x_odd, cb_odd, 0.25,
+                                                       qk.rq_tokenize(x_odd, cb_odd))
+            odd_checks[f"rq_tokenize {shape}"] = dict(id_rows_differ=n_diff, max_abs_err=err)
+            k_odd_out = qk.rq_quantize_train(x_odd, cb_odd, "ROTATION_TRICK", 0.25)
+            p_odd_out = qk.rq_quantize_train_plain(x_odd, cb_odd, commitment_weight=0.25)
+            differ_o = (k_odd_out.sem_ids != p_odd_out.sem_ids).any(-1)
+            near_o = _near_ties(x_odd, cb_odd, p_odd_out.sem_ids)
+            check(not bool((differ_o & ~near_o).any()),
+                  f"rq_quantize_train ids differ off near-ties at {shape}")
+            err_o = 0.0
+            for name in ("embeddings", "residuals", "quantize_loss"):
+                a, b = getattr(k_odd_out, name)[~differ_o], getattr(p_odd_out, name)[~differ_o]
+                check(torch.allclose(a, b, rtol=1e-5, atol=1e-5),
+                      f"rq_quantize_train {name} differs from the plain twin at {shape}")
+                err_o = max(err_o, float((a - b).abs().max()))
+            odd_checks[f"rq_quantize_train {shape}"] = dict(id_rows_differ=int(differ_o.sum()),
+                                                            max_abs_err=err_o)
+    log(f"quantizer kernels vs plain at odd shapes: {odd_checks}")
+    kernel_checks = dict(
+        rq_quantize_train=dict(id_rows_differ=int(differ.sum()), near_tie_rows=int(near.sum()),
+                               max_abs_err=train_err, grad_err_over_max_abs=grad_checks),
+        rq_tokenize_4x2048x64=tok_checks, odd_shapes=odd_checks)
+
+    # ---- phase 14: two fp32 steps at the Amazon widths, GPU against CPU ----
+    cpu = torch.device("cpu")
+    pool = torch.from_numpy(synthetic_items(N_ITEMS, INPUT_DIM, seed=SEED + 1).x[:256]).to(dev)
+
+    def clean_rows(p, x, n=64):
+        """n rows of x with no near-tie (1e-4) along their id chain under p."""
+        with torch.no_grad():
+            z = rqvae.encode(p, acfg, x).float()
+            cb = rqvae.effective_codebooks(p, acfg).float()
+            ids = qk.rq_quantize_train_plain(z, cb).sem_ids
+            rows = x[~_near_ties(z, cb, ids, rel=1e-4)][:n]
+        check(rows.shape[0] == n, f"only {rows.shape[0]} rows without a near-tie")
+        return rows
+
+    class Recording:
+        """AdamW that keeps a copy of every gradient it applies."""
+
+        def __init__(self, opt):
+            self.opt, self.grads = opt, []
+
+        def update(self, params, state, grads):
+            self.grads.append(tree_leaves(tree_map(lambda g: g.detach().to(cpu, copy=True), grads)))
+            return self.opt.update(params, state, grads)
+
+    gpu_cpu = {}
+    default_volume = rqvae.FUSED_TRAIN_MIN_CODEBOOK_VOLUME
+    for route, volume in (("plain", default_volume), ("fused", 0)):
+        rqvae.FUSED_TRAIN_MIN_CODEBOOK_VOLUME = volume
+        try:
+            runs, batches = [], []
+            for device in (dev, cpu):
+                p = tree_map(lambda t: t.detach().to(device, copy=True), flag_params)
+                opt_r = Recording(optim.adamw(5e-4, 0.01))
+                state = opt_r.opt.init(p)
+                step = tr.make_train_step(acfg, opt_r, 1, torch.float32)
+                step_losses = []
+                for i in range(2):
+                    if device == dev:
+                        batches.append(clean_rows(p, pool[128 * i:128 * (i + 1)]))
+                    p, state, m = step(p, state, batches[i].to(device)[None], None, 0.2)
+                    step_losses.append(float(m["total_loss"]))
+                runs.append((step_losses, opt_r.grads))
+        finally:
+            rqvae.FUSED_TRAIN_MIN_CODEBOOK_VOLUME = default_volume
+        (lg, gg), (lc, gc) = runs
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+        leaf_rel = 0.0
+        for step_g, step_c in zip(gg, gc):
+            for a, b in zip(step_g, step_c):
+                err, scale = float((a - b).abs().max()), float(b.abs().max())
+                check(err <= 1e-4 * scale + 1e-12, f"{route}: GPU vs CPU leaf {err} of {scale}")
+                leaf_rel = max(leaf_rel, err / scale if scale else 0.0)
+        check(loss_rel <= 1e-5, f"{route}: GPU vs CPU stage-1 loss differs by {loss_rel} relative")
+        gpu_cpu[route] = dict(losses_gpu=lg, losses_cpu=lc, loss_rel_err=loss_rel,
+                              worst_leaf_rel_err=leaf_rel)
+    log(f"stage-1 fp32 steps, GPU vs CPU: {gpu_cpu}")
+
+    # ---- phase 15: kernel times and the two routes at both shapes ----
+    b, d = xs.shape
+    n_lv, n_code = cbs.shape[:2]
+    t_bytes = 4 * (b * d + n_lv * n_code * d + 2 * n_lv * b * d + b * n_lv + b)
+    t_flops = 2 * b * n_lv * n_code * d
+    t_ops, t_mem = t_flops / FP32_FLOP_PER_S, t_bytes / HBM_BYTES_PER_S
+    with torch.no_grad():
+        train_ms = cuda_ms(lambda: qk.rq_quantize_train(xs, cbs, "ROTATION_TRICK", 0.25), 50)
+        train_plain_ms = cuda_ms(lambda: qk.rq_quantize_train_plain(xs, cbs), 50)
+        z_big = rqvae.encode(params, mcfg, corpus[:4096]).float().contiguous()
+        tok_big_ms = cuda_ms(lambda: qk.rq_tokenize(z_big, cbs), 50)
+        tok_big_plain_ms = cuda_ms(lambda: qk.rq_tokenize_plain(z_big, cbs), 20)
+    tok_bytes = 4 * (4096 * d + n_lv * n_code * d + 2 * 4096 * d + 4096 * n_lv + 4096)
+    tok_flops = 2 * 4096 * n_lv * n_code * d
+    stage1_kernels = [dict(
+        name="rq_quantize_train", route="cuda", source="rqvae_tpu_torch/csrc/rq_quantize_train.cu",
+        replaces="rqvae_tpu/ops/quantize_pallas.py:179", launches=stretch_launches,
+        max_abs_err=train_err, ms=train_ms, plain_ms=train_plain_ms,
+        bound_ms=max(t_ops, t_mem) * 1e3, bound_by="operations" if t_ops > t_mem else "bytes",
+        library_ms=None)]
+    log(f"rq_quantize_train at B={b}, {n_lv}x{n_code}x{d}: {stage1_kernels[0]}")
+
+    def route_ms(model_cfg, p0, data, batch, dtype, steps, reps, fused):
+        rqvae.FUSED_TRAIN_MIN_CODEBOOK_VOLUME = 0 if fused else float("inf")
+        try:
+            p = tree_map(lambda t: t.detach().clone(), p0)
+            o = optim.adamw(5e-4, 0.01)
+            st = o.init(p)
+            ch = tr.make_device_chunk(model_cfg, o, 1, dtype, batch, steps)
+            p, st, _ = ch(p, st, data, gen, 0.2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                p, st, _ = ch(p, st, data, gen, 0.2)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / (reps * steps)
+        finally:
+            rqvae.FUSED_TRAIN_MIN_CODEBOOK_VOLUME = default_volume
+
+    amazon_data = torch.from_numpy(synthetic_items(N_ITEMS, INPUT_DIM, seed=SEED).x).to(dev)
+    routes = {}
+    for shape, args in (
+            ("amazon_3x256x32_bs64_fp32", (acfg, flag_params, amazon_data, 64, torch.float32, 8, 10)),
+            ("stretch_4x2048x64_bs1024_bf16", (mcfg, params, corpus, STRETCH_BATCH, torch.bfloat16,
+                                               STRETCH_STEPS, 3))):
+        runs = {"plain": [], "fused": []}
+        for route in ("plain", "fused", "fused", "plain"):
+            runs[route].append(route_ms(*args, fused=route == "fused"))
+        routes[shape] = {k: v for k, v in runs.items()}
+    log(f"stage-1 ms per step by route (plain, fused in turns): {routes}")
+
+    train_rqvae = dict(
+        flagship=flagship, stretch=stretch, kernel_checks=kernel_checks, gpu_vs_cpu=gpu_cpu,
+        route_ms_per_step=routes, fused_train_min_codebook_volume=default_volume,
+        rq_tokenize_4x2048x64=dict(rows=4096, ms=tok_big_ms, plain_ms=tok_big_plain_ms,
+                                   bound_ms=max(tok_flops / FP32_FLOP_PER_S,
+                                                tok_bytes / HBM_BYTES_PER_S) * 1e3))
+    return train_rqvae, stage1_kernels
+
+
 def _profile(fn, top: int = 8) -> dict:
     """One traced call of ``fn``: wall time, summed device time (the device's
     busy share of the wall time) and the ops with the most device time."""
@@ -698,9 +1123,14 @@ def _to_device(tree, device):
     return tree_map(lambda t: t.to(device), tree)
 
 
-def _near_ties(z, cbs, ids, rel: float = 1e-5):
+def _near_ties(z, cbs, ids, rel: float = 1e-5, scale: str = "terms"):
     """Rows where, along the ``ids`` residual chain, the two smallest
-    distances (float64) of some level differ by less than ``rel``."""
+    distances (float64) of some level differ by less than ``rel`` times a
+    scale: ``"terms"``, the size of the terms an fp32 distance sums
+    (||r||^2 + ||cb||^2 of the winner), since its rounding error grows with
+    them and not with their difference; ``"d0"``, max(d0, 1) of the smallest
+    distance (the rule before the stage-1 phases, reported beside it). There
+    sums taken in another order may pick either code."""
     import torch
 
     res = z.double()
@@ -708,9 +1138,39 @@ def _near_ties(z, cbs, ids, rel: float = 1e-5):
     for level, cb in enumerate(cbs.double()):
         dist = torch.cdist(res, cb) ** 2
         two = torch.topk(dist, 2, dim=1, largest=False).values
-        near |= (two[:, 1] - two[:, 0]) < rel * torch.clamp(two[:, 0].abs(), min=1.0)
-        res = res - cb[ids[:, level].long()]
+        win = cb[ids[:, level].long()]
+        if scale == "terms":
+            size = torch.sum(res * res, dim=1) + torch.sum(win * win, dim=1)
+        else:
+            size = torch.clamp(two[:, 0].abs(), min=1.0)
+        near |= (two[:, 1] - two[:, 0]) < rel * size
+        res = res - win
     return near
+
+
+def _hold_rq_tokenize(z, cbs, beta, k_out):
+    """Hold one rq_tokenize result against its plain twin on the same
+    operands: ids equal except on rows that are near-ties under both scales
+    of ``_near_ties``, sums / residual / loss to 1e-5 on the rows whose ids
+    agree. Returns (rows with other ids, near-tie rows under the "terms" and
+    the "d0" scale, max |err|)."""
+    import torch
+
+    from rqvae_tpu_torch.ops.quantize_kernels import rq_tokenize_plain
+
+    p_out = rq_tokenize_plain(z, cbs, commitment_weight=beta)
+    differ = (k_out.sem_ids != p_out.sem_ids).any(-1)
+    near = _near_ties(z, cbs, p_out.sem_ids)
+    near_d0 = _near_ties(z, cbs, p_out.sem_ids, scale="d0")
+    check(not bool((differ & ~(near & near_d0)).any()),
+          f"rq_tokenize ids differ off near-ties at {tuple(z.shape)}")
+    same = ~differ
+    err = 0.0
+    for a, b in zip(k_out[1:], p_out[1:]):
+        check(torch.allclose(a[same], b[same], rtol=1e-5, atol=1e-5),
+              f"rq_tokenize sums / residual / loss differ from the plain version at {tuple(z.shape)}")
+        err = max(err, float((a[same] - b[same]).abs().max()))
+    return int(differ.sum()), int(near.sum()), int(near_d0.sum()), err
 
 
 if __name__ == "__main__":

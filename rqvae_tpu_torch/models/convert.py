@@ -6,6 +6,9 @@ so conversion is a leaf-by-leaf copy:
 * ``from_numpy`` takes a parameter tree of numpy arrays, e.g.
   ``jax.device_get(rqvae.init(...))`` or ``retrieval.init(...)``, and returns
   the same tree of tensors on ``device``.
+* ``adamw_state_from_numpy`` takes an ``optax.adamw`` state as numpy (e.g.
+  ``jax.device_get(opt.init(params))``) and returns the port's
+  ``AdamWState``: the count and the ``ScaleByAdamState`` moments.
 * ``load_pretrained`` reads a directory written by the JAX package's
   ``models/io.py:save_pretrained`` ({model_config.json, step_0/}) and returns
   (params, config) of the port. It reads the npz layout directly and the
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from rqvae_tpu_torch.models import retrieval, rqvae
+from rqvae_tpu_torch.train.optim import AdamWState
 from rqvae_tpu_torch.utils.device import resolve_device
 from rqvae_tpu_torch.utils.tree import tree_leaves_with_path, tree_map
 
@@ -50,6 +54,15 @@ def from_numpy(tree, *, device=None, dtype=None):
     when given."""
     dev = resolve_device(device)
     return tree_map(lambda a: _to_tensor(a, dev, dtype), tree)
+
+
+def adamw_state_from_numpy(state, *, device=None) -> AdamWState:
+    """optax.adamw state (a tuple whose first element carries ``count``,
+    ``mu`` and ``nu``) -> ``AdamWState`` on ``device``; the moments keep
+    their dtype (fp32)."""
+    adam = next(s for s in state if hasattr(s, "mu") and hasattr(s, "nu"))
+    return AdamWState(int(adam.count), from_numpy(adam.mu, device=device),
+                      from_numpy(adam.nu, device=device))
 
 
 def _config_from_dict(kind: str, d: dict):

@@ -1,21 +1,34 @@
 """RQ-VAE: MLP autoencoder with a residual-quantization bottleneck
-(counterpart of rqvae_tpu/models/rqvae.py), eval / tokenize path.
+(counterpart of rqvae_tpu/models/rqvae.py).
 
-Ported: config, ``init``, ``encode``, ``decode``, ``effective_codebooks``,
-``get_semantic_ids`` (eval mode) and ``encode_and_tokenize``, which routes
-through the ``rq_tokenize`` kernel wrapper (CUDA kernel on the GPU, its
-plain twin on the CPU). Training and k-means priming are not ported yet.
+* ``encode`` / ``decode``: MLPs; the decoder ends in an l2-norm layer;
+* ``get_semantic_ids``: n_layers sequential quantize levels, residual
+  update res <- res - emb; in training, the hard estimators (STE, rotation
+  trick) go through the fused ``rq_quantize_train`` kernel at large
+  codebooks (``FUSED_TRAIN_MIN_CODEBOOK_VOLUME``), the rest through the
+  plain per-level loop of ``quantize.apply``;
+* ``forward``: loss = mean(recon + sum of the levels' quantize losses), with
+  the per-level embedding norms and the fraction of unique id tuples;
+* ``kmeans_prime``: per-level k-means codebook init on a priming batch, where
+  level i's k-means sees the residuals of level i-1's training-mode forward;
+* ``encode_and_tokenize``: encoder + the ``rq_tokenize`` kernel.
+
+The kernel wrappers run their CUDA kernels on the GPU and their plain twins
+on the CPU, so a GPU run and a CPU run of one config take the same route.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from rqvae_tpu_torch.models import kmeans as kmeans_lib
 from rqvae_tpu_torch.models import mlp, quantize
+from rqvae_tpu_torch.models.losses import categorical_reconstruction_loss
+from rqvae_tpu_torch.models.normalize import l2norm
 from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
-from rqvae_tpu_torch.ops.quantize_kernels import rq_tokenize
+from rqvae_tpu_torch.ops.quantize_kernels import rq_quantize_train, rq_tokenize
 from rqvae_tpu_torch.utils.device import resolve_device
 
 
@@ -46,6 +59,14 @@ class RqVaeOutput(NamedTuple):
     quantize_loss: torch.Tensor  # (B,)
 
 
+class RqVaeLosses(NamedTuple):
+    loss: torch.Tensor                 # scalar
+    reconstruction_loss: torch.Tensor  # scalar
+    rqvae_loss: torch.Tensor           # scalar
+    embs_norm: torch.Tensor            # (B, L)
+    p_unique_ids: torch.Tensor         # scalar
+
+
 def init(gen: torch.Generator, cfg: RqVaeConfig, *, device=None):
     """Random parameters with the JAX pytree layout; on ``cuda`` unless
     ``device`` says otherwise."""
@@ -70,26 +91,54 @@ def decode(params, cfg: RqVaeConfig, z: torch.Tensor) -> torch.Tensor:
     return mlp.apply(params["decoder"], z, normalize=True)
 
 
-def _level_normalize(cfg: RqVaeConfig, level: int) -> bool:
-    # only level 0 normalizes its codebook
-    return level == 0 and cfg.codebook_normalize
+def _level_kwargs(cfg: RqVaeConfig, level: int):
+    return dict(
+        mode=cfg.codebook_mode,
+        # only level 0 normalizes its codebook
+        normalize=(level == 0 and cfg.codebook_normalize),
+        commitment_weight=cfg.commitment_weight,
+    )
 
 
-def get_semantic_ids(params, cfg: RqVaeConfig, x: torch.Tensor, *,
-                     training: bool = False) -> RqVaeOutput:
-    """Encode then quantize through n_layers levels (eval mode)."""
-    if training:
-        raise NotImplementedError("RQ-VAE training is not ported yet")
+# codebook_size * embed_dim from which the hard estimators take the fused
+# training kernel. The value is the JAX package's, measured on a TPU v5e;
+# chip_smoke.py times both routes at the Amazon and the stretch shape on the
+# H100 (PERF.md, ROADMAP.md B4), and the threshold stays until that says
+# otherwise.
+FUSED_TRAIN_MIN_CODEBOOK_VOLUME = 65536
+
+
+def _fused_train_quantize(params, cfg: RqVaeConfig, res: torch.Tensor) -> RqVaeOutput:
+    """The hard estimators through one ``rq_quantize_train`` call for the
+    whole residual loop; outputs cast back to the residual's dtype."""
+    out = rq_quantize_train(res, effective_codebooks(params, cfg), cfg.codebook_mode.name,
+                            cfg.commitment_weight)
+    dt = res.dtype
+    return RqVaeOutput(
+        embeddings=out.embeddings.to(dt),
+        residuals=out.residuals.to(dt),
+        sem_ids=out.sem_ids,
+        quantize_loss=out.quantize_loss.to(dt),
+    )
+
+
+def get_semantic_ids(params, cfg: RqVaeConfig, x: torch.Tensor, *, gumbel_t: float = 0.001,
+                     training: bool = False,
+                     generator: Optional[torch.Generator] = None) -> RqVaeOutput:
+    """Encode then quantize through n_layers levels. The Gumbel estimator
+    draws its noise from ``generator``, level by level."""
     res = encode(params, cfg, x)
+    if (training
+            and cfg.codebook_mode in (QuantizeForwardMode.STE, QuantizeForwardMode.ROTATION_TRICK)
+            and cfg.codebook_size * cfg.embed_dim >= FUSED_TRAIN_MIN_CODEBOOK_VOLUME):
+        return _fused_train_quantize(params, cfg, res)
     embs, residuals, sem_ids = [], [], []
     q_loss = torch.zeros(res.shape[:-1], dtype=res.dtype, device=res.device)
     for level in range(cfg.n_layers):
         residuals.append(res)
-        out = quantize.apply(
-            params["layers"][level], res,
-            normalize=_level_normalize(cfg, level),
-            commitment_weight=cfg.commitment_weight,
-        )
+        out = quantize.apply(params["layers"][level], res, temperature=gumbel_t,
+                             training=training, generator=generator,
+                             **_level_kwargs(cfg, level))
         q_loss = q_loss + out.loss
         res = res - out.embeddings
         embs.append(out.embeddings)
@@ -102,11 +151,47 @@ def get_semantic_ids(params, cfg: RqVaeConfig, x: torch.Tensor, *,
     )
 
 
+def _split_l2norm(x_hat: torch.Tensor, n_cat: int) -> torch.Tensor:
+    """l2-normalize the dense slice, pass the categorical tail through. With
+    n_cat == 0 the reference's slicing makes this a no-op, and so it is here."""
+    if n_cat == 0:
+        return x_hat
+    return torch.cat([l2norm(x_hat[..., :-n_cat]), x_hat[..., -n_cat:]], dim=-1)
+
+
+def forward(params, cfg: RqVaeConfig, x: torch.Tensor, *, gumbel_t: float,
+            training: bool = False, generator: Optional[torch.Generator] = None) -> RqVaeLosses:
+    """Full train / eval forward: losses and the batch statistics."""
+    out = get_semantic_ids(params, cfg, x, gumbel_t=gumbel_t, training=training,
+                           generator=generator)
+    x_hat = decode(params, cfg, torch.sum(out.embeddings, dim=-1))
+    x_hat = _split_l2norm(x_hat, cfg.n_cat_feats)
+
+    # fp32 loss island under bf16 compute
+    recon = categorical_reconstruction_loss(x_hat, x, cfg.n_cat_feats).float()
+    loss = torch.mean(recon + out.quantize_loss.float())
+
+    embs_norm = torch.linalg.vector_norm(out.embeddings.detach(), dim=1)  # (B, L)
+    ids = out.sem_ids.detach()
+    eq = torch.all(ids[:, None, :] == ids[None, :, :], dim=-1)  # (B, B)
+    upper = torch.triu(eq, diagonal=1)  # duplicates strictly above the diagonal
+    is_unique_row = torch.all(~upper, dim=1)
+    p_unique = torch.sum(is_unique_row).float() / ids.shape[0]
+
+    return RqVaeLosses(
+        loss=loss,
+        reconstruction_loss=torch.mean(recon),
+        rqvae_loss=torch.mean(out.quantize_loss),
+        embs_norm=embs_norm,
+        p_unique_ids=p_unique,
+    )
+
+
 def effective_codebooks(params, cfg: RqVaeConfig) -> torch.Tensor:
     """(L, K, D) stack of post-SimVQ / post-norm codebooks."""
     return torch.stack([
         quantize.effective_codebook(params["layers"][level],
-                                    normalize=_level_normalize(cfg, level))
+                                    normalize=(level == 0 and cfg.codebook_normalize))
         for level in range(cfg.n_layers)
     ], dim=0)
 
@@ -118,3 +203,21 @@ def encode_and_tokenize(params, cfg: RqVaeConfig, x: torch.Tensor) -> torch.Tens
     z = encode(params, cfg, x).float().contiguous()
     cbs = effective_codebooks(params, cfg).float().contiguous()
     return rq_tokenize(z, cbs, commitment_weight=cfg.commitment_weight).sem_ids
+
+
+def kmeans_prime(params, cfg: RqVaeConfig, x: torch.Tensor, generator: torch.Generator, *,
+                 gumbel_t: float = 0.2) -> dict:
+    """Sequential per-level k-means codebook init on a priming batch: level
+    i's k-means runs on the residuals left after level i-1's training-mode
+    forward (with its own k-means codebook). Returns new params; k-means and
+    the Gumbel noise draw from ``generator`` in that order."""
+    with torch.no_grad():
+        res = encode(params, cfg, x)
+        layers = list(params["layers"])
+        for level in range(cfg.n_layers):
+            centroids = kmeans_lib.kmeans(res, cfg.codebook_size, generator=generator).centroids
+            layers[level] = {**layers[level], "codebook": centroids.to(layers[level]["codebook"])}
+            out = quantize.apply(layers[level], res, temperature=gumbel_t, training=True,
+                                 generator=generator, **_level_kwargs(cfg, level))
+            res = res - out.embeddings
+    return {**params, "layers": layers}

@@ -1,11 +1,19 @@
-"""Fused residual-quantization tokenize kernel (counterpart of
-rqvae_tpu/ops/quantize_pallas.py:rq_tokenize).
+"""Fused residual-quantization kernels (counterpart of
+rqvae_tpu/ops/quantize_pallas.py).
 
-``rq_tokenize`` launches the hand-written CUDA kernel ``csrc/rq_tokenize.cu``
-for CUDA tensors and runs ``rq_tokenize_plain`` for CPU tensors; there is no
-fallback from one to the other. The kernel replaces the TPU's ``_rq_kernel``;
-its source note says what bounds it on an H100 and how it is laid out.
-``rq_tokenize.launches`` counts kernel launches.
+* ``rq_tokenize`` (eval / tokenize path) launches ``csrc/rq_tokenize.cu``
+  for CUDA tensors and runs ``rq_tokenize_plain`` for CPU tensors.
+* ``rq_quantize_train`` (stage-1 training path) is an autograd ``Function``:
+  its forward launches ``csrc/rq_quantize_train.cu`` for CUDA tensors and
+  runs ``rq_quantize_train_plain`` for CPU tensors; its backward is the JAX
+  package's ``_rq_train_bwd`` in torch ops (plain jnp there too): the
+  estimator-exact STE / rotation-trick gradients, levels in reverse.
+
+There is no fallback from a kernel to its twin. Both kernels share the
+K-tiled loop of ``csrc/rq_common.cuh``, so any (L, K, D) stack with D <= 128
+runs; its note says what bounds the kernels on an H100 and how they are laid
+out. ``rq_tokenize.launches`` and ``rq_quantize_train.launches`` count
+kernel launches.
 """
 from __future__ import annotations
 
@@ -13,6 +21,8 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+
+MAX_D = 128  # rq::kMaxD in csrc/rq_common.cuh
 
 
 class RqTokenizeOutput(NamedTuple):
@@ -22,15 +32,21 @@ class RqTokenizeOutput(NamedTuple):
     loss: torch.Tensor      # (B,) summed (1+beta)*||res_l - emb_l||^2
 
 
-def rq_tokenize_plain(x: torch.Tensor, codebooks: torch.Tensor, *,
-                      commitment_weight: float = 0.25) -> RqTokenizeOutput:
-    """Plain PyTorch twin of the kernel, same arithmetic in fp32:
-    ||r||^2 - 2 r.cb + ||cb||^2, argmin (first index on ties), gather."""
+class RqTrainOutput(NamedTuple):
+    embeddings: torch.Tensor     # (B, D, L) estimator outputs (== codewords)
+    residuals: torch.Tensor      # (B, D, L) pre-level residuals (res_0 = x)
+    sem_ids: torch.Tensor        # (B, L) int32
+    quantize_loss: torch.Tensor  # (B,) summed (1+beta)*||res_l - emb_l||^2
+
+
+def _plain_levels(x: torch.Tensor, codebooks: torch.Tensor, commitment_weight: float):
+    """The kernels' arithmetic in torch ops, fp32: per level
+    (||r||^2 - 2 r.cb) + ||cb||^2, argmin (first index on ties), gather.
+    Returns (ids, pre-level residuals, codewords, loss, final residual)."""
     res = x.float()
     cbs = codebooks.float()
-    emb_sum = torch.zeros_like(res)
     loss = torch.zeros(res.shape[0], dtype=torch.float32, device=res.device)
-    ids = []
+    ids, residuals, embs = [], [], []
     for level in range(cbs.shape[0]):
         cb = cbs[level]
         dist = (
@@ -40,76 +56,218 @@ def rq_tokenize_plain(x: torch.Tensor, codebooks: torch.Tensor, *,
         emb = cb[idx]
         diff = res - emb
         loss = loss + (1.0 + commitment_weight) * torch.sum(diff * diff, dim=-1)
-        emb_sum = emb_sum + emb
-        res = diff
         ids.append(idx.to(torch.int32))
-    return RqTokenizeOutput(torch.stack(ids, dim=-1), emb_sum, res, loss)
+        residuals.append(res)
+        embs.append(emb)
+        res = diff
+    return torch.stack(ids, dim=-1), residuals, embs, loss, res
 
 
-def _lib() -> ctypes.CDLL:
+def rq_tokenize_plain(x: torch.Tensor, codebooks: torch.Tensor, *,
+                      commitment_weight: float = 0.25) -> RqTokenizeOutput:
+    """Plain PyTorch twin of the tokenize kernel."""
+    ids, _, embs, loss, res = _plain_levels(x, codebooks, commitment_weight)
+    emb_sum = torch.zeros_like(res)
+    for emb in embs:
+        emb_sum = emb_sum + emb
+    return RqTokenizeOutput(ids, emb_sum, res, loss)
+
+
+def rq_quantize_train_plain(x: torch.Tensor, codebooks: torch.Tensor, *,
+                            commitment_weight: float = 0.25) -> RqTrainOutput:
+    """Plain PyTorch twin of the training forward kernel (no gradients)."""
+    ids, residuals, embs, loss, _ = _plain_levels(x, codebooks, commitment_weight)
+    return RqTrainOutput(torch.stack(embs, dim=-1), torch.stack(residuals, dim=-1), ids, loss)
+
+
+def _lib(name: str) -> ctypes.CDLL:
     from rqvae_tpu_torch.ops import _cuda_build
 
-    lib = _cuda_build.load("rq_tokenize")
+    lib = _cuda_build.load(name)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rq_tokenize_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
-        lib.rq_tokenize_launch.restype = i
-        lib.rq_tokenize_smem_bytes.argtypes = [i, i, i]
-        lib.rq_tokenize_smem_bytes.restype = ctypes.c_longlong
-        lib.rq_tokenize_max_d.restype = i
-        lib.rq_tokenize_max_smem.argtypes = [i]
-        lib.rq_tokenize_max_smem.restype = ctypes.c_longlong
-        lib.rq_tokenize_error_string.argtypes = [i]
-        lib.rq_tokenize_error_string.restype = ctypes.c_char_p
+        launch = getattr(lib, f"{name}_launch")
+        launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
+        launch.restype = i
+        error_string = getattr(lib, f"{name}_error_string")
+        error_string.argtypes = [i]
+        error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def _check(name: str, x: torch.Tensor, codebooks: torch.Tensor) -> None:
+    if x.dim() != 2 or codebooks.dim() != 3 or x.shape[1] != codebooks.shape[2]:
+        raise ValueError(f"{name}: shape mismatch: x {tuple(x.shape)}, "
+                         f"codebooks {tuple(codebooks.shape)}")
+    if x.device != codebooks.device:
+        raise ValueError(f"{name}: x on {x.device}, codebooks on {codebooks.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda (kernel) or cpu (plain), got {x.device}")
+
+
+def _launch(name: str, x: torch.Tensor, codebooks: torch.Tensor, out_a: torch.Tensor,
+            out_b: torch.Tensor, ids: torch.Tensor, loss: torch.Tensor,
+            commitment_weight: float) -> None:
+    """Launch ``csrc/<name>.cu`` on float32 contiguous CUDA operands."""
+    if x.dtype != torch.float32 or codebooks.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32, got {x.dtype} / {codebooks.dtype}")
+    if not (x.is_contiguous() and codebooks.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous x and codebooks")
+    b, d = x.shape
+    n_levels, k, _ = codebooks.shape
+    if d > MAX_D or d % 4:
+        raise ValueError(f"{name} takes D a multiple of 4, at most {MAX_D}; got {d}")
+    lib = _lib(name)
+    norms = torch.empty((n_levels * k,), dtype=torch.float32, device=x.device)
+    dev_index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = getattr(lib, f"{name}_launch")(
+        x.data_ptr(), codebooks.data_ptr(), norms.data_ptr(), ids.data_ptr(), out_a.data_ptr(),
+        out_b.data_ptr(), loss.data_ptr(), b, n_levels, k, d, float(commitment_weight),
+        dev_index, stream,
+    )
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg}")
+
+
+def _pad4(t: torch.Tensor) -> torch.Tensor:
+    """fp32, contiguous, 16-byte aligned, the last dim zero-padded to a
+    multiple of 4 (the kernels copy codes as float4s); zeros change no
+    distance or loss."""
+    pad = -t.shape[-1] % 4
+    t = torch.nn.functional.pad(t.float(), (0, pad)) if pad else t.float().contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def rq_tokenize(x: torch.Tensor, codebooks: torch.Tensor, *,
                 commitment_weight: float = 0.25) -> RqTokenizeOutput:
     """Multi-level residual quantization, hard argmin. x (B, D) fp32,
     codebooks (L, K, D) fp32 (effective, post SimVQ / l2-norm)."""
-    if x.dim() != 2 or codebooks.dim() != 3 or x.shape[1] != codebooks.shape[2]:
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, codebooks {tuple(codebooks.shape)}")
-    if x.device != codebooks.device:
-        raise ValueError(f"x on {x.device}, codebooks on {codebooks.device}")
+    _check("rq_tokenize", x, codebooks)
     if x.device.type == "cpu":
         return rq_tokenize_plain(x, codebooks, commitment_weight=commitment_weight)
-    if x.device.type != "cuda":
-        raise ValueError(f"rq_tokenize runs on cuda (kernel) or cpu (plain), got {x.device}")
     if x.dtype != torch.float32 or codebooks.dtype != torch.float32:
         raise TypeError(f"rq_tokenize takes float32, got {x.dtype} / {codebooks.dtype}")
-    if not (x.is_contiguous() and codebooks.is_contiguous()):
-        raise ValueError("rq_tokenize needs contiguous x and codebooks")
     b, d = x.shape
-    n_levels, k, _ = codebooks.shape
-    lib = _lib()
-    if d > lib.rq_tokenize_max_d():
-        raise ValueError(f"rq_tokenize supports D <= {lib.rq_tokenize_max_d()}, got {d}")
-    dev_index = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    limit = lib.rq_tokenize_max_smem(dev_index)
-    smem = lib.rq_tokenize_smem_bytes(n_levels, k, d)
-    if smem > limit:
-        raise ValueError(
-            f"codebook stack {n_levels}x{k}x{d} needs {smem} B of shared memory, the "
-            f"block may use {limit} B; this size needs a K-tiled kernel"
-        )
+    n_levels = codebooks.shape[0]
+    xp, cbs = _pad4(x), _pad4(codebooks)
     ids = torch.empty((b, n_levels), dtype=torch.int32, device=x.device)
-    emb = torch.empty((b, d), dtype=torch.float32, device=x.device)
-    res = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    emb = torch.empty((b, xp.shape[1]), dtype=torch.float32, device=x.device)
+    res = torch.empty((b, xp.shape[1]), dtype=torch.float32, device=x.device)
     loss = torch.empty((b,), dtype=torch.float32, device=x.device)
-    if b == 0:
-        return RqTokenizeOutput(ids, emb, res, loss)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.rq_tokenize_launch(
-        x.data_ptr(), codebooks.data_ptr(), ids.data_ptr(), emb.data_ptr(),
-        res.data_ptr(), loss.data_ptr(), b, n_levels, k, d,
-        float(commitment_weight), dev_index, stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"rq_tokenize launch failed: {lib.rq_tokenize_error_string(err).decode()}")
-    rq_tokenize.launches += 1
+    if b:
+        _launch("rq_tokenize", xp, cbs, emb, res, ids, loss, commitment_weight)
+        rq_tokenize.launches += 1
+    if xp.shape[1] != d:
+        emb, res = emb[:, :d], res[:, :d]
     return RqTokenizeOutput(ids, emb, res, loss)
 
 
 rq_tokenize.launches = 0
+
+
+def _rq_train_forward(x: torch.Tensor, codebooks: torch.Tensor,
+                      commitment_weight: float) -> RqTrainOutput:
+    """The forward kernel on CUDA (inputs cast to fp32, as the TPU kernel's
+    ``astype(f32)``), its twin on the CPU."""
+    if x.device.type == "cpu":
+        return rq_quantize_train_plain(x, codebooks, commitment_weight=commitment_weight)
+    b, d = x.shape
+    n_levels = codebooks.shape[0]
+    xp, cbs = _pad4(x), _pad4(codebooks)
+    dp = xp.shape[1]
+    ids = torch.empty((b, n_levels), dtype=torch.int32, device=x.device)
+    residuals = torch.empty((n_levels, b, dp), dtype=torch.float32, device=x.device)
+    embs = torch.empty((n_levels, b, dp), dtype=torch.float32, device=x.device)
+    loss = torch.empty((b,), dtype=torch.float32, device=x.device)
+    if b:
+        _launch("rq_quantize_train", xp, cbs, residuals, embs, ids, loss, commitment_weight)
+        rq_quantize_train.launches += 1
+    if dp != d:
+        embs, residuals = embs[..., :d], residuals[..., :d]
+    return RqTrainOutput(embs.permute(1, 2, 0), residuals.permute(1, 2, 0), ids, loss)
+
+
+def _rq_train_backward(mode: str, beta: float, embs, residuals, sem_ids, d_emb, d_res,
+                       d_loss, k: int):
+    """Estimator-exact gradients, levels processed in reverse (the JAX
+    package's ``_rq_train_bwd``). Per level l (res = pre-level residual, emb =
+    selected codeword):
+
+    * quantize loss: d/d emb -> 2 (emb - res) g_loss (codebook rows, scatter);
+      d/d res -> 2 beta (res - emb) g_loss (commitment term);
+    * residual chain res_{l+1} = res_l - emb_out_l: g_res_l += g_res_{l+1},
+      g_embout_l -= g_res_{l+1};
+    * estimator: STE g_res_l += g_embout; rotation trick
+      g_res_l += s (g - 2 w (w.g) + 2 u (q_hat.g)) with u = res/|res|,
+      q_hat = emb/|emb|, w = unit(u + q_hat), s = |emb|/|res| (eps values as
+      in models/quantize.py).
+    """
+    n_levels = embs.shape[-1]
+    g_loss = d_loss[:, None].float()
+    g_res_next = torch.zeros(embs.shape[:2], dtype=torch.float32, device=embs.device)
+    d_cb = []
+    for level in reversed(range(n_levels)):
+        res = residuals[..., level].float()
+        emb = embs[..., level].float()
+        g_embout = d_emb[..., level].float() - g_res_next
+        g_res = g_res_next + d_res[..., level].float()
+
+        d_cb.append(torch.zeros((k, res.shape[1]), dtype=torch.float32, device=res.device)
+                    .index_add_(0, sem_ids[:, level].long(), 2.0 * g_loss * (emb - res)))
+        g_res = g_res + 2.0 * beta * g_loss * (res - emb)
+
+        if mode == "STE":
+            g_res = g_res + g_embout
+        elif mode == "ROTATION_TRICK":
+            rn = torch.linalg.vector_norm(res, dim=-1, keepdim=True)
+            en = torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
+            u = res / (rn + 1e-8)
+            qh = emb / (en + 1e-8)
+            w = u + qh
+            w = w / torch.sqrt(torch.clamp(torch.sum(w * w, dim=-1, keepdim=True), min=1e-6**2))
+            s = en / (rn + 1e-6)
+            g = g_embout
+            g_res = g_res + s * (
+                g
+                - 2.0 * w * torch.sum(w * g, dim=-1, keepdim=True)
+                + 2.0 * u * torch.sum(qh * g, dim=-1, keepdim=True)
+            )
+        else:
+            raise ValueError(f"unsupported fused training mode: {mode}")
+        g_res_next = g_res
+    return g_res_next, torch.stack(d_cb[::-1], dim=0)
+
+
+class _RqQuantizeTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, codebooks, mode, commitment_weight):
+        out = _rq_train_forward(x, codebooks, commitment_weight)
+        ctx.save_for_backward(out.embeddings, out.residuals, out.sem_ids)
+        ctx.mode, ctx.beta = mode, commitment_weight
+        ctx.x_dtype, ctx.cb_dtype, ctx.k = x.dtype, codebooks.dtype, codebooks.shape[1]
+        ctx.mark_non_differentiable(out.sem_ids)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, d_emb, d_res, _d_ids, d_loss):
+        embs, residuals, sem_ids = ctx.saved_tensors
+        g_x, g_cb = _rq_train_backward(ctx.mode, ctx.beta, embs, residuals, sem_ids,
+                                       d_emb, d_res, d_loss, ctx.k)
+        return g_x.to(ctx.x_dtype), g_cb.to(ctx.cb_dtype), None, None
+
+
+def rq_quantize_train(x: torch.Tensor, codebooks: torch.Tensor, mode: str = "ROTATION_TRICK",
+                      commitment_weight: float = 0.25) -> RqTrainOutput:
+    """Fused multi-level residual quantization, training path. x (B, D) fp32
+    or bf16 (cast to fp32 for the kernel), codebooks (L, K, D) effective
+    codebooks; ``mode`` is "STE" or "ROTATION_TRICK". Outputs are fp32."""
+    _check("rq_quantize_train", x, codebooks)
+    if mode not in ("STE", "ROTATION_TRICK"):
+        raise ValueError(f"unsupported fused training mode: {mode}")
+    return RqTrainOutput(*_RqQuantizeTrain.apply(x, codebooks, mode, commitment_weight))
+
+
+rq_quantize_train.launches = 0

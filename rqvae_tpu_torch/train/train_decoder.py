@@ -103,14 +103,15 @@ class DecoderTrainConfig:
 
 
 def value_and_grad(loss_fn, params, *args):
-    """(loss, loss_d, grads) of ``loss_fn(params, *args) -> (loss, loss_d)``;
-    ``grads`` has the params' structure (zeros for a leaf the loss does not
-    reach). The params' own tensors are not marked for autograd."""
+    """(loss, aux, grads) of ``loss_fn(params, *args) -> (loss, aux)``, aux
+    a tensor or a tree of tensors, detached; ``grads`` has the params'
+    structure (zeros for a leaf the loss does not reach). The params' own
+    tensors are not marked for autograd."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
-    loss, loss_d = loss_fn(tree_unflatten(params, leaves), *args)
+    loss, aux = loss_fn(tree_unflatten(params, leaves), *args)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
-    return loss.detach(), loss_d.detach(), tree_unflatten(params, grads)
+    return loss.detach(), tree_map(lambda t: t.detach(), aux), tree_unflatten(params, grads)
 
 
 def _make_microbatch_loss(model_cfg: RetrievalConfig, index: semids.CorpusIndex,
