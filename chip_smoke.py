@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: Amazon serving, ML-32M
-decoder training and ML-32M serving, then stage-1 RQ-VAE training.
+decoder training and ML-32M serving, packed long-context decoder training,
+then stage-1 RQ-VAE training.
 
 Drives ``rqvae_tpu_torch`` end to end at the shipped widths, with random
 weights made from a seed and seeded synthetic data:
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build the five CUDA kernels from ``rqvae_tpu_torch/csrc`` (one nvcc per
-     source, in parallel) and print the build time;
+  2. build the seven CUDA kernels from ``rqvae_tpu_torch/csrc`` (one nvcc
+     per source, in parallel) and print the build time;
   3. Amazon serving main path: tokenize the 12,101 x 768 corpus with the
      RQ-VAE (``precompute_corpus_ids``: 3 x 256 x 32 codebooks, fp32,
      4,096-row chunks), tokenize 256 users x 20 history items, run
@@ -65,12 +66,34 @@ weights made from a seed and seeded synthetic data:
      1e-4 of their max-abs;
  15. the new kernel's times beside its twin's and its bound; the step time of
      the fused and the plain route at both shapes (the module constant
-     ``FUSED_TRAIN_MIN_CODEBOOK_VOLUME`` forced each way).
+     ``FUSED_TRAIN_MIN_CODEBOOK_VOLUME`` forced each way);
+ 16. packed long-context training (``bench.py --profile ml32m_packed``,
+     run before the stage-1 phases): the ML-32M widths and corpus, a
+     ``SeqDataset`` of 4,096 users with full 200-item histories, a
+     ``SequencePacker`` (numpy generator seed 0) of 96 rows x 8 slots x 200
+     items (808 encoder tokens, 40 decoder tokens) past 3 warm-up batches,
+     then a cycle of 8 batches through ``make_packed_step`` (bf16 compute,
+     fp32 AdamW, dropout 0.3): 3 warm-up and 10 timed steps; the span
+     forward and backward kernels must launch 4 times each per step (the
+     encoder's self-attention) and the flat flash kernels never;
+ 17. each span kernel against its plain twin on encoder layer 0's own
+     operands, recorded in a rerun of the step (first 16 rows, N = 808, the
+     upstream gradient scaled to unit RMS), bf16 to 2e-2 and fp32 to 1e-4,
+     plus rows that attend nothing (their output must be exactly 0), rows
+     with only the extra column, windows across 64-key tile edges, extra
+     columns outside the window and Nq = 777;
+ 18. a 2-row fp32 packed step (dropout 0) on the GPU against the CPU: loss
+     to 1e-4 relative, every gradient leaf to 1e-3 of its max-abs;
+ 19. both span kernels timed on phase 16's operands beside their twins and
+     ``F.scaled_dot_product_attention`` under the span mask as a (B, 1, Nq,
+     Nk) additive bias; the bound counts the allowed (q, k) pairs (the
+     dense count beside it); one packed step traced.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 work runs in fp32.
 
 Prints the nvidia-smi line, a ``{"kernels": [...]}`` line, a
-``{"serving": {...}}`` line, a ``{"train": {...}}`` line, a
+``{"serving": {...}}`` line, a ``{"train": {...}}`` line (the packed step
+under its ``packed`` key), a
 ``{"train_rqvae": {...}}`` line and, last, ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before the last line; so does a machine without
 a GPU. Run from the repository root: ``python3 chip_smoke.py``.
@@ -97,6 +120,9 @@ ML_BATCH = 256
 ML_HIST = 200
 ML_ITEMS = 84432
 ML_GEN_BATCH = 64
+PACK_ROWS = 96          # bench.py's ml32m_packed: 96 rows x 8 slots x ML_HIST items
+PACK_SLOTS = 8
+PACK_USERS = 4096
 
 RQ_ITERS = 400          # stage-1 flagship steps
 STRETCH_BATCH = 1024    # bench.py's rqvae_stretch: 4 x 2048 codebooks, embed 64
@@ -174,7 +200,8 @@ def main() -> int:
     # ---- build every kernel of the path from the checkout's sources ----
     t0 = time.perf_counter()
     logs = _cuda_build.build_all(["rq_tokenize", "children_window", "flash_attention_fwd",
-                                  "flash_attention_bwd", "rq_quantize_train"])
+                                  "flash_attention_bwd", "flash_attention_spans_fwd",
+                                  "flash_attention_spans_bwd", "rq_quantize_train"])
     build_s = time.perf_counter() - t0
     for name, text in logs.items():
         for line in text.splitlines():
@@ -365,6 +392,11 @@ def main() -> int:
     serving["ml32m"] = ml_serving
     torch.cuda.empty_cache()
 
+    # ---- packed long-context decoder training ----
+    train["packed"], span_kernels = _packed(dev)
+    kernels += span_kernels
+    torch.cuda.empty_cache()
+
     # ---- stage-1 RQ-VAE training, flagship and stretch ----
     train_rqvae, stage1_kernels = _stage1(dev)
     kernels += stage1_kernels
@@ -404,6 +436,29 @@ def _seq_batch(ids, ids_fut, user_ids, dev):
                     x_fut=torch.zeros(ids_fut.shape + (1,), device=dev), seq_mask=ids_t >= 0)
 
 
+def _ml32m_config():
+    """The ML-32M decoder at ``bench.py``'s widths: 4 + 4 layers, width 512,
+    8 heads (Dh = 64), embedding 128, MLP 1024, K = 256, dropout 0.3."""
+    from rqvae_tpu_torch.models import retrieval
+
+    return retrieval.RetrievalConfig(embedding_dim=128, attn_dim=512, dropout=0.3, num_heads=8,
+                                     n_layers=8, num_embeddings=256, sem_id_dim=4,
+                                     max_pos=ML_HIST * 4)
+
+
+def _ml32m_index(rng, dev):
+    """The ML_ITEMS-item corpus of random 3-level tuples (drawn from the
+    numpy ``rng``) plus the dedup column, indexed."""
+    import numpy as np
+    import torch
+
+    from rqvae_tpu_torch.tokenizer import semids
+
+    base = torch.from_numpy(rng.randint(0, 256, (ML_ITEMS, 3)).astype(np.int32)).to(dev)
+    cached = torch.cat([base, semids.dedup_column(base, 256)[:, None]], dim=1)
+    return semids.build_index(cached, codebook_size=256)
+
+
 def _ml32m(dev):
     """Phases 5-10: ML-32M decoder training (flat and bucketed), the flash
     kernels against their twins, GPU vs CPU, ML-32M serving and the
@@ -423,13 +478,9 @@ def _ml32m(dev):
     from rqvae_tpu_torch.utils import amp
     from rqvae_tpu_torch.utils.tree import tree_leaves, tree_map
 
-    cfg = retrieval.RetrievalConfig(embedding_dim=128, attn_dim=512, dropout=0.3, num_heads=8,
-                                    n_layers=8, num_embeddings=256, sem_id_dim=4,
-                                    max_pos=ML_HIST * 4)
+    cfg = _ml32m_config()
     rng = np.random.RandomState(SEED)
-    base = torch.from_numpy(rng.randint(0, 256, (ML_ITEMS, 3)).astype(np.int32)).to(dev)
-    cached = torch.cat([base, semids.dedup_column(base, 256)[:, None]], dim=1)
-    index = semids.build_index(cached, codebook_size=256)
+    index = _ml32m_index(rng, dev)
     ids = rng.randint(0, ML_ITEMS, (ML_BATCH, ML_HIST)).astype(np.int32)
     lengths = _crop_lengths(rng, ML_BATCH, ML_HIST)
     mask = np.arange(ML_HIST)[None, :] < lengths[:, None]
@@ -704,6 +755,258 @@ def _ml32m(dev):
                  sdpa_library_ms=dict(fwd=sdpa_fwd, fwd_bwd=sdpa_fwd_bwd),
                  dense_vs_flash=cut, train_profile=train_profile)
     return train, ml_serving, flash_kernels
+
+
+def _packed(dev):
+    """Phases 16-19: packed long-context decoder training (``bench.py
+    --profile ml32m_packed``), the span kernels against their twins, a
+    2-row fp32 packed step GPU vs CPU, and the span kernels' times. Returns
+    (packed dict, kernel entries)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from rqvae_tpu_torch.data import packing
+    from rqvae_tpu_torch.data.dataset import SeqDataset
+    from rqvae_tpu_torch.models import retrieval
+    from rqvae_tpu_torch.ops import attention as attn_ops
+    from rqvae_tpu_torch.ops import flash_attention as fa
+    from rqvae_tpu_torch.tokenizer import semids
+    from rqvae_tpu_torch.train import optim
+    from rqvae_tpu_torch.train import train_decoder as td
+    from rqvae_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = _ml32m_config()
+    rng = np.random.RandomState(SEED)
+    index = _ml32m_index(rng, dev)     # the ML-32M phases' corpus, drawn the same way
+    # full ML_HIST-item histories; the packer's random crop gives the real
+    # training length distribution
+    seqs = SeqDataset(user_ids=np.arange(PACK_USERS, dtype=np.int32),
+                      item_ids=rng.randint(0, ML_ITEMS, (PACK_USERS, ML_HIST)).astype(np.int32),
+                      item_ids_fut=rng.randint(0, ML_ITEMS, (PACK_USERS, 1)).astype(np.int32),
+                      max_seq_len=ML_HIST)
+    packer = packing.SequencePacker(seqs=seqs, rng=np.random.default_rng(0), rows=PACK_ROWS,
+                                    slots=PACK_SLOTS)
+    for _ in range(3):   # past the buffer's warm-up, which skims long crops
+        packer.next_batch()
+    cycle = [packer.next_batch() for _ in range(8)]
+    batches = [packing.to_device(b, dev) for b, _ in cycle]
+    n_ex = [n for _, n in cycle]
+    placed = np.concatenate([b.slot_len[b.slot_valid] for b, _ in cycle])
+    enc_tokens = PACK_SLOTS + ML_HIST * 4
+    real_tokens = sum(int(b.slot_valid.sum()) + 4 * int((b.ids >= 0).sum()) for b, _ in cycle)
+    token_share = real_tokens / (len(cycle) * PACK_ROWS * enc_tokens)
+    log(f"packed cycle: {PACK_ROWS} rows x {PACK_SLOTS} slots x {ML_HIST} items "
+        f"({enc_tokens} encoder tokens), examples per batch {n_ex}, mean placed crop "
+        f"{float(placed.mean()):.1f} items, non-padding encoder tokens {token_share:.3f}")
+
+    params = retrieval.init(torch.Generator().manual_seed(SEED), cfg, device=dev)
+    opt = optim.adamw(3e-4, 0.035)
+    opt_state = opt.init(params)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    step = td.make_packed_step(cfg, opt, index, torch.bfloat16)
+
+    # ---- phase 16: the packed step, counted ----
+    losses = []
+    for i in range(3):
+        params, opt_state, m = step(params, opt_state, batches[i % 8], gen)
+        losses.append(float(m["total_loss"]))
+    torch.cuda.synchronize()
+    counters = (fa.flash_attention_spans_fwd, fa.flash_attention_spans_bwd,
+                fa.flash_attention_fwd, fa.flash_attention_bwd)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    n_steps = 10
+    timed, step_losses = 0, []
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        params, opt_state, m = step(params, opt_state, batches[i % 8], gen)
+        step_losses.append(m["total_loss"])
+        timed += n_ex[i % 8]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n_steps
+    launches = {c.__name__: c.launches for c in counters}
+    losses += [float(x) for x in step_losses]
+    log(f"packed step: {step_s * 1e3:.1f} ms, losses {losses}, launches {launches}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite packed loss {losses}")
+    for name in ("flash_attention_spans_fwd", "flash_attention_spans_bwd"):
+        check(launches[name] == 4 * n_steps,
+              f"{name}: {launches[name]} launches in {n_steps} steps, expected 4 per step")
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        check(launches[name] == 0, f"{name}: {launches[name]} launches in the packed step")
+    packed = dict(train_step_ms=step_s * 1e3, train_examples_per_s=timed / (step_s * n_steps),
+                  steps_timed=n_steps, losses=losses, rows=PACK_ROWS, slots=PACK_SLOTS,
+                  capacity_items=ML_HIST, encoder_tokens=enc_tokens,
+                  mean_examples_per_step=float(np.mean(n_ex)),
+                  mean_placed_crop_items=float(placed.mean()),
+                  non_padding_encoder_token_share=token_share,
+                  spans_fwd_per_step=launches["flash_attention_spans_fwd"] / n_steps,
+                  spans_bwd_per_step=launches["flash_attention_spans_bwd"] / n_steps,
+                  flash_launches=launches["flash_attention_fwd"] + launches["flash_attention_bwd"],
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+    # ---- phase 17: the span kernels against their twins ----
+    # encoder layer 0's operands, recorded from a rerun of the step
+    rec = {}
+    real_spans = attn_ops.flash_attention_spans
+
+    def record(q, k, v, lo, hi, extra):
+        out = real_spans(q, k, v, lo, hi, extra)
+        if not rec:  # the first call of a step: encoder layer 0
+            rec.update(q=q.detach(), k=k.detach(), v=v.detach(), spans=(lo, hi, extra))
+            out.register_hook(lambda g: rec.__setitem__("g", g.detach()))
+        return out
+
+    attn_ops.flash_attention_spans = record
+    try:
+        params, opt_state, _ = step(params, opt_state, batches[0], gen)
+    finally:
+        attn_ops.flash_attention_spans = real_spans
+    torch.cuda.synchronize()
+    check(set(rec) == {"q", "k", "v", "spans", "g"}, f"recorded {sorted(rec)}")
+    q, k, v, g = rec["q"], rec["k"], rec["v"], rec["g"]
+    lo, hi, extra = rec["spans"]
+    b, h, n, dh = q.shape
+    check((b, h, n, dh) == (PACK_ROWS, 8, enc_tokens, 64) and q.dtype == torch.bfloat16,
+          f"recorded layer-0 operands {tuple(q.shape)} {q.dtype}")
+    small = min(16, b)
+    qs, ks, vs = q[:small], k[:small], v[:small]
+    gs = g[:small].float()
+    gs = (gs / gs.pow(2).mean().sqrt()).to(g.dtype)
+    sgen = np.random.RandomState(SEED + 4)
+
+    def bounds(lo_np, hi_np, ex_np):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+                     for a in (lo_np, hi_np, ex_np))
+
+    rec_np = [t[:small].cpu().numpy() for t in (lo, hi, extra)]
+    empty = [a.copy() for a in rec_np]
+    empty_rows = np.zeros((small, n), bool)
+    empty_rows[:, ::7] = True          # every 7th query and two whole rows attend nothing
+    empty_rows[:2] = True
+    empty[0][empty_rows], empty[1][empty_rows], empty[2][empty_rows] = 0, 0, -1
+    extra_only = (np.zeros((small, n)), np.zeros((small, n)), sgen.randint(0, n, (small, n)))
+    t_lo = 64 * sgen.randint(1, n // 64, (small, n)) - sgen.randint(1, 40, (small, n))
+    edges = (t_lo, t_lo + sgen.randint(2, 140, (small, n)), np.full((small, n), -1))
+    w_lo = sgen.randint(0, n - 200, (small, n))
+    w_hi = w_lo + sgen.randint(1, 200, (small, n))
+    outside = np.where(sgen.rand(small, n) < 0.5, sgen.randint(0, n, (small, n)), w_hi)
+    cases = (("train", bounds(*rec_np), n), ("empty", bounds(*empty), n),
+             ("extra_only", bounds(*extra_only), n), ("tile_edges", bounds(*edges), n),
+             ("extra_outside", bounds(w_lo, w_hi, outside), n),
+             ("nq_777", bounds(*(a[:, :777] for a in rec_np)), 777))
+    checks, errs = [], {"fwd": 0.0, "bwd": 0.0}
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for case, spans, nq in cases:
+            a = [t.to(dtype) for t in (qs[:, :, :nq], ks, vs, gs[:, :, :nq])]
+            out, mm, inv = fa.flash_attention_spans_fwd(*a[:3], *spans)
+            ref = fa.flash_attention_spans_plain(*a[:3], *spans)
+            got = fa.flash_attention_spans_bwd(*a[:3], *spans, a[3], mm, inv)
+            want = fa.flash_attention_spans_bwd_plain(*a[:3], *spans, a[3])
+            torch.cuda.synchronize()
+            row = {"dtype": str(dtype)[6:], "case": case, "nq": nq, "tol": tol}
+            for name, x, y in (("out", out, ref), ("dq", got[0], want[0]), ("dk", got[1], want[1]),
+                               ("dv", got[2], want[2])):
+                x, y = x.float(), y.float()
+                row[name] = float((x - y).abs().max())
+                row[name + "_max_abs"] = float(y.abs().max())
+                check(bool(torch.isfinite(x).all()), f"spans {case} {dtype} {name}: non-finite")
+                check(torch.allclose(x, y, rtol=tol, atol=tol),
+                      f"spans {case} {dtype} {name} differs from the plain twin by {row[name]}")
+            if case == "empty":
+                masked = torch.from_numpy(empty_rows).to(dev)[:, None, :, None].expand_as(out)
+                check(float(out[masked].abs().max()) == 0.0, "fully masked rows are not zero")
+            if dtype == torch.bfloat16 and case == "train":
+                errs = {"fwd": row["out"], "bwd": max(row["dq"], row["dk"], row["dv"])}
+            checks.append(row)
+            log(f"spans vs plain {row}")
+    del out, ref, got, want
+
+    # ---- phase 18: a 2-row fp32 packed step, GPU against CPU ----
+    cpu = torch.device("cpu")
+    cfg0 = dataclasses.replace(cfg, dropout=0.0, input_dropout=0.0)
+    two = packing.PackedSeqBatch(*(t[:2] for t in batches[0]))
+    index_cpu = semids.CorpusIndex(index.cached_ids.to(cpu), index.sorted_keys.to(cpu),
+                                   index.bases, index.codebook_size, index.n_distinct)
+
+    class Capture:
+        """An optimizer that keeps the gradients and leaves the params."""
+
+        def update(self, params, state, grads):
+            self.grads = tree_leaves(grads)
+            return state
+
+    runs = []
+    for device, idx in ((dev, index), (cpu, index_cpu)):
+        cap = Capture()
+        p = tree_map(lambda t: t.detach().to(device, copy=True), params)
+        _, _, m = td.make_packed_step(cfg0, cap, idx, torch.float32)(
+            p, None, packing.PackedSeqBatch(*(t.to(device) for t in two)), None)
+        runs.append((float(m["total_loss"]), cap.grads))
+    (loss_g, grads_g), (loss_c, grads_c) = runs
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    leaf_rel = 0.0
+    for a, b_ in zip(grads_g, grads_c):
+        err = float((a.cpu() - b_).abs().max())
+        scale = float(b_.abs().max())
+        check(err <= 1e-3 * scale + 1e-12, f"packed GPU vs CPU gradient leaf differs: {err} of {scale}")
+        leaf_rel = max(leaf_rel, err / scale if scale else 0.0)
+    check(loss_rel <= 1e-4, f"packed GPU vs CPU fp32 loss differs by {loss_rel} relative")
+    log(f"2-row fp32 packed step GPU vs CPU: loss {loss_c:.6f}, rel err {loss_rel:.2e}, "
+        f"worst leaf {leaf_rel:.2e} of its max-abs")
+    del runs, grads_g, grads_c
+
+    # ---- phase 19: the span kernels' times on phase 16's operands ----
+    packed["train_profile"] = _profile(lambda: step(params, opt_state, batches[0], gen), top=12)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    allow = attn_ops.span_mask((lo, hi, extra), n)        # (B, Nq, Nk) bool
+    pairs = h * int(allow.sum())                           # allowed (q, k) pairs, all heads
+    dense_pairs = b * h * n * n
+    fwd_out, mm, inv = fa.flash_attention_spans_fwd(q, k, v, lo, hi, extra)
+    kernel_ms = {"fwd": cuda_ms(lambda: fa.flash_attention_spans_fwd(q, k, v, lo, hi, extra), 10,
+                                warmup=2),
+                 "bwd": cuda_ms(lambda: fa.flash_attention_spans_bwd(q, k, v, lo, hi, extra, g, mm,
+                                                                     inv), 5, warmup=1)}
+    plain_ms = {"fwd": cuda_ms(lambda: fa.flash_attention_spans_plain(q, k, v, lo, hi, extra), 3,
+                               warmup=1),
+                "bwd": cuda_ms(lambda: fa.flash_attention_spans_bwd_plain(q, k, v, lo, hi, extra, g),
+                               3, warmup=1)}
+    torch.cuda.empty_cache()
+    lib_bias = torch.where(allow, 0.0, attn_ops.NEG_INF)[:, None].to(q.dtype)   # (B, 1, Nq, Nk)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=lib_bias), 10)
+    sdpa_fwd_bwd = cuda_ms(lambda: torch.autograd.backward(
+        F.scaled_dot_product_attention(*leaves, attn_mask=lib_bias), g), 10)
+    del leaves, lib_bias
+    elt = q.element_size()
+    fwd_bytes = elt * 4 * b * h * n * dh + 12 * b * n + 8 * b * h * n
+    bwd_bytes = elt * 7 * b * h * n * dh + 12 * b * n + 8 * b * h * n
+    kernels = []
+    for name, per_pair, nbytes, line, lib in (
+            ("flash_attention_spans_fwd", 4, fwd_bytes, 491, sdpa_fwd),
+            ("flash_attention_spans_bwd", 10, bwd_bytes, 513, sdpa_fwd_bwd - sdpa_fwd)):
+        t_ops, t_bytes = per_pair * dh * pairs / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        short = name.rsplit("_", 1)[1]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"rqvae_tpu_torch/csrc/{name}.cu",
+            replaces=f"rqvae_tpu/ops/flash_attention.py:{line}",
+            launches=launches[name], max_abs_err=errs[short], ms=kernel_ms[short],
+            plain_ms=plain_ms[short], bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops > t_bytes else "bytes", library_ms=lib))
+    packed.update(
+        span_checks=checks,
+        gpu_vs_cpu=dict(rows=2, tokens=enc_tokens, loss_rel_err=loss_rel,
+                        worst_leaf_rel_err=leaf_rel),
+        span_bounds=dict(allowed_pairs=pairs, dense_pairs=dense_pairs,
+                         allowed_share=pairs / dense_pairs,
+                         dense_bound_ms={"fwd": 4 * dh * dense_pairs / BF16_FLOP_PER_S * 1e3,
+                                         "bwd": 10 * dh * dense_pairs / BF16_FLOP_PER_S * 1e3}),
+        sdpa_library_ms=dict(fwd=sdpa_fwd, fwd_bwd=sdpa_fwd_bwd))
+    log(f"span kernels at B={b}, H={h}, N={n}, Dh={dh} {q.dtype}, allowed share "
+        f"{pairs / dense_pairs:.3f}: {kernels}")
+    return packed, kernels
 
 
 def _stage1(dev):

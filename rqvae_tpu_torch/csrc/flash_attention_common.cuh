@@ -1,5 +1,7 @@
 // Shared pieces of the flash-attention forward and backward kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu).
+// (flash_attention_fwd.cuh, flash_attention_bwd.cuh) and their two mask
+// policies: the key bias of flash_attention and the per-query spans of
+// flash_attention_spans.
 //
 // Operands are (B, H, N, Dh) views given by element strides for the batch,
 // head and sequence axes; the head dimension must be contiguous (stride 1).
@@ -76,15 +78,107 @@ __device__ __forceinline__ void load_tile(float* dst, int pitch, const T* src, l
   }
 }
 
-// Score of query row ``row`` against key ``col``: dot * scale + bias, the
-// causal cut replacing it by -1e30 (as the TPU kernel's where), and -inf for
-// a key past Nk (a tile's ragged tail, which must weigh nothing).
-__device__ __forceinline__ float masked_score(float dot, float scale, float bias, int row, int col,
-                                              int Nk, int causal) {
-  if (col >= Nk) return -INFINITY;
-  const float s = dot * scale + bias;
-  return (causal && col > row) ? kNegInf : s;
+// ---- mask policies ----
+//
+// The kernels (flash_attention_fwd.cuh, flash_attention_bwd.cuh) are
+// templates over a mask policy. A kernel walks (query tile, key tile) pairs;
+// at each pair every thread of the block calls ``tile(sm, q0, k0)`` where the
+// loop's leading __syncthreads() would stand. It is that barrier; it stages
+// what ``score`` reads for the pair in ``sm`` (visible after the kernel's
+// next __syncthreads()); and it returns, alike in every thread, whether any
+// query row of the tile may attend any key of it. A pair it rejects is
+// skipped: each of its scores would be -1e30 (or -inf), whose exp is exactly
+// 0 against a finite row max, and a row with no allowed key at all has
+// inv = 0. ``score`` maps the q k^T dot product of query ``row`` (``rl``
+// within its tile) and key ``col`` (``cl`` within its tile) to the masked,
+// scaled score: -inf for a key past Nk (a tile's ragged tail, which must
+// weigh nothing), -1e30 (the TPU kernels' mask value) where the mask
+// forbids.
+
+// flash_attention's mask: an additive fp32 key bias (0 / -1e30), then the
+// causal cut as a select, as rqvae_tpu/ops/flash_attention.py:_flash_kernel.
+struct BiasMask {
+  struct Smem {
+    float bias[kBK];
+  };
+  const float* bias;  // (B, Nk) fp32; after at(b), row b
+  int Nk, causal;
+
+  __device__ __forceinline__ BiasMask at(int b) const { return {bias + (long long)b * Nk, Nk, causal}; }
+  __device__ __forceinline__ bool tile(Smem& sm, int, int k0) const {
+    __syncthreads();
+    if (threadIdx.x < kBK) sm.bias[threadIdx.x] = k0 + threadIdx.x < Nk ? bias[k0 + threadIdx.x] : 0.f;
+    return true;
+  }
+  __device__ __forceinline__ float score(const Smem& sm, float dot, float scale, int, int cl, int row,
+                                         int col) const {
+    if (col >= Nk) return -INFINITY;
+    const float s = dot * scale + sm.bias[cl];
+    return (causal && col > row) ? kNegInf : s;
+  }
+};
+
+// flash_attention_spans' mask, as rqvae_tpu/ops/flash_attention.py:
+// _span_allow: query i attends key j iff lo_i <= j < hi_i or j == extra_i, a
+// select after scaling (no bias). For each (query tile, key tile) pair, the
+// thread of each query row folds its (lo, hi, extra) into a 64-bit mask of
+// the tile's allowed keys (the two compares become a bit range, the
+// equality one bit) and stages it; ``score`` reads one bit, so a thread
+// loads one word per row it owns. A key tile in which no row has a bit is
+// skipped (the packed layout keeps each segment's window contiguous and
+// every extra column, a user token, in key tile 0).
+__device__ __forceinline__ unsigned long long bits_below(int n) {  // n in [0, 64]
+  return n >= 64 ? ~0ull : (1ull << n) - 1ull;
 }
+
+struct SpanMask {
+  struct Smem {
+    unsigned long long allow[kBQ];  // bit j: the row may attend key k0 + j
+  };
+  const int* lo;  // (B, Nq) int32 each; after at(b), row b
+  const int* hi;
+  const int* ex;
+  int Nq, Nk;
+  // the bounds of query row q0 + threadIdx.x (threads < kBQ), kept across
+  // key tiles so a query tile reads them from memory once
+  int q0 = -1, l = 0, h = 0, x = -1;
+
+  __device__ __forceinline__ SpanMask at(int b) const {
+    const long long o = (long long)b * Nq;
+    return {lo + o, hi + o, ex + o, Nq, Nk};
+  }
+  __device__ __forceinline__ bool tile(Smem& sm, int tq0, int k0) {
+    if (tq0 != q0) {  // alike in every thread
+      q0 = tq0;
+      l = 0, h = 0, x = -1;  // rows past Nq attend nothing
+      if (threadIdx.x < kBQ && q0 + (int)threadIdx.x < Nq) {
+        l = lo[q0 + threadIdx.x];
+        h = hi[q0 + threadIdx.x];
+        x = ex[q0 + threadIdx.x];
+      }
+    }
+    unsigned long long bits = 0;
+    if (threadIdx.x < kBQ) {
+      const int k1 = min(k0 + kBK, Nk);
+      const int a = min(max(l - k0, 0), kBK), z = min(max(min(h, k1) - k0, 0), kBK);
+      bits = bits_below(z) & ~bits_below(a);
+      if (x >= k0 && x < k1) bits |= 1ull << (x - k0);
+    }
+    const int need = __syncthreads_or(bits != 0);
+    if (need && threadIdx.x < kBQ) sm.allow[threadIdx.x] = bits;
+    return need != 0;
+  }
+  __device__ __forceinline__ float score(const Smem& sm, float dot, float scale, int rl, int cl,
+                                         int, int col) const {
+    if (col >= Nk) return -INFINITY;
+    return ((sm.allow[rl] >> cl) & 1ull) ? dot * scale : kNegInf;
+  }
+};
+
+// The row max a kernel stores for the backward: a row that met no key tile
+// (all skipped) keeps its initial -inf, which would make the backward's
+// exp(s - m) infinite; it stores the -1e30 that a fully masked row has.
+__device__ __forceinline__ float stored_max(float m) { return m == -INFINITY ? kNegInf : m; }
 
 inline int dp_for(int Dh) { return Dh <= 32 ? 32 : (Dh <= 64 ? 64 : (Dh <= 128 ? 128 : 0)); }
 

@@ -1,11 +1,19 @@
-"""Array-backed item dataset (the port's own copy of the item half of
-rqvae_tpu/data/dataset.py): numpy rows of item features plus train / eval
-membership, and the explicit slice of features to the model's input width.
-The sequence datasets and batchers come with the decoder's data pipeline.
+"""Array-backed datasets (the port's own copy of rqvae_tpu/data/dataset.py):
+``ItemDataset``, numpy rows of item features plus train / eval membership,
+the explicit slice of features to the model's input width, and
+``SeqDataset``, user histories in item-ID space with the reference's
+train-time random crop (the packed-training sampler's source).
+
+``SeqDataset.batch_at`` crops on the Python path, row by row. The JAX
+package's ``batch_at`` takes its native C batcher when that is built, which
+draws other crops from the same generator; the port has no native batcher
+yet, so its crops equal JAX's Python path (``_subsample_row``), not the C
+one.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -41,3 +49,63 @@ def features_for_model(x: np.ndarray, input_dim: int) -> np.ndarray:
             f"{input_dim}; regenerate the artifacts or lower vae_input_dim"
         )
     return x[..., :input_dim] if width > input_dim else x
+
+
+@dataclasses.dataclass
+class SeqDataset:
+    """User histories in item-ID space: ``item_ids`` (n_users,
+    max_stored_len) int32, -1 padded (for the train split the full
+    history, so the random crop can pick any window); ``item_ids_fut``
+    (n_users, 1) int32 targets; ``max_seq_len`` the model-facing length."""
+
+    user_ids: np.ndarray       # (n_users,) int32
+    item_ids: np.ndarray       # (n_users, max_stored_len) int32, -1 padded
+    item_ids_fut: np.ndarray   # (n_users, 1) int32
+    max_seq_len: int
+
+    def __len__(self) -> int:
+        return self.user_ids.shape[0]
+
+    def _subsample_row(self, rng: np.random.Generator, row: np.ndarray,
+                       fut: int) -> tuple[np.ndarray, int]:
+        """The reference's random crop: append the future item, pick start
+        in [0, len - 3], end in [start + 3, start + max_seq_len + 1]; the
+        crop's last element becomes the target. Returns (ids padded to
+        max_seq_len with -1, target)."""
+        seq = row[row >= 0].tolist() + [int(fut)]
+        start = rng.integers(0, max(0, len(seq) - 3) + 1)
+        end = rng.integers(start + 3, start + self.max_seq_len + 2)
+        sample = seq[start:end]
+        ids = sample[:-1]
+        ids = ids + [-1] * (self.max_seq_len - len(ids))
+        return np.asarray(ids, np.int32), sample[-1]
+
+    def sample_batch(self, rng: np.random.Generator, batch_size: int, *,
+                     subsample: bool = False) -> dict:
+        """``batch_size`` users drawn uniformly; random crops when
+        ``subsample``."""
+        idx = rng.integers(0, len(self), size=(batch_size,))
+        return self.batch_at(idx, rng if subsample else None)
+
+    def batch_at(self, idx: np.ndarray, rng: Optional[np.random.Generator] = None) -> dict:
+        """A fixed-shape batch of the rows ``idx``: ``user_ids`` (B,),
+        ``ids`` (B, max_seq_len) and ``ids_fut`` (B, 1), int32. With ``rng``
+        each row is a random crop; without, the last max_seq_len items."""
+        user_ids = self.user_ids[idx]
+        if rng is not None:
+            rows, futs = [], []
+            for i in idx:
+                r, f = self._subsample_row(rng, self.item_ids[i], int(self.item_ids_fut[i, 0]))
+                rows.append(r)
+                futs.append(f)
+            ids = np.stack(rows)
+            ids_fut = np.asarray(futs, np.int32)[:, None]
+        else:
+            ids = self.item_ids[idx][:, -self.max_seq_len:]
+            if ids.shape[1] < self.max_seq_len:   # pad narrower storage
+                pad = np.full((ids.shape[0], self.max_seq_len - ids.shape[1]), -1, np.int32)
+                ids = np.concatenate([ids, pad], axis=1)
+            ids_fut = self.item_ids_fut[idx].astype(np.int32)
+        return {"user_ids": user_ids.astype(np.int32).reshape(-1),
+                "ids": ids.astype(np.int32),
+                "ids_fut": ids_fut}

@@ -7,6 +7,8 @@ history; the future side is a learned BOS then fut + token-type embeddings;
 RMSNorm then an input projection to the attention width on both streams.
 In training, ``input_dropout`` applies to both normalised streams and the
 transformer's own dropout inside it, all drawn from one ``torch.Generator``.
+``forward_packed`` is the packed-training forward: several user segments a
+row, attention made segment-local by per-query key spans.
 """
 from __future__ import annotations
 
@@ -140,6 +142,118 @@ def forward(params, cfg: RetrievalConfig, batch: TokenizedSeqBatch, *, training:
     unred = cross_entropy_ignore(logits, batch.sem_ids_fut)
     return ModelOutput(loss=torch.mean(torch.sum(unred, dim=1)), logits=logits,
                        loss_d=torch.mean(unred, dim=0))
+
+
+# ---------------------------------------------------------------------------
+# Packed training (data/packing.py): several user segments per row
+# ---------------------------------------------------------------------------
+# Token layout per row (R rows, S slots, N item capacity, D = sem_id_dim):
+#   encoder: [user_0 .. user_{S-1}] ++ item tokens in (item, level) order
+#            (Nc = S + N*D tokens; segment s's item tokens are contiguous)
+#   decoder: S blocks of [BOS, fut_0 .. fut_{D-1}]  (Nf = S*(D+1) tokens)
+# Attention is segment-local via per-query key spans (ops/attention.
+# span_mask): window = own segment's item-token range, extra column = own
+# user token. Per segment, embeddings, positions and loss are the flat
+# model's.
+
+
+def packed_spans(cfg: RetrievalConfig, tok):
+    """The three span sets of a packed batch: (enc_spans, fut_self_spans,
+    cross_spans), each a (lo, hi, extra) triple of (R, Nq) int32 tensors.
+    Padding tokens and unused slots attend nothing (lo = hi = 0, extra = -1)."""
+    r, s = tok.slot_valid.shape
+    d = cfg.sem_id_dim
+    dev = tok.seg_item.device
+    item_seg = torch.repeat_interleave(tok.seg_item, d, dim=1)     # (R, N*D)
+    lo_slot = s + tok.slot_start * d                               # (R, S) token lo
+    hi_slot = lo_slot + tok.slot_len * d
+
+    def window(seg):
+        safe = seg.clamp(min=0).long()
+        ok = seg >= 0
+        return (torch.where(ok, torch.gather(lo_slot, 1, safe), 0),
+                torch.where(ok, torch.gather(hi_slot, 1, safe), 0))
+
+    # encoder self-attention: user tokens sit at columns 0..S-1, so a
+    # token's extra column is its slot index
+    slot_ids = torch.arange(s, dtype=torch.int32, device=dev)[None]
+    user_seg = torch.where(tok.slot_valid, slot_ids, -1)           # (R, S)
+    lo_u, hi_u = window(user_seg)
+    lo_i, hi_i = window(item_seg)
+    enc_spans = (torch.cat([lo_u, lo_i], dim=1), torch.cat([hi_u, hi_i], dim=1),
+                 torch.cat([user_seg, item_seg], dim=1))
+
+    # decoder side: slot s owns positions [s*(D+1), (s+1)*(D+1))
+    nf = s * (d + 1)
+    pos = torch.arange(nf, dtype=torch.int32, device=dev)
+    slot_of_fut = pos // (d + 1)
+    fut_self_spans = ((slot_of_fut * (d + 1)).expand(r, nf), (pos + 1).expand(r, nf),  # causal in-slot
+                      torch.full((r, nf), -1, dtype=torch.int32, device=dev))
+    fut_seg = torch.where(tok.slot_valid[:, slot_of_fut.long()], slot_of_fut[None], -1)
+    lo_f, hi_f = window(fut_seg)
+    return enc_spans, fut_self_spans, (lo_f, hi_f, fut_seg)
+
+
+def embed_packed_context(params, cfg: RetrievalConfig, tok):
+    """[S user tokens] ++ [wpe + sem-ID embeddings], positions restarting
+    per segment (the flat ``embed_context`` per segment). Positions are a
+    gather (``F.embedding``), where JAX multiplies by a one-hot matrix (a TPU
+    idiom that keeps the backward off a scatter): the same values."""
+    r = tok.sem_ids.shape[0]
+    n = tok.seg_item.shape[1]
+    d = cfg.sem_id_dim
+    dev = tok.sem_ids.device
+    sem = embeddings.sem_id_embed(params["sem_emb"], tok.sem_ids, tok.token_type_ids,
+                                  cfg.num_embeddings, tok.seq_mask)
+    seg_pos = torch.arange(n, device=dev)[None] - torch.gather(
+        tok.slot_start, 1, tok.seg_item.clamp(min=0).long())      # (R, N)
+    tok_pos = (torch.repeat_interleave(seg_pos, d, dim=1) * d
+               + torch.arange(d, device=dev).repeat(n)[None])
+    tok_pos = tok_pos.clamp(0, params["wpe"].shape[0] - 1)
+    sem = sem + F.embedding(tok_pos.long(), params["wpe"]).to(sem.dtype)
+    user = embeddings.user_id_embed(params["user_emb"], tok.user_ids)
+    return torch.cat([user, sem], dim=1)                           # (R, S+N*D, E)
+
+
+def embed_packed_future(params, cfg: RetrievalConfig, tok):
+    """S blocks of [BOS, fut embedding + token-type embedding]."""
+    r, s, d = tok.sem_ids_fut.shape
+    e = cfg.embedding_dim
+    tt = torch.arange(d, dtype=torch.int32, device=tok.sem_ids_fut.device).expand(r, s, d)
+    fut = _fut_embed(params, cfg, tok.sem_ids_fut, tt)             # (R, S, D, E)
+    bos = params["bos"].expand(r, s, 1, e)
+    return torch.cat([bos, fut], dim=2).reshape(r, s * (d + 1), e)
+
+
+def forward_packed(params, cfg: RetrievalConfig, tok, *, training: bool = False,
+                   generator: Optional[torch.Generator] = None) -> ModelOutput:
+    """Training / eval-loss forward over a packed batch
+    (``semids.PackedTokenizedBatch``): the CE summed over each slot's sem-ID
+    tuple, meaned over the valid slots (the flat forward's loss over the
+    examples the batch packed). ``training`` draws the input dropout, then
+    the encoder's and the decoder's dropout, from ``generator`` in that
+    order."""
+    ctx_emb = embed_packed_context(params, cfg, tok)
+    fut_emb = embed_packed_future(params, cfg, tok)
+    h_ctx = _dropout(rms_norm(ctx_emb, params["norm"]), cfg.input_dropout, training, generator)
+    h_fut = _dropout(rms_norm(fut_emb, params["norm_cxt"]), cfg.input_dropout, training,
+                     generator)
+    ctx_in = h_ctx @ params["in_proj_context"].to(h_ctx.dtype)
+    fut_in = h_fut @ params["in_proj"].to(h_fut.dtype)
+    enc_spans, fut_self_spans, cross_spans = packed_spans(cfg, tok)
+    context = transformer.encode(params["transformer"], cfg.transformer, ctx_in, None,
+                                 training=training, generator=generator, self_spans=enc_spans)
+    out = transformer.decode(params["transformer"], cfg.transformer, fut_in, context, None,
+                             training=training, generator=generator,
+                             self_spans=fut_self_spans, cross_spans=cross_spans)
+    logits = out @ params["out_proj"].to(out.dtype)               # (R, S*(D+1), K)
+    r, s, d = tok.sem_ids_fut.shape
+    logits = logits.reshape(r, s, d + 1, -1)[:, :, :d]             # predict 0..D-1
+    targets = torch.where(tok.slot_valid[:, :, None], tok.sem_ids_fut, -1)
+    unred = cross_entropy_ignore(logits, targets)                  # (R, S, D)
+    n_valid = torch.clamp(torch.sum(tok.slot_valid), min=1).float()
+    return ModelOutput(loss=torch.sum(unred) / n_valid, logits=logits,
+                       loss_d=torch.sum(unred, dim=(0, 1)) / n_valid)
 
 
 class GenerationCache(NamedTuple):

@@ -67,36 +67,36 @@ def init(gen: torch.Generator, cfg: TransformerConfig, *, device=None):
     }
 
 
-def _self_attention(p, x, num_heads, *, causal, k_mask):
+def _self_attention(p, x, num_heads, *, causal, k_mask, q_spans=None):
     q, k, v = torch.chunk(x @ p["wqkv"].to(x.dtype), 3, dim=-1)
     out = attn_ops.attend(
         attn_ops.split_heads(q, num_heads), attn_ops.split_heads(k, num_heads),
-        attn_ops.split_heads(v, num_heads), causal=causal, k_mask=k_mask,
+        attn_ops.split_heads(v, num_heads), causal=causal, k_mask=k_mask, q_spans=q_spans,
     )
     return attn_ops.merge_heads(out) @ p["proj"].to(x.dtype)
 
 
-def _cross_attention(p, x, context, num_heads, *, k_mask):
+def _cross_attention(p, x, context, num_heads, *, k_mask, q_spans=None):
     q = x @ p["wq"].to(x.dtype)
     k, v = torch.chunk(context @ p["wkv"].to(x.dtype), 2, dim=-1)
     out = attn_ops.attend(
         attn_ops.split_heads(q, num_heads), attn_ops.split_heads(k, num_heads),
-        attn_ops.split_heads(v, num_heads), causal=False, k_mask=k_mask,
+        attn_ops.split_heads(v, num_heads), causal=False, k_mask=k_mask, q_spans=q_spans,
     )
     return attn_ops.merge_heads(out) @ p["proj"].to(x.dtype)
 
 
 def _block_apply(p, cfg: TransformerConfig, x, *, causal: bool, self_k_mask=None,
                  context=None, cross_k_mask=None, training: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, self_spans=None, cross_spans=None):
     drop = lambda t: _dropout(t, cfg.dropout, training, generator)  # noqa: E731
     attn_out = x + _self_attention(p["attn"], drop(rms_norm(x, p["attn_norm"])), cfg.num_heads,
-                                   causal=causal, k_mask=self_k_mask)
+                                   causal=causal, k_mask=self_k_mask, q_spans=self_spans)
     if context is not None:
         # quirk parity: the cross query reads the BLOCK INPUT x, not attn_out
         attn_out = attn_out + _cross_attention(
             p["cross_attn"], drop(rms_norm(x, p["cross_attn_norm"])), context, cfg.num_heads,
-            k_mask=cross_k_mask,
+            k_mask=cross_k_mask, q_spans=cross_spans,
         )
     ff = mlp.apply(p["ff_mlp"], rms_norm(attn_out, p["ff_norm"]), dropout=cfg.dropout,
                    training=training, generator=generator)
@@ -104,23 +104,32 @@ def _block_apply(p, cfg: TransformerConfig, x, *, causal: bool, self_k_mask=None
 
 
 def encode(params, cfg: TransformerConfig, context_in: torch.Tensor,
-           context_mask: torch.Tensor, *, training: bool = False,
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Non-causal self-attention stack over the history (B, Nc, d_model)."""
+           context_mask: Optional[torch.Tensor], *, training: bool = False,
+           generator: Optional[torch.Generator] = None, self_spans=None) -> torch.Tensor:
+    """Non-causal self-attention stack over the history (B, Nc, d_model).
+    ``self_spans`` (packed training) replaces the key mask with per-query
+    key windows."""
     x = context_in
     for block in params["encoder"]:
-        x = _block_apply(block, cfg, x, causal=False, self_k_mask=context_mask,
-                         training=training, generator=generator)
+        x = _block_apply(block, cfg, x, causal=False,
+                         self_k_mask=None if self_spans is not None else context_mask,
+                         training=training, generator=generator, self_spans=self_spans)
     return x
 
 
 def decode(params, cfg: TransformerConfig, x: torch.Tensor, context: torch.Tensor,
-           context_mask: torch.Tensor, *, training: bool = False,
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Causal self-attention + cross-attention to the encoder output."""
+           context_mask: Optional[torch.Tensor], *, training: bool = False,
+           generator: Optional[torch.Generator] = None, self_spans=None,
+           cross_spans=None) -> torch.Tensor:
+    """Causal self-attention + cross-attention to the encoder output. Packed
+    training passes ``self_spans`` (causality within a segment as hi = own
+    position + 1) and ``cross_spans`` (the segment's encoder window) in place
+    of plain causality and the key mask."""
     for block in params["decoder"]:
-        x = _block_apply(block, cfg, x, causal=True, context=context,
-                         cross_k_mask=context_mask, training=training, generator=generator)
+        x = _block_apply(block, cfg, x, causal=self_spans is None, context=context,
+                         cross_k_mask=None if cross_spans is not None else context_mask,
+                         training=training, generator=generator, self_spans=self_spans,
+                         cross_spans=cross_spans)
     return x
 
 

@@ -11,6 +11,14 @@ measured on a TPU v5e; it has not been re-measured on the H100. Layout is
 as (B, H, N, Dh) views through ``transpose(1, 2)``, which the kernels read
 by strides, so no copy is made at this boundary.
 
+Span-restricted attention (``q_spans = (lo, hi, extra)``, the packed
+training masks, ``span_mask``) routes the same way with JAX's own test: the
+span kernels (``flash_attention_spans``, or its twin on the CPU) when
+Nq >= 256, Nk >= 256, Dh >= 64, not causal and no ``k_mask``; otherwise the
+dense ``sdpa`` under the span mask. In packed training only the encoder's
+self-attention (808 x 808 at the ML-32M shape) takes the kernel; the
+decoder's self- (40 tokens) and cross-attention (40 queries) go dense.
+
 ``sdpa`` is written as the JAX one is, not with
 ``F.scaled_dot_product_attention``: scores in fp32 (q and k upcast, the
 counterpart of ``preferred_element_type=float32``), fp32 softmax,
@@ -24,7 +32,13 @@ from typing import Optional
 
 import torch
 
-from rqvae_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from rqvae_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_plain,
+    flash_attention_spans,
+    flash_attention_spans_plain,
+    span_mask,
+)
 
 NEG_INF = -1e30
 FLASH_MIN_LEN = 256   # the JAX package's cut (Nq and Nk), with Dh >= 64
@@ -33,14 +47,19 @@ FLASH_MIN_DH = 64
 
 def build_mask(q_len: int, k_len: int, *, causal: bool = False,
                k_mask: Optional[torch.Tensor] = None,
+               q_spans: Optional[tuple] = None,
                device=None) -> Optional[torch.Tensor]:
-    """(B or 1, 1, Nq, Nk) boolean attention mask; True = attend."""
+    """(B or 1, 1, Nq, Nk) boolean attention mask; True = attend.
+    ``k_mask`` (B, Nk) bool; ``q_spans`` as ``span_mask``."""
     mask = None
     if causal:
         mask = torch.tril(torch.ones((q_len, k_len), dtype=torch.bool, device=device))[None, None]
     if k_mask is not None:
         km = k_mask[:, None, None, :]
         mask = km if mask is None else mask & km
+    if q_spans is not None:
+        sm = span_mask(q_spans, k_len)[:, None]
+        mask = sm if mask is None else mask & sm
     return mask
 
 
@@ -59,13 +78,25 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False,
-           k_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+           k_mask: Optional[torch.Tensor] = None,
+           q_spans: Optional[tuple] = None) -> torch.Tensor:
     """Structured-mask attention entry point used by the transformer.
-    ``k_mask`` (B, Nk) bool, True = attend."""
-    if (q.shape[1] >= FLASH_MIN_LEN and k.shape[1] >= FLASH_MIN_LEN
-            and q.shape[-1] >= FLASH_MIN_DH):
+    ``k_mask`` (B, Nk) bool, True = attend; ``q_spans`` (lo, hi, extra),
+    each (B, Nq) int."""
+    big = (q.shape[1] >= FLASH_MIN_LEN and k.shape[1] >= FLASH_MIN_LEN
+           and q.shape[-1] >= FLASH_MIN_DH)
+    on_card = q.device.type == "cuda"
+    if q_spans is not None:
+        if big and not causal and k_mask is None:
+            fn = flash_attention_spans if on_card else flash_attention_spans_plain
+            return fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                      *q_spans).transpose(1, 2)
+        mask = build_mask(q.shape[1], k.shape[1], causal=causal, k_mask=k_mask,
+                          q_spans=q_spans, device=q.device)
+        return sdpa(q, k, v, mask)
+    if big:
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        fn = flash_attention if q.device.type == "cuda" else flash_attention_plain
+        fn = flash_attention if on_card else flash_attention_plain
         return fn(qh, kh, vh, k_mask=k_mask, causal=causal).transpose(1, 2)
     mask = build_mask(q.shape[1], k.shape[1], causal=causal, k_mask=k_mask, device=q.device)
     return sdpa(q, k, v, mask)

@@ -1,5 +1,5 @@
 """Fused masked attention with a hand-written backward (counterpart of
-rqvae_tpu/ops/flash_attention.py:flash_attention).
+rqvae_tpu/ops/flash_attention.py:flash_attention and flash_attention_spans).
 
 ``flash_attention(q, k, v, *, k_mask=None, causal=False)`` on (B, H, N, Dh)
 operands is an ``autograd.Function``: its forward runs ``flash_attention_fwd``
@@ -11,12 +11,25 @@ one to the other. ``flash_attention_fwd.launches`` and
 ``flash_attention_bwd.launches`` count kernel launches (one backward launch
 runs the dq kernel and the dk / dv kernel).
 
-The twins carry the TPU kernel's own arithmetic: the key mask as an additive
-fp32 bias (0 / -1e30), scores in fp32, the unnormalised ``e = exp(s - m)``
-cast to the operand type before the PV product, and ``inv = where(m > -5e29,
-1 / sum(e), 0)`` folded into the output, so a row with no valid key gives
-zeros. The backward takes ``c = rowsum(dp * e) * inv`` and ``ds = e * ((dp -
-c) * inv)``, accumulates in fp32 and casts dq, dk, dv to the operand types.
+``flash_attention_spans(q, k, v, lo, hi, extra)`` is the packed-training
+variant, built the same way (``flash_attention_spans_fwd`` /
+``flash_attention_spans_bwd`` over ``csrc/flash_attention_spans_fwd.cu`` /
+``csrc/flash_attention_spans_bwd.cu``, each with a ``.launches`` count, and
+the twins ``flash_attention_spans_plain`` / ``flash_attention_spans_bwd_plain``):
+query i attends keys [lo_i, hi_i) and key extra_i (``span_mask``), the
+bounds (B, Nq) ints. Its mask is a select after scaling, not a bias, as in
+the TPU kernel. All four kernels share their tile loops
+(``csrc/flash_attention_{fwd,bwd}.cuh``) and differ in the mask policy.
+
+The twins carry the TPU kernels' own arithmetic: scores in fp32 with the
+mask (flash_attention: the key mask as an additive fp32 bias 0 / -1e30, then
+the causal cut; spans: ``where(allow, s, -1e30)``), the unnormalised
+``e = exp(s - m)`` cast to the operand type before the PV product, and
+``inv = where(m > -5e29, 1 / sum(e), 0)`` folded into the output, so a row
+with no allowed key gives zeros. The backward takes ``c = rowsum(dp * e) *
+inv`` and ``ds = e * ((dp - c) * inv)`` cast to the operand type, ``g * inv``
+cast to g's type for dv, accumulates in fp32 and casts dq, dk, dv to the
+operand types.
 
 The kernels read strided operands: any (B, H, N, Dh) view whose last
 dimension is contiguous, such as the transformer's q / k / v slices of one
@@ -29,6 +42,10 @@ argument here: the CUDA kernels tile 64 rows x 64 keys. For bf16 operands
 with Dh = 64 whose rows are 16-byte aligned (the model's case) the kernels
 run on the tensor cores (mma.sync); fp32 operands, other head sizes up to
 128 and unaligned views run an fp32 CUDA-core variant of the same function.
+The span kernels skip every (query tile, key tile) pair in which no row may
+attend any key; that adds exactly nothing to the sums (a fully masked row
+still gives zeros), so only the order of the fp32 sums differs from the
+twin's.
 """
 from __future__ import annotations
 
@@ -50,22 +67,50 @@ def mask_bias(k_mask: Optional[torch.Tensor], b: int, nk: int, device) -> torch.
     return torch.where(k_mask, 0.0, NEG_INF).to(torch.float32).reshape(b, nk)
 
 
-def _scores(q, k, bias, causal):
+def _key_masker(bias, causal):
+    """flash_attention's mask: the fp32 key bias added to the scaled scores,
+    then the causal cut as a select."""
+    def apply(s):
+        s = s + bias[:, None, None, :]
+        if causal:
+            nq, nk = s.shape[-2:]
+            keep = torch.arange(nk, device=s.device)[None, :] <= torch.arange(nq, device=s.device)[:, None]
+            s = torch.where(keep, s, NEG_INF)
+        return s
+
+    return apply
+
+
+def span_mask(q_spans, k_len: int) -> torch.Tensor:
+    """Per-query contiguous key window plus one extra column:
+    ``q_spans = (lo, hi, extra)``, each (B, Nq) int; query i may attend key
+    j iff ``lo[i] <= j < hi[i]`` or ``j == extra[i]`` (extra = -1 for none;
+    lo = hi = 0 attends nothing). Returns (B, Nq, Nk) bool."""
+    lo, hi, extra = q_spans
+    cols = torch.arange(k_len, device=lo.device)[None, None, :]
+    return ((cols >= lo[..., None]) & (cols < hi[..., None])) | (cols == extra[..., None])
+
+
+def _span_masker(lo, hi, extra):
+    """flash_attention_spans' mask: a select after scaling, no bias."""
+    def apply(s):
+        return torch.where(span_mask((lo, hi, extra), s.shape[-1])[:, None], s, NEG_INF)
+
+    return apply
+
+
+def _scores(q, k, masker):
     """fp32 scores with the mask, the row max m, e = exp(s - m), and inv."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale + bias[:, None, None, :]
-    if causal:
-        nq, nk = s.shape[-2:]
-        keep = torch.arange(nk, device=s.device)[None, :] <= torch.arange(nq, device=s.device)[:, None]
-        s = torch.where(keep, s, NEG_INF)
+    s = masker(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale)
     m = torch.amax(s, dim=-1, keepdim=True)
-    e = torch.exp(s - m)                          # all-invalid rows: e == 1
+    e = torch.exp(s - m)                          # all-masked rows: e == 1
     inv = torch.where(m > 0.5 * NEG_INF, 1.0 / torch.sum(e, dim=-1, keepdim=True), 0.0)
     return scale, m, e, inv
 
 
-def _plain_fwd(q, k, v, bias, causal):
-    _, m, e, inv = _scores(q, k, bias, causal)
+def _plain_fwd(q, k, v, masker):
+    _, m, e, inv = _scores(q, k, masker)
     out = torch.matmul(e.to(v.dtype).float(), v.float()) * inv
     return out.to(q.dtype), m[..., 0], inv[..., 0]
 
@@ -75,11 +120,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = False) -> torch.Tensor:
     """Plain PyTorch twin of the forward kernel on (B, H, N, Dh) operands."""
     bias = mask_bias(k_mask, q.shape[0], k.shape[2], q.device)
-    return _plain_fwd(q, k, v, bias, causal)[0]
+    return _plain_fwd(q, k, v, _key_masker(bias, causal))[0]
 
 
-def _plain_bwd(q, k, v, bias, g, causal):
-    scale, _, e, inv = _scores(q, k, bias, causal)
+def _plain_bwd(q, k, v, g, masker):
+    scale, _, e, inv = _scores(q, k, masker)
     dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
     c = torch.sum(dp * e, dim=-1, keepdim=True) * inv
     ds = (e * ((dp - c) * inv)).to(k.dtype).float()
@@ -96,7 +141,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain PyTorch twin of the backward kernel: (dq, dk, dv) for the
     upstream gradient ``g`` of the forward's output."""
     bias = mask_bias(k_mask, q.shape[0], k.shape[2], q.device)
-    return _plain_bwd(q, k, v, bias, g, causal)
+    return _plain_bwd(q, k, v, g, _key_masker(bias, causal))
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -105,17 +150,19 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = _cuda_build.load(name)
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == "flash_attention_fwd":
-            lib.flash_fwd_launch.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
-            lib.flash_fwd_launch.restype = i
-            lib.flash_fwd_error_string.argtypes = [i]
-            lib.flash_fwd_error_string.restype = ctypes.c_char_p
-        else:
-            lib.flash_bwd_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p,
-                                             i, i, i, i, i, i, f, i, p]
-            lib.flash_bwd_launch.restype = i
-            lib.flash_bwd_error_string.argtypes = [i]
-            lib.flash_bwd_error_string.restype = ctypes.c_char_p
+        prefix, argtypes = {
+            "flash_attention_fwd": ("flash_fwd", [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]),
+            "flash_attention_bwd": ("flash_bwd", [i, p, p, p, p, p, p, p, p, p, p, p, p,
+                                                  i, i, i, i, i, i, f, i, p]),
+            "flash_attention_spans_fwd": ("flash_spans_fwd", [i, p, p, p, p, p, p, p, p, p, p,
+                                                              i, i, i, i, i, f, i, p]),
+            "flash_attention_spans_bwd": ("flash_spans_bwd", [i, p, p, p, p, p, p, p, p, p, p, p,
+                                                              p, p, p, i, i, i, i, i, f, i, p]),
+        }[name]
+        launch = getattr(lib, f"{prefix}_launch")
+        launch.argtypes, launch.restype = argtypes, i
+        err = getattr(lib, f"{prefix}_error_string")
+        err.argtypes, err.restype = [i], ctypes.c_char_p
         lib._typed = True
     return lib
 
@@ -179,7 +226,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nk = k.shape[2]
     bias = mask_bias(k_mask, b, nk, dev)
     if dev.type == "cpu":
-        return _plain_fwd(q, k, v, bias, causal)
+        return _plain_fwd(q, k, v, _key_masker(bias, causal))
     _check_kernel_operands((q, k, v), ("q", "k", "v"))
     out = _bnhd_empty(b, h, nq, dh, q)
     m = torch.empty((b, h, nq), dtype=torch.float32, device=dev)
@@ -215,7 +262,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: to
                          f"fit q {tuple(q.shape)}")
     bias = mask_bias(k_mask, b, nk, dev)
     if dev.type == "cpu":
-        return _plain_bwd(q, k, v, bias, g, causal)
+        return _plain_bwd(q, k, v, g, _key_masker(bias, causal))
     _check_kernel_operands((q, k, v, g), ("q", "k", "v", "g"))
     m = m.to(torch.float32).contiguous()
     inv = inv.to(torch.float32).contiguous()
@@ -264,3 +311,134 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``k_mask`` (B, Nk) bool, True = attend; None = every key valid."""
     _check_operands(q, k, v)
     return _FlashAttention.apply(q, k, v, k_mask, bool(causal))
+
+
+# ---------------------------------------------------------------------------
+# Span-restricted variant (flash_attention_spans): per-query key window plus
+# one extra column, the packed-training mask
+# ---------------------------------------------------------------------------
+
+
+def _span_operands(lo, hi, extra, b: int, nq: int):
+    """The (B, Nq) bounds as contiguous int32, checked."""
+    out = []
+    for name, t in (("lo", lo), ("hi", hi), ("extra", extra)):
+        if tuple(t.shape) != (b, nq):
+            raise ValueError(f"{name} is {tuple(t.shape)}, expected (B, Nq) = {(b, nq)}")
+        if t.dtype.is_floating_point or t.dtype == torch.bool:
+            raise TypeError(f"{name} must be an integer tensor, got {t.dtype}")
+        out.append(t.to(torch.int32).contiguous())
+    return tuple(out)
+
+
+def flash_attention_spans_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                lo: torch.Tensor, hi: torch.Tensor,
+                                extra: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of the span forward kernel on (B, H, N, Dh)
+    operands and (B, Nq) bounds (``span_mask`` semantics)."""
+    return _plain_fwd(q, k, v, _span_masker(lo, hi, extra))[0]
+
+
+def flash_attention_spans_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    lo: torch.Tensor, hi: torch.Tensor, extra: torch.Tensor,
+                                    g: torch.Tensor):
+    """Plain PyTorch twin of the span backward kernel: (dq, dk, dv) for the
+    upstream gradient ``g``."""
+    return _plain_bwd(q, k, v, g, _span_masker(lo, hi, extra))
+
+
+def flash_attention_spans_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              lo: torch.Tensor, hi: torch.Tensor, extra: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(out, m, inv) of span-restricted attention: the output (B, H, Nq, Dh)
+    in q's dtype and the row statistics the backward reads, (B, H, Nq) fp32."""
+    dev = _check_operands(q, k, v, (lo, hi, extra))
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
+    lo, hi, extra = _span_operands(lo, hi, extra, b, nq)
+    if dev.type == "cpu":
+        return _plain_fwd(q, k, v, _span_masker(lo, hi, extra))
+    _check_kernel_operands((q, k, v), ("q", "k", "v"))
+    out = _bnhd_empty(b, h, nq, dh, q)
+    m = torch.empty((b, h, nq), dtype=torch.float32, device=dev)
+    inv = torch.empty_like(m)
+    lib = _lib("flash_attention_spans_fwd")
+    err = lib.flash_spans_fwd_launch(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), lo.data_ptr(),
+        hi.data_ptr(), extra.data_ptr(), out.data_ptr(), m.data_ptr(), inv.data_ptr(),
+        _strides(q, k, v, out), b, h, nq, nk, dh, 1.0 / math.sqrt(dh), _device_index(q),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_spans_fwd launch failed: "
+                           f"{lib.flash_spans_fwd_error_string(err).decode()}")
+    flash_attention_spans_fwd.launches += 1
+    return out, m, inv
+
+
+flash_attention_spans_fwd.launches = 0
+
+
+def flash_attention_spans_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              lo: torch.Tensor, hi: torch.Tensor, extra: torch.Tensor,
+                              g: torch.Tensor, m: torch.Tensor, inv: torch.Tensor):
+    """(dq, dk, dv) of span-restricted attention for the upstream gradient
+    ``g``, given the forward's row statistics (the CPU twin recomputes them)."""
+    dev = _check_operands(q, k, v, (lo, hi, extra, g, m, inv))
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
+    if g.shape != q.shape or m.shape != (b, h, nq) or inv.shape != (b, h, nq):
+        raise ValueError(f"g {tuple(g.shape)}, m {tuple(m.shape)}, inv {tuple(inv.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    lo, hi, extra = _span_operands(lo, hi, extra, b, nq)
+    if dev.type == "cpu":
+        return _plain_bwd(q, k, v, g, _span_masker(lo, hi, extra))
+    _check_kernel_operands((q, k, v, g), ("q", "k", "v", "g"))
+    m = m.to(torch.float32).contiguous()
+    inv = inv.to(torch.float32).contiguous()
+    c = torch.empty_like(m)
+    dq = _bnhd_empty(b, h, nq, dh, q)
+    dk = _bnhd_empty(b, h, nk, dh, k)
+    dv = _bnhd_empty(b, h, nk, dh, v)
+    lib = _lib("flash_attention_spans_bwd")
+    err = lib.flash_spans_bwd_launch(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), lo.data_ptr(),
+        hi.data_ptr(), extra.data_ptr(), g.data_ptr(), m.data_ptr(), inv.data_ptr(), c.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, g, dq, dk, dv),
+        b, h, nq, nk, dh, 1.0 / math.sqrt(dh), _device_index(q),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_spans_bwd launch failed: "
+                           f"{lib.flash_spans_bwd_error_string(err).decode()}")
+    flash_attention_spans_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_spans_bwd.launches = 0
+
+
+class _FlashAttentionSpans(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, lo, hi, extra):
+        out, m, inv = flash_attention_spans_fwd(q, k, v, lo, hi, extra)
+        ctx.save_for_backward(q, k, v, lo, hi, extra, m, inv)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, lo, hi, extra, m, inv = ctx.saved_tensors
+        if g.stride(-1) != 1:
+            g = g.contiguous()  # autograd may hand over any layout; one copy then
+        dq, dk, dv = flash_attention_spans_bwd(q, k, v, lo, hi, extra, g, m, inv)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_spans(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          lo: torch.Tensor, hi: torch.Tensor, extra: torch.Tensor) -> torch.Tensor:
+    """Span-restricted fused attention over (B, H, N, Dh) operands;
+    differentiable. ``lo``, ``hi``, ``extra`` are (B, Nq) ints: query i
+    attends keys [lo_i, hi_i) and key extra_i (-1 = none). Non-causal; the
+    packed decoder's causality within a segment is hi = own position + 1."""
+    _check_operands(q, k, v, (lo, hi, extra))
+    return _FlashAttentionSpans.apply(q, k, v, lo, hi, extra)

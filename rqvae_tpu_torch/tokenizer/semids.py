@@ -1,5 +1,6 @@
-"""Semantic-ID tokenizer: corpus precompute, dedup column, prefix membership
-(counterpart of rqvae_tpu/tokenizer/semids.py).
+"""Semantic-ID tokenizer: corpus precompute, dedup column, prefix membership,
+and the cached-ID gathers of flat and packed batches (counterpart of
+rqvae_tpu/tokenizer/semids.py).
 
 Same rank-chained index as the JAX package: the level-l key of a corpus row
 is ``rank_{l-1}(prefix[:-1]) * base_l + token_l``, where the rank indexes
@@ -17,6 +18,7 @@ explicitly (torch raises on CPU and asserts on the device).
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -205,4 +207,45 @@ def tokenize_sequences(index: CorpusIndex, batch: SeqBatch) -> TokenizedSeqBatch
         seq_mask=seq_mask,
         token_type_ids=levels.repeat(b, n),
         token_type_ids_fut=levels.repeat(b, 1),
+    )
+
+
+class PackedTokenizedBatch(NamedTuple):
+    """A packed batch in semantic-ID token space (the packed counterpart of
+    TokenizedSeqBatch): R rows x S segments, item tokens flattened to N*D."""
+
+    user_ids: torch.Tensor        # (R, S) int32
+    sem_ids: torch.Tensor         # (R, N*D) int32, -1 padded
+    sem_ids_fut: torch.Tensor     # (R, S, D) int32
+    seq_mask: torch.Tensor        # (R, N*D) bool
+    token_type_ids: torch.Tensor  # (R, N*D) int32 in [0, D)
+    seg_item: torch.Tensor        # (R, N) int32 slot per item, -1 pad
+    slot_start: torch.Tensor      # (R, S) int32
+    slot_len: torch.Tensor        # (R, S) int32
+    slot_valid: torch.Tensor      # (R, S) bool
+
+
+def tokenize_packed(index: CorpusIndex, packed) -> PackedTokenizedBatch:
+    """Cached-ID gather for a packed batch (``data.packing.PackedSeqBatch``
+    of tensors): item-ID rows carrying several user segments -> semantic-ID
+    token rows. Per segment the same as ``tokenize_sequences``; the packing
+    metadata passes through for the model to derive its attention spans."""
+    r, n = packed.ids.shape
+    d = index.cached_ids.shape[-1]
+    n_items = index.cached_ids.shape[0]
+    sem_ids = index.cached_ids[packed.ids.long().clamp(0, n_items - 1)].reshape(r, n * d)
+    seq_mask = torch.repeat_interleave(packed.ids >= 0, d, dim=1)
+    sem_ids = torch.where(seq_mask, sem_ids, -1)
+    sem_ids_fut = index.cached_ids[packed.ids_fut.long().clamp(0, n_items - 1)]   # (R, S, D)
+    levels = torch.arange(d, dtype=torch.int32, device=packed.ids.device)
+    return PackedTokenizedBatch(
+        user_ids=packed.user_ids,
+        sem_ids=sem_ids,
+        sem_ids_fut=sem_ids_fut,
+        seq_mask=seq_mask,
+        token_type_ids=levels.repeat(r, n),
+        seg_item=packed.seg_item,
+        slot_start=packed.slot_start,
+        slot_len=packed.slot_len,
+        slot_valid=packed.slot_valid,
     )

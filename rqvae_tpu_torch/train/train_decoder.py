@@ -13,6 +13,10 @@ The entry points are the step functions, as ``bench.py`` drives them:
   ``(grad_accum, apply)`` pair that sums the groups' gradients with weight
   1 / n_buckets and then applies one update: the flat step's gradients,
   with fewer padded tokens.
+* ``make_packed_step(model_cfg, opt, index, compute_dtype)`` returns
+  ``step(params, opt_state, packed, generator)`` over a packed batch
+  (``data/packing.py``): several crops a row, segment-local attention
+  through the span kernels, the loss meaned over the valid slots.
 
 Mixed precision is the JAX package's: fp32 master params and AdamW state,
 ``amp.cast_floating(params, bf16)`` inside the differentiated loss (so the
@@ -81,6 +85,10 @@ class DecoderTrainConfig:
     train_data_subsample: bool = True
     # length-bucketed gradient accumulation (1 = off); see bucket_slices
     length_buckets: int = 1
+    # packed long-context training (data/packing.py, make_packed_step):
+    # rows per step (0 = off) and segments per row
+    packed_rows: int = 0
+    pack_slots: int = 8
     seed: int = 42
     log_every: int = 100
     warmup_steps: int = 10000
@@ -160,6 +168,28 @@ def bucket_slices(lengths: np.ndarray, n_buckets: int, grid: int = 4):
         lmax = max(1, int(lengths[rows].max()))
         out.append((rows, int(np.ceil(lmax / grid) * grid)))
     return out
+
+
+def make_packed_step(model_cfg: RetrievalConfig, opt, index: semids.CorpusIndex,
+                     compute_dtype: torch.dtype):
+    """``step(params, opt_state, packed, generator) -> (params, opt_state,
+    metrics)`` over a packed batch (``data.packing.PackedSeqBatch`` of
+    tensors, ``packing.to_device``): tokenize, the segment-local forward
+    with dropout, backpropagate, one AdamW update. The same loss estimator
+    as the flat step, over the examples the packer placed."""
+
+    def packed_loss(params, packed, generator: Optional[torch.Generator]):
+        p = amp.cast_floating(params, compute_dtype)  # inside the loss: fp32 grads
+        tok = semids.tokenize_packed(index, packed)
+        out = retrieval.forward_packed(p, model_cfg, tok, training=True, generator=generator)
+        return out.loss, out.loss_d
+
+    def step(params, opt_state, packed, generator: Optional[torch.Generator]):
+        loss, loss_d, grads = value_and_grad(packed_loss, params, packed, generator)
+        params, opt_state = _apply_updates(opt, params, opt_state, grads)
+        return params, opt_state, {"total_loss": loss, "loss_d": loss_d}
+
+    return step
 
 
 def make_train_step(model_cfg: RetrievalConfig, opt, index: semids.CorpusIndex, accum: int,
