@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: Amazon serving, ML-32M
 decoder training and ML-32M serving, packed long-context decoder training,
-then stage-1 RQ-VAE training.
+stage-1 RQ-VAE training, then Amazon decoder training through
+``train_decoder.train`` over the stage-1 checkpoint.
 
 Drives ``rqvae_tpu_torch`` end to end at the shipped widths, with random
 weights made from a seed and seeded synthetic data:
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build the seven CUDA kernels from ``rqvae_tpu_torch/csrc`` (one nvcc
+  2. build the nine CUDA kernels from ``rqvae_tpu_torch/csrc`` (one nvcc
      per source, in parallel) and print the build time;
   3. Amazon serving main path: tokenize the 12,101 x 768 corpus with the
      RQ-VAE (``precompute_corpus_ids``: 3 x 256 x 32 codebooks, fp32,
@@ -87,14 +88,40 @@ weights made from a seed and seeded synthetic data:
  19. both span kernels timed on phase 16's operands beside their twins and
      ``F.scaled_dot_product_attention`` under the span mask as a (B, 1, Nq,
      Nk) additive bias; the bound counts the allowed (q, k) pairs (the
-     dense count beside it); one packed step traced.
+     dense count beside it); one packed step traced;
+ 20. the Amazon decoder (run after stage 1), ``RQVAE_TPU_SHORT_FLASH=1``:
+     ``train_decoder.train`` on ``configs/decoder_amazon.json`` (4 + 4
+     layers, width 512, 8 heads, embedding 128, K = 256, batch 256,
+     dropout 0.3, bf16 compute over fp32 AdamW) over 12,101 synthetic
+     items and 22,363 synthetic users (Amazon Beauty's counts), the frozen
+     RQ-VAE restored from phase 11's checkpoint, 300 steps, eval loss and
+     constrained-beam-search eval (2 batches) and a checkpoint at the end,
+     then a resumed call of 20 more steps; the loss must fall, every
+     attention call must take flash_attention_small (12 forward and 12
+     backward launches a step) and the flat flash kernels never;
+ 21. both short kernels against their twins on layer 0's operands of the
+     three attention kinds (81 x 81 encoder, causal 5 x 5 decoder, 5 x 81
+     cross), recorded in the resumed call's first step (unit-RMS upstream
+     gradient), and at the decode step's 1 x 1..4, the 32 x 81 beam-folded
+     cross, 241 x 241 (the ML-32M short bucket), a causal 255 x 255 at
+     Dh = 128 and rows with no valid key (exactly 0): bf16 to 2e-2, fp32 to
+     1e-4;
+ 22. a 2-user fp32 Amazon step with the switch on, GPU against CPU;
+ 23. the switch off / on / on / off in turns: the Amazon train step
+     (batch 256) and beam search (256 users, k = 32); the short kernels'
+     times on the encoder operands beside their twins,
+     ``F.scaled_dot_product_attention`` with the mask as an additive bias,
+     the dense ``sdpa`` and the bound; one traced step.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 work runs in fp32.
+``RQVAE_TPU_SHORT_FLASH`` is unset for phases 1-19, so they take
+``attend``'s default routes.
 
-Prints the nvidia-smi line, a ``{"kernels": [...]}`` line, a
-``{"serving": {...}}`` line, a ``{"train": {...}}`` line (the packed step
-under its ``packed`` key), a
-``{"train_rqvae": {...}}`` line and, last, ``{"ok": true, "device": {...}}``.
+Prints the nvidia-smi line, a ``{"serving": {...}}`` line, a
+``{"train": {...}}`` line (the packed step under its ``packed`` key, the
+Amazon decoder under ``amazon``), a ``{"train_rqvae": {...}}`` line, the
+nvidia-smi line again, a ``{"kernels": [...]}`` line (nine entries) and,
+last, ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before the last line; so does a machine without
 a GPU. Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -103,6 +130,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -131,6 +159,12 @@ STRETCH_K = 2048
 STRETCH_EMBED = 64
 STRETCH_STEPS = 16      # steps per device-resident chunk
 STRETCH_CHUNKS = 3      # timed chunks
+
+AMAZON_USERS = 22363    # Amazon Beauty's users (TIGER, Table 1); its items are N_ITEMS
+AMAZON_ITERS = 300      # decoder steps through train_decoder.train (the config: 200,000)
+AMAZON_RESUME_ITERS = 20
+AMAZON_EVAL_BATCHES = 2
+SHORT_FLASH_ENV = "RQVAE_TPU_SHORT_FLASH"   # attend's short-route switch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32, outside the tensor cores
@@ -187,6 +221,8 @@ def main() -> int:
     from rqvae_tpu_torch.tokenizer import semids
     from rqvae_tpu_torch.utils import amp
 
+    # every phase before the Amazon decoder's runs attend's default routes
+    os.environ.pop(SHORT_FLASH_ENV, None)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -201,7 +237,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _cuda_build.build_all(["rq_tokenize", "children_window", "flash_attention_fwd",
                                   "flash_attention_bwd", "flash_attention_spans_fwd",
-                                  "flash_attention_spans_bwd", "rq_quantize_train"])
+                                  "flash_attention_spans_bwd", "rq_quantize_train",
+                                  "flash_attention_small_fwd", "flash_attention_small_bwd"])
     build_s = time.perf_counter() - t0
     for name, text in logs.items():
         for line in text.splitlines():
@@ -397,13 +434,22 @@ def main() -> int:
     kernels += span_kernels
     torch.cuda.empty_cache()
 
-    # ---- stage-1 RQ-VAE training, flagship and stretch ----
-    train_rqvae, stage1_kernels = _stage1(dev)
-    kernels += stage1_kernels
-    print(json.dumps({"kernels": kernels}), flush=True)
+    with tempfile.TemporaryDirectory() as work:
+        # ---- stage-1 RQ-VAE training, flagship and stretch ----
+        train_rqvae, stage1_kernels, rq_ckpt = _stage1(dev, work)
+        kernels += stage1_kernels
+        torch.cuda.empty_cache()
+
+        # ---- the Amazon decoder through train(), over the flagship's checkpoint ----
+        train["amazon"], small_kernels = _amazon_decoder(dev, rq_ckpt, work)
+        kernels += small_kernels
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"train_rqvae": train_rqvae}), flush=True)
+    # the card and the kernels once more, last, where a capture of the
+    # output's tail keeps them
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1009,11 +1055,12 @@ def _packed(dev):
     return packed, kernels
 
 
-def _stage1(dev):
+def _stage1(dev, work):
     """Phases 11-15: stage-1 RQ-VAE training at the flagship (Amazon) and the
     stretch shape, rq_quantize_train and the K-tiled rq_tokenize against their
-    twins, GPU vs CPU, and the route timings. Returns (train_rqvae dict,
-    kernel entries)."""
+    twins, GPU vs CPU, and the route timings. The flagship checkpoints under
+    ``work``. Returns (train_rqvae dict, kernel entries, the flagship's
+    checkpoint directory)."""
     import numpy as np
     import torch
 
@@ -1052,22 +1099,22 @@ def _stage1(dev):
     config = pathlib.Path(__file__).resolve().parent / "configs" / "rqvae_amazon.json"
     cap = Capture()
     rqvae.kmeans_prime = timed_prime
+    rq_ckpt = f"{work}/rqvae"
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            cfg = config_lib.load_config(tr.RqVaeTrainConfig, str(config), [
-                "dataset=SYNTHETIC", f"synthetic_n_items={N_ITEMS}", f"seed={SEED}",
-                f"iterations={RQ_ITERS}", "steps_per_call=8", "log_every=100",
-                f"eval_every={RQ_ITERS}", f"save_model_every={RQ_ITERS}",
-                f"save_dir_root={tmp}/rqvae"])
-            qk.rq_tokenize.launches = 0
-            qk.rq_quantize_train.launches = 0
-            t0 = time.perf_counter()
-            flag_params = tr.train(cfg, logger=cap, device=dev)
-            torch.cuda.synchronize()
-            flag_s = time.perf_counter() - t0
-            flag_launches = {"rq_tokenize": qk.rq_tokenize.launches,
-                             "rq_quantize_train": qk.rq_quantize_train.launches}
-            saved = checkpoint.latest_step(f"{tmp}/rqvae")
+        cfg = config_lib.load_config(tr.RqVaeTrainConfig, str(config), [
+            "dataset=SYNTHETIC", f"synthetic_n_items={N_ITEMS}", f"seed={SEED}",
+            f"iterations={RQ_ITERS}", "steps_per_call=8", "log_every=100",
+            f"eval_every={RQ_ITERS}", f"save_model_every={RQ_ITERS}",
+            f"save_dir_root={rq_ckpt}"])
+        qk.rq_tokenize.launches = 0
+        qk.rq_quantize_train.launches = 0
+        t0 = time.perf_counter()
+        flag_params = tr.train(cfg, logger=cap, device=dev)
+        torch.cuda.synchronize()
+        flag_s = time.perf_counter() - t0
+        flag_launches = {"rq_tokenize": qk.rq_tokenize.launches,
+                         "rq_quantize_train": qk.rq_quantize_train.launches}
+        saved = checkpoint.latest_step(rq_ckpt)
     finally:
         rqvae.kmeans_prime = real_prime
     acfg = cfg.model_config()
@@ -1391,7 +1438,352 @@ def _stage1(dev):
         rq_tokenize_4x2048x64=dict(rows=4096, ms=tok_big_ms, plain_ms=tok_big_plain_ms,
                                    bound_ms=max(tok_flops / FP32_FLOP_PER_S,
                                                 tok_bytes / HBM_BYTES_PER_S) * 1e3))
-    return train_rqvae, stage1_kernels
+    return train_rqvae, stage1_kernels, rq_ckpt
+
+
+def _amazon_decoder(dev, rq_ckpt, work):
+    """Phases 20-23: the Amazon decoder through ``train_decoder.train`` with
+    attend's short route on, over the stage-1 flagship's checkpoint; the
+    short kernels against their twins; a 2-user fp32 step GPU vs CPU; the
+    switch-off / on A/B of the step and the beam search, the kernels' times
+    and bound. Returns (amazon dict, kernel entries)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from rqvae_tpu_torch.data import dataset as dataset_lib
+    from rqvae_tpu_torch.data.synthetic import synthetic_items, synthetic_sequences
+    from rqvae_tpu_torch.models import generation
+    from rqvae_tpu_torch.ops import attention as attn_ops
+    from rqvae_tpu_torch.ops import flash_attention as fa
+    from rqvae_tpu_torch.tokenizer import semids
+    from rqvae_tpu_torch.train import checkpoint, optim
+    from rqvae_tpu_torch.train import train_decoder as td
+    from rqvae_tpu_torch.utils import amp
+    from rqvae_tpu_torch.utils import config as config_lib
+    from rqvae_tpu_torch.utils.logging import MetricsLogger
+    from rqvae_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    counters = (fa.flash_attention_small_fwd, fa.flash_attention_small_bwd,
+                fa.flash_attention_fwd, fa.flash_attention_bwd)
+    names = [c.__name__ for c in counters]
+
+    class Capture(MetricsLogger):
+        def __init__(self):
+            super().__init__(every=1)
+            self.records = []
+
+        def log(self, step, metrics, force=False):
+            self.records.append({"step": step, "t": time.perf_counter(),
+                                 "launches": [c.launches for c in counters],
+                                 **{k: float(np.asarray(v)) for k, v in metrics.items()}})
+
+    config = pathlib.Path(__file__).resolve().parent / "configs" / "decoder_amazon.json"
+    overrides = ["dataset=SYNTHETIC", f"synthetic_n_items={N_ITEMS}",
+                 f"synthetic_n_users={AMAZON_USERS}", f"vae_input_dim={INPUT_DIM}", f"seed={SEED}",
+                 f"pretrained_rqvae_path={rq_ckpt}", f"save_dir_root={work}/decoder",
+                 "log_every=100", "amp=true", f"partial_eval_every={AMAZON_ITERS}",
+                 f"full_eval_every={AMAZON_ITERS}", f"save_model_every={AMAZON_ITERS}",
+                 f"eval_batches={AMAZON_EVAL_BATCHES}"]
+    cfg = config_lib.load_config(td.DecoderTrainConfig, str(config),
+                                 overrides + [f"iterations={AMAZON_ITERS}"])
+    model_cfg = cfg.retrieval_config(N_HIST)
+    check(model_cfg.attn_dim // model_cfg.num_heads == 64 and model_cfg.n_layers == 8,
+          f"Amazon decoder widths {model_cfg}")
+
+    # ---- phase 20: train() with the short route on, the main path of this slice ----
+    rec = {}
+    real_small = attn_ops.flash_attention_small
+
+    def record(q, k, v, *, k_mask=None, causal=False):
+        out = real_small(q, k, v, k_mask=k_mask, causal=causal)
+        kind = "decoder_self" if causal else ("encoder_self" if q.shape[2] == k.shape[2] else "cross")
+        if out.requires_grad and kind not in rec:   # layer 0 of each kind, first step
+            entry = rec[kind] = dict(q=q.detach(), k=k.detach(), v=v.detach(), k_mask=k_mask,
+                                     causal=causal)
+            out.register_hook(lambda g, e=entry: e.__setitem__("g", g.detach()))
+        return out
+
+    os.environ[SHORT_FLASH_ENV] = "1"
+    try:
+        for c in counters:
+            c.launches = 0
+        cap = Capture()
+        t0 = time.perf_counter()
+        params = td.train(cfg, logger=cap, device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        main_launches = dict(zip(names, (c.launches for c in counters)))
+        saved = checkpoint.latest_step(cfg.save_dir_root)
+        # the resumed call: 20 more steps; its first step records the operands
+        attn_ops.flash_attention_small = record
+        try:
+            cap2 = Capture()
+            params = td.train(config_lib.load_config(
+                td.DecoderTrainConfig, str(config), overrides + [f"iterations={AMAZON_RESUME_ITERS}"]),
+                logger=cap2, device=dev)
+            torch.cuda.synchronize()
+        finally:
+            attn_ops.flash_attention_small = real_small
+    finally:
+        os.environ.pop(SHORT_FLASH_ENV, None)
+    logs = [r for r in cap.records if "total_loss" in r]
+    losses = [r["total_loss"] for r in logs]
+    evals = [r for r in cap.records if "eval_loss" in r]
+    gen_evals = [r for r in cap.records if "ndcg@10" in r]
+    log(f"Amazon decoder train(): {train_s:.1f} s, losses {losses}, launches {main_launches}, "
+        f"eval {evals}, generative eval {gen_evals}")
+    check([r["step"] for r in logs] == [1] + list(range(100, AMAZON_ITERS + 1, 100)),
+          f"Amazon log steps {[r['step'] for r in logs]}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite Amazon decoder loss {losses}")
+    check(losses[-1] < losses[0], f"Amazon decoder loss did not fall: {losses}")
+    per_step = [(b - a) / (logs[2]["step"] - logs[1]["step"])
+                for a, b in zip(logs[1]["launches"], logs[2]["launches"])]
+    check(per_step == [12, 12, 0, 0],
+          f"launches per step {dict(zip(names, per_step))}: expected 12 short forward and 12 "
+          "short backward (4 encoder self, 4 decoder self, 4 cross) and no flat flash")
+    check(main_launches["flash_attention_fwd"] == 0 and main_launches["flash_attention_bwd"] == 0,
+          f"flat flash kernels launched in the Amazon run: {main_launches}")
+    check([r["step"] for r in evals] == [AMAZON_ITERS] and math.isfinite(evals[0]["eval_loss"]),
+          f"Amazon eval loss {evals}")
+    check([r["step"] for r in gen_evals] == [AMAZON_ITERS]
+          and all(0.0 <= v <= 1.0 for k, v in gen_evals[0].items() if k.startswith(("h@", "ndcg"))),
+          f"Amazon generative eval {gen_evals}")
+    check(saved == AMAZON_ITERS - 1, f"Amazon decoder checkpoint step {saved}")
+    resumed = [r["step"] for r in cap2.records if "total_loss" in r]
+    state, _ = checkpoint.restore(cfg.save_dir_root, device="cpu")
+    check(resumed[:1] == [AMAZON_ITERS + 1]
+          and checkpoint.latest_step(cfg.save_dir_root) == AMAZON_ITERS + AMAZON_RESUME_ITERS - 1
+          and state["opt_state"].count == AMAZON_ITERS + AMAZON_RESUME_ITERS,
+          f"resume: logged steps {resumed}, checkpoint {checkpoint.latest_step(cfg.save_dir_root)}")
+    del state
+    step_ms = (logs[-1]["t"] - logs[1]["t"]) * 1e3 / (logs[-1]["step"] - logs[1]["step"])
+    amazon = dict(
+        train_step_ms=step_ms, train_examples_per_s=cfg.batch_size / (step_ms / 1e3),
+        batch=cfg.batch_size, encoder_tokens=4 * N_HIST + 1, decoder_tokens=5, losses=losses,
+        iterations=AMAZON_ITERS, wall_s=train_s, launches=main_launches,
+        launches_per_step=dict(zip(names, per_step)),
+        eval={k: v for k, v in evals[0].items() if k not in ("t", "launches")},
+        generative_eval={k: v for k, v in gen_evals[0].items() if k not in ("t", "launches")},
+        checkpoint_step=saved, resumed_first_step=resumed[0],
+        users=AMAZON_USERS, items=N_ITEMS)
+
+    # ---- phase 21: the short kernels against their twins ----
+    check(set(rec) == {"encoder_self", "decoder_self", "cross"}
+          and all("g" in e for e in rec.values()), f"recorded {sorted(rec)}")
+    enc = rec["encoder_self"]
+    b, h, n, dh = enc["q"].shape
+    check((b, h, n, dh) == (cfg.batch_size, 8, 4 * N_HIST + 1, 64)
+          and enc["q"].dtype == torch.bfloat16, f"recorded encoder operands {enc['q'].shape}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def unit_rms(g):
+        g = g.float()
+        return g / g.pow(2).mean().sqrt()
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def ragged(rows, nk):
+        lengths = torch.randint(1, nk + 1, (rows,), device=dev, generator=gen)
+        return torch.arange(nk, device=dev)[None] < lengths[:, None]
+
+    holes = enc["k_mask"].clone()
+    holes[:2] = False   # two rows whose every key is masked
+    cross = rec["cross"]
+    cases = [(kind, e["q"], e["k"], e["v"], unit_rms(e["g"]), e["k_mask"], e["causal"], None)
+             for kind, e in rec.items()]
+    cases += [("encoder_no_valid_key", enc["q"], enc["k"], enc["v"], unit_rms(enc["g"]), holes,
+               False, slice(0, 2))]
+    cases += [(f"decode_1x{t}", rand(b, h, 1, dh), rand(b, h, t, dh), rand(b, h, t, dh),
+               rand(b, h, 1, dh), None, False, None) for t in (1, 2, 3, 4)]
+    cases += [("beam_cross_32x81", rand(b, h, 32, dh), cross["k"], cross["v"], rand(b, h, 32, dh),
+               cross["k_mask"], False, None),
+              ("bucket_241", rand(16, h, 241, dh), rand(16, h, 241, dh), rand(16, h, 241, dh),
+               rand(16, h, 241, dh), ragged(16, 241), False, None),
+              ("causal_255_dh128", rand(4, h, 255, 128), rand(4, h, 255, 128), rand(4, h, 255, 128),
+               rand(4, h, 255, 128), ragged(4, 255), True, None)]
+    checks, errs = [], {"fwd": 0.0, "bwd": 0.0}
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for case, q, k, v, g, km, causal, empty in cases:
+            a = [t.to(dtype) for t in (q, k, v, g)]
+            out, mm, inv = fa.flash_attention_small_fwd(*a[:3], k_mask=km, causal=causal)
+            ref = fa.flash_attention_small_plain(*a[:3], k_mask=km, causal=causal)
+            got = fa.flash_attention_small_bwd(*a, mm, inv, k_mask=km, causal=causal)
+            want = fa.flash_attention_small_bwd_plain(*a, k_mask=km, causal=causal)
+            torch.cuda.synchronize()
+            row = {"dtype": str(dtype)[6:], "case": case, "shape": list(q.shape),
+                   "nk": k.shape[2], "causal": causal, "tol": tol}
+            for name, x, y in (("out", out, ref), ("dq", got[0], want[0]), ("dk", got[1], want[1]),
+                               ("dv", got[2], want[2])):
+                x, y = x.float(), y.float()
+                row[name] = float((x - y).abs().max())
+                row[name + "_max_abs"] = float(y.abs().max())
+                check(bool(torch.isfinite(x).all()), f"small {case} {dtype} {name}: non-finite")
+                check(torch.allclose(x, y, rtol=tol, atol=tol),
+                      f"small {case} {dtype} {name} differs from the plain twin by {row[name]}")
+            if empty is not None:
+                check(float(out[empty].abs().max()) == 0.0, f"small {case}: masked rows not zero")
+            if dtype == torch.bfloat16 and case == "encoder_self":
+                errs = {"fwd": row["out"], "bwd": max(row["dq"], row["dk"], row["dv"])}
+            checks.append(row)
+            log(f"small vs plain {row}")
+    del out, ref, got, want, cases
+
+    # ---- phase 22: a 2-user fp32 Amazon step, GPU against CPU, switch on ----
+    cpu = torch.device("cpu")
+    vae_params, vae_cfg = td.load_frozen_rqvae(cfg, device=dev)
+    items_x = torch.from_numpy(synthetic_items(N_ITEMS, INPUT_DIM, seed=SEED).x).to(dev)
+    index = semids.precompute_corpus_ids(vae_params, vae_cfg, items_x)
+    index_cpu = semids.CorpusIndex(index.cached_ids.to(cpu), index.sorted_keys.to(cpu),
+                                   index.bases, index.codebook_size, index.n_distinct)
+    users, _ = synthetic_sequences(N_ITEMS, n_users=BATCH, seed=SEED + 3)
+    host_rng = np.random.default_rng(SEED)
+    batch = dataset_lib.make_seq_batch(users.sample_batch(host_rng, BATCH, subsample=True),
+                                       items_x.cpu().numpy(), with_features=False)
+    cfg0 = dataclasses.replace(model_cfg, dropout=0.0, input_dropout=0.0)
+    two = dataset_lib.to_device(type(batch)(*(a[:2] for a in batch)), dev)
+    os.environ[SHORT_FLASH_ENV] = "1"
+    try:
+        before = fa.flash_attention_small_bwd.launches
+        loss_g, _, grads_g = td.value_and_grad(td._make_microbatch_loss(cfg0, index, torch.float32),
+                                               tree_map(lambda t: t.detach().clone(), params), two,
+                                               None)
+        gpu_bwd = fa.flash_attention_small_bwd.launches - before
+        loss_c, _, grads_c = td.value_and_grad(
+            td._make_microbatch_loss(cfg0, index_cpu, torch.float32), _to_device(params, cpu),
+            type(two)(*(t.to(cpu) for t in two)), None)
+    finally:
+        os.environ.pop(SHORT_FLASH_ENV, None)
+    check(gpu_bwd == 12, f"2-user fp32 step: {gpu_bwd} short backward launches, expected 12")
+    loss_rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    leaf_rel = 0.0
+    for x, y in zip(tree_leaves(grads_g), tree_leaves(grads_c)):
+        err, scale = float((x.cpu() - y).abs().max()), float(y.abs().max())
+        check(err <= 1e-3 * scale + 1e-12, f"Amazon GPU vs CPU gradient leaf differs: {err} of {scale}")
+        leaf_rel = max(leaf_rel, err / scale if scale else 0.0)
+    check(loss_rel <= 1e-4, f"Amazon GPU vs CPU fp32 loss differs by {loss_rel} relative")
+    log(f"2-user fp32 Amazon step GPU vs CPU: loss {float(loss_c):.6f}, rel err {loss_rel:.2e}, "
+        f"worst leaf {leaf_rel:.2e} of its max-abs")
+    del grads_g, grads_c, vae_params
+
+    # ---- phase 23: switch off / on in turns, the kernels' times and bound ----
+    flat = dataset_lib.to_device(type(batch)(*(a[None] for a in batch)), dev)
+    opt = optim.adamw(3e-4, 0.035)
+    p_ab = tree_map(lambda t: t.detach().clone(), params)
+    st_ab = opt.init(p_ab)
+    step = td.make_train_step(model_cfg, opt, index, 1, torch.bfloat16, 4)
+    step_gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    gen_params = amp.cast_floating(params, torch.bfloat16)
+    tok = semids.tokenize_sequences(index, dataset_lib.to_device(batch, dev))
+    tok = tok._replace(sem_ids_fut=None, token_type_ids_fut=None)
+
+    def serve():
+        return generation.generate_next_sem_ids(gen_params, model_cfg, index, tok, k=BEAMS,
+                                                n_candidates=256)
+
+    ab = {"step_ms": {"off": [], "on": []}, "generate_ms": {"off": [], "on": []},
+          "step_launches": {}, "generate_launches": {}}
+    n_steps = 10
+    for mode in ("off", "on", "on", "off"):
+        if mode == "on":
+            os.environ[SHORT_FLASH_ENV] = "1"
+        try:
+            for _ in range(3):
+                p_ab, st_ab, _ = step(p_ab, st_ab, flat, step_gen)
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                p_ab, st_ab, m = step(p_ab, st_ab, flat, step_gen)
+            torch.cuda.synchronize()
+            ab["step_ms"][mode].append((time.perf_counter() - t0) * 1e3 / n_steps)
+            ab["step_launches"][mode] = {nm: c.launches / n_steps for nm, c in zip(names, counters)}
+            check(math.isfinite(float(m["total_loss"])), f"A/B step ({mode}): non-finite loss")
+            serve()
+            for c in counters:
+                c.launches = 0
+            ab["generate_ms"][mode].append(wall_ms(serve, 10))
+            ab["generate_launches"][mode] = {nm: c.launches / 10 for nm, c in zip(names, counters)}
+        finally:
+            os.environ.pop(SHORT_FLASH_ENV, None)
+    check(ab["step_launches"]["on"]["flash_attention_small_fwd"] == 12
+          and ab["step_launches"]["on"]["flash_attention_small_bwd"] == 12
+          and all(v == 0 for v in ab["step_launches"]["off"].values()),
+          f"A/B launches per step {ab['step_launches']}")
+    check(ab["generate_launches"]["on"]["flash_attention_small_fwd"] > 0
+          and all(v == 0 for v in ab["generate_launches"]["off"].values()),
+          f"A/B launches per beam search {ab['generate_launches']}")
+    for key in ("step_ms", "generate_ms"):
+        ab[key.replace("_ms", "_mean_ms")] = {k: sum(v) / len(v) for k, v in ab[key].items()}
+    ab["train_examples_per_s"] = {k: BATCH / (v / 1e3) for k, v in ab["step_mean_ms"].items()}
+    ab["queries_per_s"] = {k: BATCH / (v / 1e3) for k, v in ab["generate_mean_ms"].items()}
+    log(f"Amazon switch off / on, in turns: {ab}")
+    profile = {"off": _profile(lambda: step(p_ab, st_ab, flat, step_gen), top=12)}
+    os.environ[SHORT_FLASH_ENV] = "1"
+    try:
+        profile["on"] = _profile(lambda: step(p_ab, st_ab, flat, step_gen), top=12)
+    finally:
+        os.environ.pop(SHORT_FLASH_ENV, None)
+    del p_ab, st_ab, gen_params
+
+    q, k, v, km = enc["q"], enc["k"], enc["v"], enc["k_mask"]
+    g = unit_rms(enc["g"]).to(q.dtype)
+    fwd_out, mm, inv = fa.flash_attention_small_fwd(q, k, v, k_mask=km)
+    kernel_ms = {"fwd": cuda_ms(lambda: fa.flash_attention_small_fwd(q, k, v, k_mask=km), 50),
+                 "bwd": cuda_ms(lambda: fa.flash_attention_small_bwd(q, k, v, g, mm, inv, k_mask=km),
+                                50)}
+    plain_ms = {"fwd": cuda_ms(lambda: fa.flash_attention_small_plain(q, k, v, k_mask=km), 20),
+                "bwd": cuda_ms(lambda: fa.flash_attention_small_bwd_plain(q, k, v, g, k_mask=km), 20)}
+    lib_mask = fa.mask_bias(km, b, n, dev)[:, None, None, :].to(q.dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask), 50)
+    sdpa_fwd_bwd = cuda_ms(lambda: torch.autograd.backward(
+        F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask), g), 50)
+    bnhd = [t.transpose(1, 2) for t in leaves]
+    dense_mask = attn_ops.build_mask(n, n, k_mask=km)
+    with torch.no_grad():
+        dense_fwd = cuda_ms(lambda: attn_ops.sdpa(*bnhd, dense_mask), 50)
+    dense_fwd_bwd = cuda_ms(lambda: torch.autograd.backward(
+        attn_ops.sdpa(*bnhd, dense_mask), g.transpose(1, 2)), 50)
+    device_ms = {
+        "fwd": _device_ms(lambda: fa.flash_attention_small_fwd(q, k, v, k_mask=km), 20, "small_fwd"),
+        "bwd": _device_ms(lambda: fa.flash_attention_small_bwd(q, k, v, g, mm, inv, k_mask=km), 20,
+                          "small_bwd"),
+        "sdpa_fwd": _device_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask),
+                               20),
+        "sdpa_fwd_bwd": _device_ms(lambda: torch.autograd.backward(
+            F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask), g), 20)}
+    del leaves, bnhd
+    flops = 4 * b * h * n * n * dh
+    elt = q.element_size()
+    fwd_bytes = elt * 4 * b * h * n * dh + 4 * b * n + 8 * b * h * n
+    bwd_bytes = elt * 7 * b * h * n * dh + 4 * b * n + 8 * b * h * n
+    kernels = []
+    for name, ops, nbytes, line, lib in (
+            ("flash_attention_small_fwd", flops, fwd_bytes, 272, sdpa_fwd),
+            ("flash_attention_small_bwd", flops * 10 // 4, bwd_bytes, 296, sdpa_fwd_bwd - sdpa_fwd)):
+        t_ops, t_bytes = ops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        short = name.rsplit("_", 1)[1]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"rqvae_tpu_torch/csrc/{name}.cu",
+            replaces=f"rqvae_tpu/ops/flash_attention.py:{line}",
+            launches=main_launches[name], max_abs_err=errs[short], ms=kernel_ms[short],
+            plain_ms=plain_ms[short], bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops > t_bytes else "bytes", library_ms=lib))
+    log(f"short kernels at B={b}, H={h}, N={n}, Dh={dh} {q.dtype}: {kernels}; device time "
+        f"{device_ms}; dense sdpa {dense_fwd:.4f} / {dense_fwd_bwd - dense_fwd:.4f} ms")
+    amazon.update(
+        small_checks=checks,
+        gpu_vs_cpu=dict(users=2, tokens=4 * N_HIST + 1, loss_rel_err=loss_rel,
+                        worst_leaf_rel_err=leaf_rel),
+        switch_ab=ab, train_profile=profile,   # one traced step, switch off and on
+        attention_ms=dict(shape=[b, h, n, dh], kernel=kernel_ms, kernel_device=device_ms,
+                          plain=plain_ms,
+                          sdpa_library={"fwd": sdpa_fwd, "bwd": sdpa_fwd_bwd - sdpa_fwd},
+                          dense_sdpa={"fwd": dense_fwd, "bwd": dense_fwd_bwd - dense_fwd}))
+    return amazon, kernels
 
 
 def _profile(fn, top: int = 8) -> dict:
@@ -1408,16 +1800,37 @@ def _profile(fn, top: int = 8) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     # device-side events only (kernels, copies): CPU ops would count them twice
     events = sorted((e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA), key=dev_us, reverse=True)
-    busy_us = sum(dev_us(e) for e in events)
+                     if e.device_type == torch.autograd.DeviceType.CUDA), key=_dev_us, reverse=True)
+    busy_us = sum(_dev_us(e) for e in events)
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                 device_idle_share=1.0 - busy_us / wall_us if busy_us else None,
-                top_device_ops=[[e.key[:90], dev_us(e) / 1e3, e.count] for e in events[:top]])
+                top_device_ops=[[e.key[:90], _dev_us(e) / 1e3, e.count] for e in events[:top]])
+
+
+def _dev_us(event) -> float:
+    return (getattr(event, "self_device_time_total", None)
+            or getattr(event, "self_cuda_time_total", 0))
+
+
+def _device_ms(fn, iters: int, key: str = "") -> float:
+    """Device time of one call of ``fn``: the kernels whose name holds
+    ``key`` (every kernel and copy when empty), summed over a torch.profiler
+    trace of ``iters`` calls. Back-to-back CUDA-event timing of a call whose
+    device work is shorter than its host-side enqueue measures the enqueue;
+    this does not."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_dev_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key) / iters / 1e3
 
 
 def _to_device(tree, device):

@@ -1,8 +1,11 @@
 """Array-backed datasets (the port's own copy of rqvae_tpu/data/dataset.py):
 ``ItemDataset``, numpy rows of item features plus train / eval membership,
-the explicit slice of features to the model's input width, and
+the explicit slice of features to the model's input width,
 ``SeqDataset``, user histories in item-ID space with the reference's
-train-time random crop (the packed-training sampler's source).
+train-time random crop (the flat and packed samplers' source),
+``make_seq_batch`` (a sampled batch as a ``SeqBatch`` of numpy arrays, which
+``to_device`` moves to tensors) and the npz loaders of the preprocessed
+artifacts.
 
 ``SeqDataset.batch_at`` crops on the Python path, row by row. The JAX
 package's ``batch_at`` takes its native C batcher when that is built, which
@@ -16,6 +19,9 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
+
+from rqvae_tpu_torch.data.schemas import SeqBatch
 
 
 @dataclasses.dataclass
@@ -109,3 +115,43 @@ class SeqDataset:
         return {"user_ids": user_ids.astype(np.int32).reshape(-1),
                 "ids": ids.astype(np.int32),
                 "ids_fut": ids_fut}
+
+
+def make_seq_batch(batch: dict, item_x: np.ndarray, *, with_features: bool = True) -> SeqBatch:
+    """A sampled batch (``SeqDataset.batch_at``) as a ``SeqBatch`` of numpy
+    arrays: item features gathered on the host, -1 at pads.
+    ``with_features=False`` carries (.., 1) zero placeholders instead: decoder
+    training reads only the ids (its tokenization is a cached-id lookup)."""
+    ids = batch["ids"]
+    ids_fut = batch["ids_fut"]
+    if with_features:
+        x = item_x[np.maximum(ids, 0)]
+        x = np.where((ids >= 0)[..., None], x, -1.0).astype(np.float32)
+        x_fut = item_x[np.maximum(ids_fut, 0)]
+        x_fut = np.where((ids_fut >= 0)[..., None], x_fut, -1.0).astype(np.float32)
+    else:
+        x = np.zeros(ids.shape + (1,), np.float32)
+        x_fut = np.zeros(ids_fut.shape + (1,), np.float32)
+    return SeqBatch(user_ids=batch["user_ids"], ids=ids, ids_fut=ids_fut, x=x, x_fut=x_fut,
+                    seq_mask=ids >= 0)
+
+
+def to_device(batch, device):
+    """A batch of numpy arrays (a ``SeqBatch`` or a packed batch) as the
+    same NamedTuple of tensors on ``device``."""
+    return type(batch)(*(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in batch))
+
+
+def load_item_dataset(path: str) -> ItemDataset:
+    z = np.load(path, allow_pickle=False)
+    return ItemDataset(x=z["x"].astype(np.float32), is_train=z["is_train"].astype(bool))
+
+
+def load_seq_dataset(path: str, max_seq_len: int) -> SeqDataset:
+    z = np.load(path, allow_pickle=False)
+    return SeqDataset(
+        user_ids=z["user_ids"].astype(np.int32),
+        item_ids=z["item_ids"].astype(np.int32),
+        item_ids_fut=z["item_ids_fut"].astype(np.int32),
+        max_seq_len=max_seq_len,
+    )

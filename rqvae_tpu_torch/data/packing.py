@@ -24,7 +24,8 @@ import dataclasses
 from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
-import torch
+
+from rqvae_tpu_torch.data.dataset import to_device  # noqa: F401  (what make_packed_step takes)
 
 
 class PackedSeqBatch(NamedTuple):
@@ -43,11 +44,6 @@ class PackedSeqBatch(NamedTuple):
 
 
 Crop = Tuple[int, np.ndarray, int]  # (user_id, item_ids, fut_id)
-
-
-def to_device(batch: PackedSeqBatch, device) -> PackedSeqBatch:
-    """The batch as tensors on ``device`` (what ``make_packed_step`` takes)."""
-    return PackedSeqBatch(*(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in batch))
 
 
 def pack_crops(crops: Sequence[Crop], rows: int, slots: int,

@@ -1,23 +1,31 @@
 """Masked scaled dot-product attention (counterpart of rqvae_tpu/ops/attention.py).
 
-``attend`` routes as the JAX one does: when Nq >= 256, Nk >= 256 and
-Dh >= 64 it goes to ``flash_attention`` (the hand-written CUDA kernels for
-CUDA tensors, their plain twin ``flash_attention_plain`` on the CPU);
-everything shorter takes the dense ``sdpa``. So the Amazon shapes (81
-encoder tokens, 32 beam-folded cross queries, <= 4 self keys) stay dense and
-the 801-token ML-32M encoder takes the kernel. The cut is the JAX package's,
-measured on a TPU v5e; it has not been re-measured on the H100. Layout is
-(batch, seq, heads, head_dim) throughout; the flash route sees the operands
-as (B, H, N, Dh) views through ``transpose(1, 2)``, which the kernels read
-by strides, so no copy is made at this boundary.
+``attend`` routes as the JAX one does, in its order (spans, short, big,
+dense); each kernel route takes the hand-written CUDA kernels for CUDA
+tensors and their plain twin on the CPU:
 
-Span-restricted attention (``q_spans = (lo, hi, extra)``, the packed
-training masks, ``span_mask``) routes the same way with JAX's own test: the
-span kernels (``flash_attention_spans``, or its twin on the CPU) when
-Nq >= 256, Nk >= 256, Dh >= 64, not causal and no ``k_mask``; otherwise the
-dense ``sdpa`` under the span mask. In packed training only the encoder's
-self-attention (808 x 808 at the ML-32M shape) takes the kernel; the
-decoder's self- (40 tokens) and cross-attention (40 queries) go dense.
+* span-restricted attention (``q_spans = (lo, hi, extra)``, the packed
+  training masks, ``span_mask``): ``flash_attention_spans`` when Nq >= 256,
+  Nk >= 256, Dh >= 64, not causal and no ``k_mask``, else the dense
+  ``sdpa`` under the span mask. In packed training only the encoder's
+  self-attention (808 x 808 at the ML-32M shape) takes the kernel;
+* short: ``flash_attention_small`` when Nq < 256, Nk < 256, Dh >= 64 and the
+  environment variable ``RQVAE_TPU_SHORT_FLASH`` is ``"1"`` (read at each
+  call; the JAX package reads the same variable, so one setting drives
+  both). It is off by default, as in JAX. With it on, every attention call
+  of the Amazon model takes the kernel: the encoder's 81 x 81 under the key
+  mask, the decoder's causal 5 x 5, the 5 x 81 cross-attention, and in
+  beam search the 32 x 81 beam-folded cross queries and the decode step's
+  1 x T self-attention;
+* big: ``flash_attention`` when Nq >= 256, Nk >= 256 and Dh >= 64 (the
+  801-token ML-32M encoder);
+* everything else: the dense ``sdpa``.
+
+The 256-token cut is the JAX package's, measured on a TPU v5e; it has not
+been re-measured on the H100. Layout is (batch, seq, heads, head_dim)
+throughout; the kernel routes see the operands as (B, H, N, Dh) views
+through ``transpose(1, 2)``, which the kernels read by strides, so no copy
+is made at this boundary.
 
 ``sdpa`` is written as the JAX one is, not with
 ``F.scaled_dot_product_attention``: scores in fp32 (q and k upcast, the
@@ -28,6 +36,7 @@ rows give zeros, not NaN.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -35,6 +44,8 @@ import torch
 from rqvae_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
+    flash_attention_small,
+    flash_attention_small_plain,
     flash_attention_spans,
     flash_attention_spans_plain,
     span_mask,
@@ -43,6 +54,7 @@ from rqvae_tpu_torch.ops.flash_attention import (
 NEG_INF = -1e30
 FLASH_MIN_LEN = 256   # the JAX package's cut (Nq and Nk), with Dh >= 64
 FLASH_MIN_DH = 64
+SHORT_FLASH_ENV = "RQVAE_TPU_SHORT_FLASH"   # "1": shorter shapes take flash_attention_small
 
 
 def build_mask(q_len: int, k_len: int, *, causal: bool = False,
@@ -94,9 +106,14 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = 
         mask = build_mask(q.shape[1], k.shape[1], causal=causal, k_mask=k_mask,
                           q_spans=q_spans, device=q.device)
         return sdpa(q, k, v, mask)
-    if big:
+    short = (q.shape[1] < FLASH_MIN_LEN and k.shape[1] < FLASH_MIN_LEN
+             and q.shape[-1] >= FLASH_MIN_DH and os.environ.get(SHORT_FLASH_ENV, "0") == "1")
+    if short or big:
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        fn = flash_attention if on_card else flash_attention_plain
+        if short:
+            fn = flash_attention_small if on_card else flash_attention_small_plain
+        else:
+            fn = flash_attention if on_card else flash_attention_plain
         return fn(qh, kh, vh, k_mask=k_mask, causal=causal).transpose(1, 2)
     mask = build_mask(q.shape[1], k.shape[1], causal=causal, k_mask=k_mask, device=q.device)
     return sdpa(q, k, v, mask)

@@ -1,5 +1,6 @@
 """Fused masked attention with a hand-written backward (counterpart of
-rqvae_tpu/ops/flash_attention.py:flash_attention and flash_attention_spans).
+rqvae_tpu/ops/flash_attention.py: flash_attention, flash_attention_spans and
+flash_attention_small).
 
 ``flash_attention(q, k, v, *, k_mask=None, causal=False)`` on (B, H, N, Dh)
 operands is an ``autograd.Function``: its forward runs ``flash_attention_fwd``
@@ -20,6 +21,19 @@ query i attends keys [lo_i, hi_i) and key extra_i (``span_mask``), the
 bounds (B, Nq) ints. Its mask is a select after scaling, not a bias, as in
 the TPU kernel. All four kernels share their tile loops
 (``csrc/flash_attention_{fwd,bwd}.cuh``) and differ in the mask policy.
+
+``flash_attention_small(q, k, v, *, k_mask=None, causal=False)`` is the
+short-sequence variant (counterpart of flash_attention_small; Nq, Nk <= 255,
+the shapes ``attend``'s short route sends): the same function and arguments
+as ``flash_attention``, over ``flash_attention_small_fwd`` /
+``flash_attention_small_bwd`` (``csrc/flash_attention_small_fwd.cu`` /
+``csrc/flash_attention_small_bwd.cu``, each with a ``.launches`` count). A
+CTA stages whole (batch, head) pairs, takes one softmax over each query's
+whole row (no online carry, the TPU kernel's order) and the backward is one
+kernel that writes dq, dk and dv with no atomics. The TPU short kernel
+computes the flat kernel's algebra bit for bit, so its twins
+``flash_attention_small_plain`` / ``flash_attention_small_bwd_plain`` are the
+flat twins' arithmetic.
 
 The twins carry the TPU kernels' own arithmetic: scores in fp32 with the
 mask (flash_attention: the key mask as an additive fp32 bias 0 / -1e30, then
@@ -144,27 +158,35 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _plain_bwd(q, k, v, g, _key_masker(bias, causal))
 
 
-def _lib(name: str) -> ctypes.CDLL:
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# wrapper name -> (the C prefix of csrc/<name>.cu's functions, its launch argtypes)
+_C_FUNCTIONS = {
+    "flash_attention_fwd": ("flash_fwd", [_I] + [_P] * 8 + [_I] * 6 + [_F, _I, _P]),
+    "flash_attention_bwd": ("flash_bwd", [_I] + [_P] * 12 + [_I] * 6 + [_F, _I, _P]),
+    "flash_attention_spans_fwd": ("flash_spans_fwd", [_I] + [_P] * 10 + [_I] * 5 + [_F, _I, _P]),
+    "flash_attention_spans_bwd": ("flash_spans_bwd", [_I] + [_P] * 14 + [_I] * 5 + [_F, _I, _P]),
+    "flash_attention_small_fwd": ("flash_small_fwd", [_I] + [_P] * 8 + [_I] * 6 + [_F, _I, _P]),
+    "flash_attention_small_bwd": ("flash_small_bwd", [_I] + [_P] * 11 + [_I] * 6 + [_F, _I, _P]),
+}
+
+
+def _launch(wrapper, *args) -> None:
+    """Launch the kernel(s) of ``csrc/<wrapper.__name__>.cu`` with ``args``
+    (built at first use), raise on the CUDA error code it returns, and count
+    the launch on ``wrapper.launches``."""
     from rqvae_tpu_torch.ops import _cuda_build
 
+    name = wrapper.__name__
     lib = _cuda_build.load(name)
-    if not getattr(lib, "_typed", False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        prefix, argtypes = {
-            "flash_attention_fwd": ("flash_fwd", [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]),
-            "flash_attention_bwd": ("flash_bwd", [i, p, p, p, p, p, p, p, p, p, p, p, p,
-                                                  i, i, i, i, i, i, f, i, p]),
-            "flash_attention_spans_fwd": ("flash_spans_fwd", [i, p, p, p, p, p, p, p, p, p, p,
-                                                              i, i, i, i, i, f, i, p]),
-            "flash_attention_spans_bwd": ("flash_spans_bwd", [i, p, p, p, p, p, p, p, p, p, p, p,
-                                                              p, p, p, i, i, i, i, i, f, i, p]),
-        }[name]
-        launch = getattr(lib, f"{prefix}_launch")
-        launch.argtypes, launch.restype = argtypes, i
-        err = getattr(lib, f"{prefix}_error_string")
-        err.argtypes, err.restype = [i], ctypes.c_char_p
-        lib._typed = True
-    return lib
+    prefix, argtypes = _C_FUNCTIONS[name]
+    launch, error = getattr(lib, f"{prefix}_launch"), getattr(lib, f"{prefix}_error_string")
+    if launch.argtypes is None:
+        launch.argtypes, launch.restype = argtypes, ctypes.c_int
+        error.argtypes, error.restype = [ctypes.c_int], ctypes.c_char_p
+    err = launch(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {error(err).decode()}")
+    wrapper.launches += 1
 
 
 def _check_operands(q, k, v, extra=()):
@@ -216,12 +238,10 @@ def _device_index(t) -> int:
     return t.device.index if t.device.index is not None else torch.cuda.current_device()
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        k_mask: Optional[torch.Tensor] = None, causal: bool = False
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(out, m, inv): the attention output (B, H, Nq, Dh) in q's dtype and
-    the row statistics the backward reads, each (B, H, Nq) fp32."""
-    dev = _check_operands(q, k, v)
+def _bias_fwd(wrapper, q, k, v, k_mask, causal):
+    """The body of the key-bias forward wrappers (``flash_attention_fwd``,
+    ``flash_attention_small_fwd``: one C signature)."""
+    dev = q.device
     b, h, nq, dh = q.shape
     nk = k.shape[2]
     bias = mask_bias(k_mask, b, nk, dev)
@@ -231,29 +251,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = _bnhd_empty(b, h, nq, dh, q)
     m = torch.empty((b, h, nq), dtype=torch.float32, device=dev)
     inv = torch.empty_like(m)
-    lib = _lib("flash_attention_fwd")
-    err = lib.flash_fwd_launch(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), m.data_ptr(), inv.data_ptr(), _strides(q, k, v, out),
-        b, h, nq, nk, dh, int(causal), 1.0 / math.sqrt(dh), _device_index(q),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: "
-                           f"{lib.flash_fwd_error_string(err).decode()}")
-    flash_attention_fwd.launches += 1
+    _launch(wrapper, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), m.data_ptr(), inv.data_ptr(), _strides(q, k, v, out),
+            b, h, nq, nk, dh, int(causal), 1.0 / math.sqrt(dh), _device_index(q),
+            torch.cuda.current_stream(dev).cuda_stream)
     return out, m, inv
 
 
-flash_attention_fwd.launches = 0
-
-
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
-                        m: torch.Tensor, inv: torch.Tensor, *,
-                        k_mask: Optional[torch.Tensor] = None, causal: bool = False):
-    """(dq, dk, dv) for the upstream gradient ``g`` (B, H, Nq, Dh), given the
-    forward's row statistics ``m`` and ``inv`` (the CPU twin recomputes
-    them)."""
+def _bias_bwd(wrapper, q, k, v, g, m, inv, k_mask, causal):
+    """The body of the key-bias backward wrappers (``flash_attention_bwd``,
+    whose dq kernel hands c to its dk / dv kernel through a (B, H, Nq) fp32
+    scratch, and ``flash_attention_small_bwd``, one kernel, none)."""
     dev = _check_operands(q, k, v, (g, m, inv))
     b, h, nq, dh = q.shape
     nk = k.shape[2]
@@ -266,33 +274,52 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: to
     _check_kernel_operands((q, k, v, g), ("q", "k", "v", "g"))
     m = m.to(torch.float32).contiguous()
     inv = inv.to(torch.float32).contiguous()
-    c = torch.empty_like(m)
+    scratch = () if wrapper is flash_attention_small_bwd else (torch.empty_like(m),)
     dq = _bnhd_empty(b, h, nq, dh, q)
     dk = _bnhd_empty(b, h, nk, dh, k)
     dv = _bnhd_empty(b, h, nk, dh, v)
-    lib = _lib("flash_attention_bwd")
-    err = lib.flash_bwd_launch(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        g.data_ptr(), m.data_ptr(), inv.data_ptr(), c.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), _strides(q, k, v, g, dq, dk, dv), b, h, nq, nk, dh, int(causal),
-        1.0 / math.sqrt(dh), _device_index(q), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: "
-                           f"{lib.flash_bwd_error_string(err).decode()}")
-    flash_attention_bwd.launches += 1
+    _launch(wrapper, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr(), g.data_ptr(), m.data_ptr(), inv.data_ptr(),
+            *(t.data_ptr() for t in scratch), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _strides(q, k, v, g, dq, dk, dv), b, h, nq, nk, dh, int(causal),
+            1.0 / math.sqrt(dh), _device_index(q), torch.cuda.current_stream(dev).cuda_stream)
     return dq, dk, dv
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        k_mask: Optional[torch.Tensor] = None, causal: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(out, m, inv): the attention output (B, H, Nq, Dh) in q's dtype and
+    the row statistics the backward reads, each (B, H, Nq) fp32."""
+    _check_operands(q, k, v)
+    return _bias_fwd(flash_attention_fwd, q, k, v, k_mask, causal)
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                        m: torch.Tensor, inv: torch.Tensor, *,
+                        k_mask: Optional[torch.Tensor] = None, causal: bool = False):
+    """(dq, dk, dv) for the upstream gradient ``g`` (B, H, Nq, Dh), given the
+    forward's row statistics ``m`` and ``inv`` (the CPU twin recomputes
+    them)."""
+    return _bias_bwd(flash_attention_bwd, q, k, v, g, m, inv, k_mask, causal)
 
 
 flash_attention_bwd.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
+    """flash_attention (``small`` False) or flash_attention_small (True):
+    the same function and saved statistics, other kernels."""
+
     @staticmethod
-    def forward(ctx, q, k, v, k_mask, causal):
-        out, m, inv = flash_attention_fwd(q, k, v, k_mask=k_mask, causal=causal)
+    def forward(ctx, q, k, v, k_mask, causal, small):
+        fwd = flash_attention_small_fwd if small else flash_attention_fwd
+        out, m, inv = fwd(q, k, v, k_mask=k_mask, causal=causal)
         ctx.save_for_backward(q, k, v, k_mask, m, inv)
-        ctx.causal = causal
+        ctx.causal, ctx.small = causal, small
         return out
 
     @staticmethod
@@ -300,8 +327,9 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, k_mask, m, inv = ctx.saved_tensors
         if g.stride(-1) != 1:
             g = g.contiguous()  # autograd may hand over any layout; one copy then
-        dq, dk, dv = flash_attention_bwd(q, k, v, g, m, inv, k_mask=k_mask, causal=ctx.causal)
-        return dq, dk, dv, None, None
+        bwd = flash_attention_small_bwd if ctx.small else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, g, m, inv, k_mask=k_mask, causal=ctx.causal)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -310,7 +338,68 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Fused masked attention over (B, H, N, Dh) operands; differentiable.
     ``k_mask`` (B, Nk) bool, True = attend; None = every key valid."""
     _check_operands(q, k, v)
-    return _FlashAttention.apply(q, k, v, k_mask, bool(causal))
+    return _FlashAttention.apply(q, k, v, k_mask, bool(causal), False)
+
+
+# ---------------------------------------------------------------------------
+# Short-sequence variant (flash_attention_small): Nq, Nk < 256, each query's
+# whole score row at once
+# ---------------------------------------------------------------------------
+
+SMALL_MAX_LEN = 255   # attend's short route sends Nq, Nk < 256
+
+
+# The TPU short kernel computes the flat kernel's algebra bit for bit (one
+# softmax over the whole row is what the flat twin takes: the key bias, the
+# causal cut cols <= rows, e cast before PV), so the short twins are the flat
+# twins.
+flash_attention_small_plain = flash_attention_plain
+flash_attention_small_bwd_plain = flash_attention_bwd_plain
+
+
+def _check_small(q, k):
+    nq, nk = q.shape[2], k.shape[2]
+    if nq > SMALL_MAX_LEN or nk > SMALL_MAX_LEN:
+        raise ValueError(f"flash_attention_small takes Nq, Nk <= {SMALL_MAX_LEN} (attend's "
+                         f"short route), got Nq {nq}, Nk {nk}")
+
+
+def flash_attention_small_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                              k_mask: Optional[torch.Tensor] = None, causal: bool = False
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(out, m, inv) of short attention, as ``flash_attention_fwd`` returns
+    them, from ``csrc/flash_attention_small_fwd.cu``."""
+    _check_operands(q, k, v)
+    _check_small(q, k)
+    return _bias_fwd(flash_attention_small_fwd, q, k, v, k_mask, causal)
+
+
+flash_attention_small_fwd.launches = 0
+
+
+def flash_attention_small_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                              m: torch.Tensor, inv: torch.Tensor, *,
+                              k_mask: Optional[torch.Tensor] = None, causal: bool = False):
+    """(dq, dk, dv) of short attention for the upstream gradient ``g``,
+    given the forward's row statistics (the CPU twin recomputes them), from
+    the one-shot kernel ``csrc/flash_attention_small_bwd.cu``."""
+    _check_operands(q, k, v, (g, m, inv))
+    _check_small(q, k)
+    return _bias_bwd(flash_attention_small_bwd, q, k, v, g, m, inv, k_mask, causal)
+
+
+flash_attention_small_bwd.launches = 0
+
+
+def flash_attention_small(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          k_mask: Optional[torch.Tensor] = None,
+                          causal: bool = False) -> torch.Tensor:
+    """Short-sequence fused attention (Nq, Nk <= 255) over (B, H, N, Dh)
+    operands; differentiable. Same arguments and function as
+    ``flash_attention``."""
+    _check_operands(q, k, v)
+    _check_small(q, k)
+    return _FlashAttention.apply(q, k, v, k_mask, bool(causal), True)
 
 
 # ---------------------------------------------------------------------------
@@ -362,17 +451,10 @@ def flash_attention_spans_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = _bnhd_empty(b, h, nq, dh, q)
     m = torch.empty((b, h, nq), dtype=torch.float32, device=dev)
     inv = torch.empty_like(m)
-    lib = _lib("flash_attention_spans_fwd")
-    err = lib.flash_spans_fwd_launch(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), lo.data_ptr(),
-        hi.data_ptr(), extra.data_ptr(), out.data_ptr(), m.data_ptr(), inv.data_ptr(),
-        _strides(q, k, v, out), b, h, nq, nk, dh, 1.0 / math.sqrt(dh), _device_index(q),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_spans_fwd launch failed: "
-                           f"{lib.flash_spans_fwd_error_string(err).decode()}")
-    flash_attention_spans_fwd.launches += 1
+    _launch(flash_attention_spans_fwd, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), lo.data_ptr(), hi.data_ptr(), extra.data_ptr(), out.data_ptr(),
+            m.data_ptr(), inv.data_ptr(), _strides(q, k, v, out), b, h, nq, nk, dh,
+            1.0 / math.sqrt(dh), _device_index(q), torch.cuda.current_stream(dev).cuda_stream)
     return out, m, inv
 
 
@@ -400,18 +482,11 @@ def flash_attention_spans_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = _bnhd_empty(b, h, nq, dh, q)
     dk = _bnhd_empty(b, h, nk, dh, k)
     dv = _bnhd_empty(b, h, nk, dh, v)
-    lib = _lib("flash_attention_spans_bwd")
-    err = lib.flash_spans_bwd_launch(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), lo.data_ptr(),
-        hi.data_ptr(), extra.data_ptr(), g.data_ptr(), m.data_ptr(), inv.data_ptr(), c.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, g, dq, dk, dv),
-        b, h, nq, nk, dh, 1.0 / math.sqrt(dh), _device_index(q),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_spans_bwd launch failed: "
-                           f"{lib.flash_spans_bwd_error_string(err).decode()}")
-    flash_attention_spans_bwd.launches += 1
+    _launch(flash_attention_spans_bwd, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), lo.data_ptr(), hi.data_ptr(), extra.data_ptr(), g.data_ptr(),
+            m.data_ptr(), inv.data_ptr(), c.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), _strides(q, k, v, g, dq, dk, dv), b, h, nq, nk, dh,
+            1.0 / math.sqrt(dh), _device_index(q), torch.cuda.current_stream(dev).cuda_stream)
     return dq, dk, dv
 
 

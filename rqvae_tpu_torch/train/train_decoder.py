@@ -25,25 +25,46 @@ model (RMSNorm statistics, softmax, cross-entropy). Parameters and the
 optimizer state are updated in place; dropout draws from the caller's
 ``torch.Generator`` in a fixed order.
 
-The full ``train()`` loop (dataset pipeline, checkpoints, evals, logging)
-is not ported yet.
+``train(cfg, device=...)`` is the entry point users call (``python -m
+rqvae_tpu_torch.train.train_decoder <config> [key=value ...]``, on the GPU):
+it loads the frozen RQ-VAE from a port stage-1 checkpoint
+(``load_frozen_rqvae``), tokenizes the corpus, trains through the flat,
+bucketed or packed step, logs eval loss every ``partial_eval_every`` steps
+and constrained-beam-search hit rates (``run_generative_eval``) every
+``full_eval_every`` steps and at the end, checkpoints, and resumes from
+``save_dir_root`` with JAX's semantics: ``iterations`` counts from the
+resume point. On one device; the config fields that ask for a mesh,
+tensor parallelism, TensorBoard, the profiler hook, NaN debugging or a hub
+upload raise (``_check_supported``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import sys
+import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from rqvae_tpu_torch.data import dataset as dataset_lib
+from rqvae_tpu_torch.data import registry
 from rqvae_tpu_torch.data.registry import RecDataset
 from rqvae_tpu_torch.data.schemas import SeqBatch
-from rqvae_tpu_torch.models import retrieval
+from rqvae_tpu_torch.evaluate.metrics import TopKAccumulator, batch_hit_counts
+from rqvae_tpu_torch.models import generation, retrieval
+from rqvae_tpu_torch.models import rqvae as rqvae_lib
 from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
 from rqvae_tpu_torch.models.retrieval import RetrievalConfig
 from rqvae_tpu_torch.tokenizer import semids
+from rqvae_tpu_torch.train import checkpoint as ckpt_lib
+from rqvae_tpu_torch.train import optim
 from rqvae_tpu_torch.utils import amp
-from rqvae_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+from rqvae_tpu_torch.utils import config as config_lib
+from rqvae_tpu_torch.utils.device import resolve_device
+from rqvae_tpu_torch.utils.logging import MetricsLogger
+from rqvae_tpu_torch.utils.tree import tree_leaves, tree_leaves_with_path, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +104,8 @@ class DecoderTrainConfig:
     attn_layers: int = 4
     dataset_split: str = "beauty"
     train_data_subsample: bool = True
+    push_vae_to_hf: bool = False                 # not ported (no hub): raises
+    vae_hf_model_name: Optional[str] = None
     # length-bucketed gradient accumulation (1 = off); see bucket_slices
     length_buckets: int = 1
     # packed long-context training (data/packing.py, make_packed_step):
@@ -90,15 +113,37 @@ class DecoderTrainConfig:
     packed_rows: int = 0
     pack_slots: int = 8
     seed: int = 42
+    prng_impl: str = "rbg"                       # a JAX PRNG choice; unused here
     log_every: int = 100
+    metrics_sink: str = "jsonl"                  # only "jsonl" is ported
+    tensorboard_dir: Optional[str] = None        # not ported
     warmup_steps: int = 10000
     eval_batches: int = 32
     generation_top_k: int = 32
     generation_candidates: int = 200
     generation_temperature: float = 1.0
+    mesh_shape: Optional[Tuple[int, ...]] = None   # not ported: one device
+    tensor_parallel: bool = False                  # not ported
     synthetic_n_items: int = 2048
     synthetic_n_users: int = 2048
     data_path: Optional[str] = None
+    profile_dir: Optional[str] = None              # not ported
+    profile_start: int = 10
+    profile_steps: int = 5
+    # resume from the latest checkpoint under save_dir_root when no
+    # pretrained decoder path is given; `iterations` then counts steps FROM
+    # THE RESUME POINT (rerunning a finished run trains `iterations` more)
+    auto_resume: bool = True
+    debug_nans: bool = False                       # not ported
+
+    def vae_config(self) -> rqvae_lib.RqVaeConfig:
+        return rqvae_lib.RqVaeConfig(
+            input_dim=self.vae_input_dim, embed_dim=self.vae_embed_dim,
+            hidden_dims=self.vae_hidden_dims, codebook_size=self.vae_codebook_size,
+            n_layers=self.vae_n_layers, n_cat_feats=self.vae_n_cat_feats,
+            codebook_mode=self.vae_codebook_mode, codebook_normalize=self.vae_codebook_normalize,
+            codebook_sim_vq=self.vae_sim_vq, codebook_kmeans_init=False,
+        )
 
     def retrieval_config(self, max_seq_len: int) -> RetrievalConfig:
         sem_dim = self.vae_n_layers + 1
@@ -108,6 +153,43 @@ class DecoderTrainConfig:
             num_embeddings=self.vae_codebook_size, sem_id_dim=sem_dim,
             max_pos=max_seq_len * sem_dim,
         )
+
+
+def _every(it: int, interval: int) -> bool:
+    """True on steps where a periodic action (log / eval / save) fires;
+    interval <= 0 turns the action off."""
+    return interval > 0 and (it + 1) % interval == 0
+
+
+def debug_metrics(seq_mask: np.ndarray, prefix: str, token_scale: int = 1) -> dict:
+    """Sequence-length quantiles of a (B, N) mask, in tokens when the mask is
+    in items and ``token_scale`` is sem_id_dim (the reference's logging)."""
+    lengths = np.asarray(seq_mask).sum(axis=-1).astype(np.float32).ravel() * token_scale
+    return _length_quantiles(lengths, prefix)
+
+
+def _length_quantiles(lengths: np.ndarray, prefix: str) -> dict:
+    return {f"{prefix}_seq_length_p{q}": float(np.quantile(lengths, q))
+            for q in (0.25, 0.5, 0.75, 0.9, 1)}
+
+
+def load_frozen_rqvae(cfg: DecoderTrainConfig, *, device=None):
+    """Stage-1 -> stage-2 handoff: (params, RqVaeConfig) of the frozen
+    RQ-VAE, restored from the latest step of a port stage-1 checkpoint
+    (``train_rqvae.train``'s ``save_dir_root``) and detached. Without
+    ``pretrained_rqvae_path`` the params are random from seed 0, as in JAX."""
+    dev = resolve_device(device)
+    vae_cfg = cfg.vae_config()
+    params = rqvae_lib.init(torch.Generator().manual_seed(0), vae_cfg, device=dev)
+    if cfg.pretrained_rqvae_path is not None:
+        state, meta = ckpt_lib.restore(cfg.pretrained_rqvae_path, device=dev)
+        shapes = lambda tree: [(p, tuple(t.shape)) for p, t in tree_leaves_with_path(tree)]  # noqa: E731
+        if shapes(state["params"]) != shapes(params):
+            raise ValueError(f"the RQ-VAE checkpoint at {cfg.pretrained_rqvae_path} does not fit "
+                             f"the config's RQ-VAE ({vae_cfg})")
+        params = state["params"]
+        print(f"---Loaded RQVAE Iter {meta['step']}---", file=sys.stderr)
+    return tree_map(lambda t: t.detach(), params), vae_cfg
 
 
 def value_and_grad(loss_fn, params, *args):
@@ -217,3 +299,228 @@ def make_train_step(model_cfg: RetrievalConfig, opt, index: semids.CorpusIndex, 
         return params, opt_state, {"total_loss": loss / accum, "loss_d": loss_d / accum}
 
     return step
+
+
+def make_generative_eval_fns(model_cfg: RetrievalConfig, index: semids.CorpusIndex,
+                             cfg: DecoderTrainConfig, ks):
+    """(generate_fn, hit_counts_fn), the pair the full eval drives:
+    ``generate_fn(params, batch, generator) -> (GenerationOutput, actual
+    sem-ID tuples)`` runs the constrained beam search on a ``SeqBatch`` of
+    tensors; ``hit_counts_fn(actual, top_k, valid) -> (counts, n_valid)``
+    counts hits on the rows with ``valid`` True."""
+
+    def generate_fn(params, batch: SeqBatch, generator: Optional[torch.Generator]):
+        tok = semids.tokenize_sequences(index, batch)
+        gen = generation.generate_next_sem_ids(
+            params, model_cfg, index, tok._replace(sem_ids_fut=None, token_type_ids_fut=None),
+            generator, k=cfg.generation_top_k, n_candidates=cfg.generation_candidates,
+            temperature=cfg.generation_temperature)
+        return gen, tok.sem_ids_fut
+
+    def hit_counts_fn(actual, top_k, valid):
+        return batch_hit_counts(actual, top_k, ks, valid=valid), torch.sum(valid)
+
+    return generate_fn, hit_counts_fn
+
+
+def run_generative_eval(params, model_cfg: RetrievalConfig, index: semids.CorpusIndex,
+                        seqs: dataset_lib.SeqDataset, items: dataset_lib.ItemDataset,
+                        cfg: DecoderTrainConfig, generator: Optional[torch.Generator], *,
+                        n_eval: int, eval_fns=None) -> dict:
+    """Constrained-beam-search eval over the first ``n_eval`` rows of
+    ``seqs``: batches of ``cfg.batch_size`` rows, the last padded with copies
+    of the final row (one batch shape, as in JAX) whose counts are masked
+    out; hit rates reduced on the host (``TopKAccumulator``). ``generator``
+    draws the candidate noise when ``generation_candidates`` is below the
+    codebook size (None is enough for the exhaustive branch)."""
+    dev = index.cached_ids.device
+    acc = TopKAccumulator(ks=(1, 5, 10))
+    generate_fn, hit_counts_fn = eval_fns or make_generative_eval_fns(model_cfg, index, cfg,
+                                                                      acc.ks)
+    n_eval = min(n_eval, len(seqs))
+    for lo in range(0, n_eval, cfg.batch_size):
+        idx = np.arange(lo, lo + cfg.batch_size)
+        valid = idx < min(lo + cfg.batch_size, n_eval)
+        idx = np.minimum(idx, n_eval - 1)
+        b = dataset_lib.to_device(
+            dataset_lib.make_seq_batch(seqs.batch_at(idx), items.x, with_features=False), dev)
+        gen, actual = generate_fn(params, b, generator)
+        counts, n_rows = hit_counts_fn(actual, gen.sem_ids, torch.from_numpy(valid).to(dev))
+        acc.accumulate_counts({k: float(v) for k, v in counts.items()}, int(n_rows))
+    return acc.reduce()
+
+
+def _check_supported(cfg: DecoderTrainConfig) -> None:
+    unported = {
+        "mesh_shape": cfg.mesh_shape is not None and math.prod(cfg.mesh_shape) > 1,
+        "tensor_parallel": cfg.tensor_parallel,
+        "metrics_sink": cfg.metrics_sink != "jsonl",
+        "tensorboard_dir": cfg.tensorboard_dir is not None,
+        "profile_dir": cfg.profile_dir is not None,
+        "debug_nans": cfg.debug_nans,
+        "push_vae_to_hf": cfg.push_vae_to_hf,   # a hub upload: no network, no hub client
+    }
+    bad = sorted(k for k, v in unported.items() if v)
+    if bad:
+        raise NotImplementedError(f"not ported yet: {bad}")
+
+
+def train(cfg: DecoderTrainConfig, *, logger: Optional[MetricsLogger] = None, device=None):
+    """Stage-2 training on ``device`` (cuda unless told otherwise); returns
+    the trained params."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    logger = logger or MetricsLogger(every=cfg.log_every)
+    compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
+
+    bundle = registry.load(
+        cfg.dataset,
+        cfg.data_path or cfg.dataset_folder,
+        split=cfg.dataset_split if cfg.dataset == RecDataset.AMAZON else None,
+        synthetic_kwargs={"n_items": cfg.synthetic_n_items, "feature_dim": cfg.vae_input_dim,
+                          "n_users": cfg.synthetic_n_users, "seed": cfg.seed},
+    )
+    model_cfg = cfg.retrieval_config(bundle.max_seq_len)
+    sem_dim = model_cfg.sem_id_dim
+    items_x = bundle.items.x
+
+    vae_params, vae_cfg = load_frozen_rqvae(cfg, device=dev)
+    index = semids.precompute_corpus_ids(
+        vae_params, vae_cfg,
+        torch.from_numpy(dataset_lib.features_for_model(items_x, vae_cfg.input_dim)).to(dev))
+    del vae_params
+    max_dup = semids.max_duplicates(index)
+    if max_dup >= cfg.vae_codebook_size:
+        print(f"WARNING: max dedup rank {max_dup} >= codebook size {cfg.vae_codebook_size}; "
+              "the dedup dimension overflows the sem-ID embedding range — train the RQ-VAE "
+              "further.", file=sys.stderr)
+
+    params = retrieval.init(torch.Generator().manual_seed(cfg.seed), model_cfg, device=dev)
+    schedule = optim.inv_sqrt_schedule(cfg.learning_rate, cfg.warmup_steps)
+    opt = optim.adamw(schedule, cfg.weight_decay)
+    opt_state = opt.init(params)
+    start_iter = 0
+    resume_path = cfg.pretrained_decoder_path
+    if resume_path is None and cfg.auto_resume and ckpt_lib.latest_step(cfg.save_dir_root) is not None:
+        resume_path = cfg.save_dir_root
+    if resume_path is not None:
+        state, meta = ckpt_lib.restore(resume_path, device=dev)
+        params, opt_state = state["params"], state["opt_state"]
+        start_iter = meta["step"] + 1
+
+    accum = max(1, cfg.gradient_accumulate_every)
+    bs = cfg.batch_size
+    use_buckets = cfg.length_buckets > 1 and accum == 1 and bs % cfg.length_buckets == 0
+    if cfg.length_buckets > 1 and not use_buckets:
+        print(f"WARNING: length_buckets={cfg.length_buckets} ignored (requires "
+              "gradient_accumulate_every=1 and a batch size divisible by it; "
+              f"batch_size={bs}, accum={accum}) — training takes the flat step.", file=sys.stderr)
+    if use_buckets:
+        grad_accum_fn, apply_fn = make_bucketed_fns(model_cfg, opt, index, compute_dtype, sem_dim)
+    use_packing = cfg.packed_rows > 0 and accum == 1 and not use_buckets
+    if cfg.packed_rows > 0 and not use_packing:
+        print(f"WARNING: packed_rows={cfg.packed_rows} ignored (requires "
+              f"gradient_accumulate_every=1 and length_buckets=1; accum={accum}, "
+              f"length_buckets={cfg.length_buckets}) — training takes the flat step.",
+              file=sys.stderr)
+    if use_packing:
+        from rqvae_tpu_torch.data import packing as packing_lib
+
+        packed_step_fn = make_packed_step(model_cfg, opt, index, compute_dtype)
+    step_fn = make_train_step(model_cfg, opt, index, accum, compute_dtype, sem_dim)
+
+    def eval_loss_fn(p, batch: SeqBatch):
+        with torch.no_grad():
+            out = retrieval.forward(p, model_cfg, semids.tokenize_sequences(index, batch))
+        return out.loss
+
+    eval_fns = make_generative_eval_fns(model_cfg, index, cfg, (1, 5, 10))
+    host_rng = np.random.default_rng(cfg.seed)
+    # one device generator: dropout in the steps, candidate noise in the evals
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+    seq_batch = lambda raw: dataset_lib.make_seq_batch(raw, items_x, with_features=False)  # noqa: E731
+    if use_packing:
+        packer = packing_lib.SequencePacker(seqs=bundle.train_seqs, rng=host_rng,
+                                            rows=cfg.packed_rows, slots=cfg.pack_slots,
+                                            subsample=cfg.train_data_subsample)
+    t_start = time.monotonic()
+    examples_seen = 0
+
+    for it in range(start_iter, start_iter + cfg.iterations):
+        train_len_metrics = None
+        if use_packing:
+            raw, n_ex = packer.next_batch()
+            train_len_metrics = _length_quantiles(
+                (raw.slot_len[raw.slot_valid] * sem_dim).astype(np.float32), "train")
+            params, opt_state, metrics = packed_step_fn(
+                params, opt_state, packing_lib.to_device(raw, dev), gen)
+            examples_seen += n_ex
+        elif use_buckets:
+            raw = bundle.train_seqs.sample_batch(host_rng, bs, subsample=cfg.train_data_subsample)
+            log_mask = raw["ids"] >= 0
+            grads = tree_map(torch.zeros_like, params)
+            loss_acc = torch.zeros((), device=dev)
+            loss_d_acc = torch.zeros((sem_dim,), device=dev)
+            for rows, length in bucket_slices(log_mask.sum(axis=1), cfg.length_buckets):
+                sub = {"user_ids": raw["user_ids"][rows], "ids": raw["ids"][rows, :length],
+                       "ids_fut": raw["ids_fut"][rows]}
+                grads, loss_acc, loss_d_acc = grad_accum_fn(
+                    params, grads, loss_acc, loss_d_acc, dataset_lib.to_device(seq_batch(sub), dev),
+                    gen, 1.0 / cfg.length_buckets)
+            params, opt_state = apply_fn(params, opt_state, grads)
+            metrics = {"total_loss": loss_acc, "loss_d": loss_d_acc}
+        else:
+            host = [seq_batch(bundle.train_seqs.sample_batch(
+                host_rng, bs, subsample=cfg.train_data_subsample)) for _ in range(accum)]
+            stacked = SeqBatch(*(np.stack(xs) for xs in zip(*host)))
+            log_mask = stacked.seq_mask
+            params, opt_state, metrics = step_fn(params, opt_state,
+                                                 dataset_lib.to_device(stacked, dev), gen)
+        if not use_packing:
+            examples_seen += accum * bs
+
+        if _every(it, cfg.log_every) or it == start_iter:
+            m = {k: v.float().cpu().numpy() for k, v in metrics.items()}
+            loss_d = m.pop("loss_d")
+            m.update({f"loss_{d}": loss_d[d] for d in range(sem_dim)})
+            m["learning_rate"] = float(schedule(it + 1))
+            m["examples_per_s"] = examples_seen / (time.monotonic() - t_start)
+            m.update(train_len_metrics if train_len_metrics is not None
+                     else debug_metrics(log_mask, "train", sem_dim))
+            logger.log(it + 1, m, force=True)
+
+        last = it + 1 == start_iter + cfg.iterations
+        n_eval_rows = len(bundle.eval_seqs) if bundle.eval_seqs is not None else 0
+        if n_eval_rows and (_every(it, cfg.partial_eval_every) or last):
+            losses, eval_mask = [], None
+            for eb in range(min(cfg.eval_batches, max(1, n_eval_rows // bs))):
+                # small eval sets wrap modulo the set: near-uniform repeats,
+                # one batch shape
+                idx = np.arange(eb * bs, (eb + 1) * bs) % n_eval_rows
+                b = seq_batch(bundle.eval_seqs.batch_at(idx))
+                losses.append(float(eval_loss_fn(params, dataset_lib.to_device(b, dev))))
+                eval_mask = b.seq_mask
+            logger.log(it + 1, {"eval_loss": float(np.mean(losses)),
+                                **debug_metrics(eval_mask, "eval", sem_dim)}, force=True)
+
+        if n_eval_rows and (_every(it, cfg.full_eval_every) or last):
+            logger.log(it + 1, run_generative_eval(
+                params, model_cfg, index, bundle.eval_seqs, bundle.items, cfg, gen,
+                n_eval=min(cfg.eval_batches * bs, n_eval_rows), eval_fns=eval_fns), force=True)
+
+        if _every(it, cfg.save_model_every) or last:
+            ckpt_lib.save(cfg.save_dir_root, it, {"params": params, "opt_state": opt_state},
+                          meta={"config": config_lib.config_to_dict(cfg)})
+    return params
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    path = argv[0] if argv and "=" not in argv[0] else None
+    overrides = argv[1:] if path else argv
+    cfg = config_lib.load_config(DecoderTrainConfig, path, overrides)
+    train(cfg)
+
+
+if __name__ == "__main__":
+    main()

@@ -45,7 +45,7 @@ from rqvae_tpu_torch.tokenizer import semids
 from rqvae_tpu_torch.train import checkpoint as ckpt_lib
 from rqvae_tpu_torch.train import optim
 from rqvae_tpu_torch.train import temperature
-from rqvae_tpu_torch.train.train_decoder import value_and_grad
+from rqvae_tpu_torch.train.train_decoder import _every, value_and_grad
 from rqvae_tpu_torch.utils import amp
 from rqvae_tpu_torch.utils import config as config_lib
 from rqvae_tpu_torch.utils.device import resolve_device
@@ -129,12 +129,6 @@ class RqVaeTrainConfig:
             codebook_sim_vq=self.vae_sim_vq,
             codebook_kmeans_init=self.use_kmeans_init and self.pretrained_rqvae_path is None,
         )
-
-
-def _every(it: int, interval: int) -> bool:
-    """True on steps where a periodic action (log / eval / save) fires;
-    interval <= 0 turns the action off."""
-    return interval > 0 and (it + 1) % interval == 0
 
 
 def _make_microbatch_loss(model_cfg: rqvae_lib.RqVaeConfig, compute_dtype: torch.dtype):

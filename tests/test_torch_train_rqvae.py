@@ -234,8 +234,10 @@ def test_train_runs_evals_saves_and_resumes(tmp_path, spc):
 def test_train_refuses_unported_options_and_datasets(tmp_path):
     with pytest.raises(NotImplementedError, match="tensor_parallel"):
         ttr.train(_train_cfg(tmp_path, 4, tensor_parallel=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="AMAZON"):
-        ttr.train(_train_cfg(tmp_path, 4, dataset="AMAZON"), device="cpu")
+    # the Amazon loader reads preprocessed artifacts, which this directory lacks
+    with pytest.raises(FileNotFoundError, match="processed_beauty"):
+        ttr.train(_train_cfg(tmp_path, 4, dataset="AMAZON", dataset_folder=str(tmp_path)),
+                  device="cpu")
 
 
 def test_main_parses_a_config_and_overrides(tmp_path, monkeypatch):
