@@ -33,7 +33,8 @@ weights made from a seed and seeded synthetic data:
   7. each flash kernel against its plain twin on one encoder layer's own
      operands, recorded in a rerun of the step (first 16 batch rows, N =
      801; the upstream gradient scaled to unit RMS): bf16 to 2e-2, fp32 to
-     1e-4, plus a causal case, a random key mask with fully masked rows and
+     1e-4, plus a causal case, a random key mask with fully masked rows
+     (their outputs and every gradient of their batch rows exactly 0) and
      a mask whose first two key tiles are all masked;
   8. a 2-user fp32 train step (dropout 0) on the GPU against the CPU: loss
      to 1e-4 relative, every gradient leaf to 1e-3 of its max-abs;
@@ -80,8 +81,8 @@ weights made from a seed and seeded synthetic data:
  17. each span kernel against its plain twin on encoder layer 0's own
      operands, recorded in a rerun of the step (first 16 rows, N = 808, the
      upstream gradient scaled to unit RMS), bf16 to 2e-2 and fp32 to 1e-4,
-     plus rows that attend nothing (their output must be exactly 0), rows
-     with only the extra column, windows across 64-key tile edges, extra
+     plus rows that attend nothing (their output and dq must be exactly 0),
+     rows with only the extra column, windows across 64-key tile edges, extra
      columns outside the window and Nq = 777;
  18. a 2-row fp32 packed step (dropout 0) on the GPU against the CPU: loss
      to 1e-4 relative, every gradient leaf to 1e-3 of its max-abs;
@@ -111,7 +112,15 @@ weights made from a seed and seeded synthetic data:
      (batch 256) and beam search (256 users, k = 32); the short kernels'
      times on the encoder operands beside their twins,
      ``F.scaled_dot_product_attention`` with the mask as an additive bias,
-     the dense ``sdpa`` and the bound; one traced step.
+     the dense ``sdpa`` and the bound; one traced step;
+ 24. the width rule of the kernel routes (run after phase 4): ``attend`` at
+     Dh = 256 on a span, a short (switch on) and a flat shape, and the
+     RQ-VAE's two quantizer routes at embed_dim = 256 (codebook volume
+     65,536), each on the card against the same call on the CPU (values
+     and gradients to 1e-5 of their max-abs; ids equal off near-ties; the
+     training loss to 1e-5 relative and gradient leaves to 1e-4 of their
+     max-abs): shapes wider than the kernels take go the dense and plain
+     routes, and no kernel wrapper launches.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 work runs in fp32.
 ``RQVAE_TPU_SHORT_FLASH`` is unset for phases 1-19, so they take
@@ -119,9 +128,10 @@ TF32 is switched off for matmuls and cuDNN, so fp32 work runs in fp32.
 
 Prints the nvidia-smi line, a ``{"serving": {...}}`` line, a
 ``{"train": {...}}`` line (the packed step under its ``packed`` key, the
-Amazon decoder under ``amazon``), a ``{"train_rqvae": {...}}`` line, the
-nvidia-smi line again, a ``{"kernels": [...]}`` line (nine entries) and,
-last, ``{"ok": true, "device": {...}}``.
+Amazon decoder under ``amazon``), a ``{"train_rqvae": {...}}`` line, a
+``{"wide": {...}}`` line (phase 24), the nvidia-smi line again, a
+``{"kernels": [...]}`` line (nine entries) and, last, ``{"ok": true,
+"device": {...}}``.
 Any failure exits non-zero before the last line; so does a machine without
 a GPU. Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -423,6 +433,9 @@ def main() -> int:
                        dec_params, dec_cfg, index, tok, k=BEAMS, n_candidates=256)))
     del rq_params, corpus, index, dec_params, params32, chunks, cw_inputs, big, out, again
 
+    # ---- phase 24: the width rule of the kernel routes ----
+    wide = _wide(dev)
+
     # ---- ML-32M: decoder training, then long-context serving ----
     train, ml_serving, flash_kernels = _ml32m(dev)
     kernels += flash_kernels
@@ -446,6 +459,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"train_rqvae": train_rqvae}), flush=True)
+    print(json.dumps({"wide": wide}), flush=True)
     # the card and the kernels once more, last, where a capture of the
     # output's tail keeps them
     print(smi, flush=True)
@@ -454,6 +468,99 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _wide(dev):
+    """Phase 24: shapes wider than the kernels take go the plain routes.
+    ``attend`` at Dh = 256 on a span, a short (switch on) and a flat shape,
+    and the RQ-VAE's two quantizer routes at embed_dim = 256 (volume 65,536:
+    the fused training route but for the width rule), each on the card
+    against the same call on the CPU; no kernel wrapper may launch."""
+    import numpy as np
+    import torch
+
+    from rqvae_tpu_torch.models import quantize, rqvae
+    from rqvae_tpu_torch.ops import attention as attn_ops
+    from rqvae_tpu_torch.ops import flash_attention as fa
+    from rqvae_tpu_torch.ops import quantize_kernels as qk
+    from rqvae_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cpu = torch.device("cpu")
+    rng = np.random.RandomState(SEED + 24)
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd, fa.flash_attention_spans_fwd,
+                fa.flash_attention_spans_bwd, fa.flash_attention_small_fwd,
+                fa.flash_attention_small_bwd, qk.rq_tokenize, qk.rq_quantize_train)
+    for w in wrappers:
+        w.launches = 0
+    out = {}
+
+    def rel_err(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+
+    # attend: values and gradients, fp32, 1e-5 of each tensor's max-abs
+    b, h, dh = 2, 2, 256
+    for case, n in (("span", 300), ("short", 81), ("flat", 300)):
+        q, k, v, gr = (rng.randn(b, n, h, dh).astype(np.float32) for _ in range(4))
+        lo = rng.randint(0, n - 40, (b, n))
+        spans = (lo, lo + rng.randint(0, 40, (b, n)), rng.randint(-1, n, (b, n)))
+        k_mask = np.arange(n)[None, :] < np.array([n, n - 30])[:, None]
+        runs = []
+        for device in (dev, cpu):
+            t = [torch.from_numpy(x).to(device).requires_grad_(True) for x in (q, k, v)]
+            if case == "span":
+                kw = dict(q_spans=tuple(torch.from_numpy(a.astype(np.int32)).to(device)
+                                        for a in spans))
+            else:
+                kw = dict(k_mask=torch.from_numpy(k_mask).to(device), causal=case == "short")
+            if case == "short":
+                os.environ[SHORT_FLASH_ENV] = "1"
+            try:
+                o = attn_ops.attend(*t, **kw)
+            finally:
+                os.environ.pop(SHORT_FLASH_ENV, None)
+            grads = torch.autograd.grad(o, t, torch.from_numpy(gr).to(device))
+            runs.append([x.detach().cpu() for x in (o, *grads)])
+        errs = [rel_err(a, b_) for a, b_ in zip(*runs)]
+        check(max(errs) <= 1e-5, f"attend at Dh = {dh}, {case}: GPU vs CPU {errs}")
+        out[f"attend_{case}"] = dict(n=n, dh=dh, rel_err_out_dq_dk_dv=errs)
+
+    # the quantizer routes at embed_dim 256
+    cfg = rqvae.RqVaeConfig(input_dim=INPUT_DIM, embed_dim=256, hidden_dims=(512,),
+                            codebook_size=256, n_layers=3, n_cat_feats=0,
+                            codebook_mode=quantize.QuantizeForwardMode.ROTATION_TRICK)
+    check(cfg.codebook_size * cfg.embed_dim >= rqvae.FUSED_TRAIN_MIN_CODEBOOK_VOLUME,
+          "phase 24's config must reach the fused route's volume")
+    params = rqvae.init(torch.Generator().manual_seed(SEED + 24), cfg, device=cpu)
+    x = torch.from_numpy(rng.randn(1024, INPUT_DIM).astype(np.float32))
+    with torch.no_grad():
+        z = rqvae.encode(params, cfg, x).float()
+        cbs = rqvae.effective_codebooks(params, cfg).float()
+    ids_cpu = rqvae.encode_and_tokenize(params, cfg, x)
+    ids_gpu = rqvae.encode_and_tokenize(_to_device(params, dev), cfg, x.to(dev)).cpu()
+    ties = _near_ties(z, cbs, ids_cpu)
+    differ = (ids_gpu != ids_cpu).any(dim=1)
+    check(not bool((differ & ~ties).any()),
+          f"encode_and_tokenize at D = 256: {int((differ & ~ties).sum())} rows differ off near-ties")
+    clean = x[~_near_ties(z, cbs, ids_cpu, rel=1e-4)][:256]
+    runs = []
+    for device in (dev, cpu):
+        p = tree_map(lambda t: t.detach().to(device, copy=True).requires_grad_(True), params)
+        loss = rqvae.forward(p, cfg, clean.to(device), gumbel_t=0.2, training=True).loss
+        grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True)
+        runs.append((float(loss.detach()), [None if g_ is None else g_.cpu() for g_ in grads]))
+    (lg, gg), (lc, gc) = runs
+    loss_rel = abs(lg - lc) / abs(lc)
+    leaf_rel = max(rel_err(a, b_) for a, b_ in zip(gg, gc) if b_ is not None)
+    check(loss_rel <= 1e-5 and leaf_rel <= 1e-4,
+          f"training forward at D = 256: GPU vs CPU loss {loss_rel}, worst leaf {leaf_rel}")
+    launches = {w.__name__: w.launches for w in wrappers}
+    check(not any(launches.values()), f"a kernel launched on a shape wider than it takes: {launches}")
+    out["quantizer_d256"] = dict(rows=int(x.shape[0]), differing_rows=int(differ.sum()),
+                                 near_tie_rows=int(ties.sum()), train_rows=int(clean.shape[0]),
+                                 loss_rel_err=loss_rel, worst_leaf_rel_err=leaf_rel)
+    out["launches"] = launches
+    log(f"wide shapes take the plain routes: {out}")
+    return out
 
 
 def _crop_lengths(rng, count: int, n_hist: int):
@@ -664,8 +771,10 @@ def _ml32m(dev):
                 check(bool(torch.isfinite(x).all()), f"flash {case} {dtype} {name}: non-finite")
                 check(torch.allclose(x, y, rtol=tol, atol=tol),
                       f"flash {case} {dtype} {name} differs from the plain twin by {row[name]}")
-            if case == "holes":
+            if case == "holes":   # batch rows 0 and 1: no valid key, inv = 0 in every row
                 check(float(out[:2].abs().max()) == 0.0, "fully masked rows are not zero")
+                check(max(float(t[:2].abs().max()) for t in got) == 0.0,
+                      "rows with inv = 0 have nonzero gradients")
             if dtype == torch.bfloat16 and case == "train":
                 errs = {"fwd": row["out"], "bwd": max(row["dq"], row["dk"], row["dv"])}
             checks.append(row)
@@ -963,6 +1072,7 @@ def _packed(dev):
             if case == "empty":
                 masked = torch.from_numpy(empty_rows).to(dev)[:, None, :, None].expand_as(out)
                 check(float(out[masked].abs().max()) == 0.0, "fully masked rows are not zero")
+                check(float(got[0][masked].abs().max()) == 0.0, "rows with inv = 0 have nonzero dq")
             if dtype == torch.bfloat16 and case == "train":
                 errs = {"fwd": row["out"], "bwd": max(row["dq"], row["dk"], row["dv"])}
             checks.append(row)

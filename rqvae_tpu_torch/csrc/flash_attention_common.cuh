@@ -110,6 +110,14 @@ struct BiasMask {
     if (threadIdx.x < kBK) sm.bias[threadIdx.x] = k0 + threadIdx.x < Nk ? bias[k0 + threadIdx.x] : 0.f;
     return true;
   }
+  // need / stage: tile() in two halves, for a loop that decides the next
+  // pair while the current one computes (flash_attention_bwd.cuh). need()
+  // is alike in every thread (here: always, with no barrier); stage()
+  // writes what score() reads, visible after the caller's next barrier.
+  __device__ __forceinline__ bool need(int, int) const { return true; }
+  __device__ __forceinline__ void stage(Smem& sm, int, int k0) const {
+    if (threadIdx.x < kBK) sm.bias[threadIdx.x] = k0 + threadIdx.x < Nk ? bias[k0 + threadIdx.x] : 0.f;
+  }
   __device__ __forceinline__ float score(const Smem& sm, float dot, float scale, int, int cl, int row,
                                          int col) const {
     if (col >= Nk) return -INFINITY;
@@ -147,6 +155,14 @@ struct SpanMask {
     const long long o = (long long)b * Nq;
     return {lo + o, hi + o, ex + o, Nq, Nk};
   }
+  // bit j: whether a row with bounds (l, h, x) may attend key k0 + j
+  __device__ __forceinline__ unsigned long long key_bits(int l, int h, int x, int k0) const {
+    const int k1 = min(k0 + kBK, Nk);
+    const int a = min(max(l - k0, 0), kBK), z = min(max(min(h, k1) - k0, 0), kBK);
+    unsigned long long bits = bits_below(z) & ~bits_below(a);
+    if (x >= k0 && x < k1) bits |= 1ull << (x - k0);
+    return bits;
+  }
   __device__ __forceinline__ bool tile(Smem& sm, int tq0, int k0) {
     if (tq0 != q0) {  // alike in every thread
       q0 = tq0;
@@ -157,16 +173,23 @@ struct SpanMask {
         x = ex[q0 + threadIdx.x];
       }
     }
-    unsigned long long bits = 0;
-    if (threadIdx.x < kBQ) {
-      const int k1 = min(k0 + kBK, Nk);
-      const int a = min(max(l - k0, 0), kBK), z = min(max(min(h, k1) - k0, 0), kBK);
-      bits = bits_below(z) & ~bits_below(a);
-      if (x >= k0 && x < k1) bits |= 1ull << (x - k0);
-    }
+    const unsigned long long bits = threadIdx.x < kBQ ? key_bits(l, h, x, k0) : 0ull;
     const int need = __syncthreads_or(bits != 0);
     if (need && threadIdx.x < kBQ) sm.allow[threadIdx.x] = bits;
     return need != 0;
+  }
+  // need / stage: tile() in two halves (see BiasMask), reading the bounds
+  // of row q0 + threadIdx.x afresh. need() is a barrier.
+  __device__ __forceinline__ unsigned long long row_bits(int tq0, int k0) const {
+    const int row = tq0 + (int)threadIdx.x;
+    if (threadIdx.x >= kBQ || row >= Nq) return 0ull;  // rows past Nq attend nothing
+    return key_bits(lo[row], hi[row], ex[row], k0);
+  }
+  __device__ __forceinline__ bool need(int tq0, int k0) const {
+    return __syncthreads_or(row_bits(tq0, k0) != 0ull) != 0;
+  }
+  __device__ __forceinline__ void stage(Smem& sm, int tq0, int k0) const {
+    if (threadIdx.x < kBQ) sm.allow[threadIdx.x] = row_bits(tq0, k0);
   }
   __device__ __forceinline__ float score(const Smem& sm, float dot, float scale, int rl, int cl,
                                          int, int col) const {
@@ -235,6 +258,23 @@ __device__ __forceinline__ void load_tile_mma(__nv_bfloat16* dst, const __nv_bfl
   }
 }
 
+// Asynchronous copies global -> shared (cp.async): ``bytes`` of the source
+// are read (16 / 4, or 0), the rest of the destination zero-filled. The
+// source address must be valid even when no byte is read. cp_async_commit
+// closes a group of copies; cp_async_wait_all closes one and waits for all.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
 // A fragments (16 rows x 64 dims, four k-steps of 16) of a warp's 16 rows
 // starting at ``row0`` of a staged tile.
 __device__ __forceinline__ void load_a_frags(uint32_t f[4][4], const __nv_bfloat16* tile, int row0) {
@@ -279,6 +319,147 @@ __device__ __forceinline__ void mma_rows_nn(float acc[8][4], const float p[8][4]
       mma16816(acc[2 * jj + 1], a, b[2], b[3]);
     }
   }
+}
+
+// ---- wgmma path: 64 x 64 bf16 tiles in the 128-byte swizzle ----
+//
+// A staged tile is 64 rows of 64 bf16 (128 bytes), 16-byte chunk ch of row r
+// stored at chunk ch ^ (r % 8) (tile bases 1024-byte aligned), the layout
+// that wgmma reads through a shared-memory descriptor with the 128-byte
+// swizzle: K-major when a row holds the product's K dimension, MN-major when
+// it holds M or N. One warpgroup (the block's four warps) runs
+// wgmma.mma_async m64n64k16; warp w's accumulator rows are 16 w .. 16 w + 15
+// in the mma.sync C layout above, and an A operand from registers has the
+// mma.sync A layout, so the fragments of the mma.sync path carry over.
+constexpr int kSwTile = 64 * 64;   // bf16 elements of a swizzled tile (8 KB)
+
+// byte offset of element (r, col) of a swizzled tile
+__device__ __forceinline__ uint32_t sw_offset(int r, int col) {
+  return (uint32_t)(r * 128 + (((col >> 3) ^ (r & 7)) << 4) + (col & 7) * 2);
+}
+
+// Stage rows [r0, r0 + 64) of a (n_rows, 64) bf16 slice into a swizzled
+// tile by cp.async (started, not waited for); rows past n_rows become zeros.
+__device__ __forceinline__ void load_tile_sw_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                   long long row_stride, int r0, int n_rows) {
+  for (int e = threadIdx.x; e < 64 * 8; e += kMmaThreads) {
+    const int r = e >> 3;
+    const int ch = e & 7;
+    const bool ok = r0 + r < n_rows;
+    cp_async16(reinterpret_cast<char*>(dst) + sw_offset(r, 8 * ch),
+               ok ? src + (long long)(r0 + r) * row_stride + ch * 8 : src, ok ? 16 : 0);
+  }
+}
+
+// Shared-memory matrix descriptor of a swizzled tile, ``offset`` bytes in
+// (a K-major operand's k-slice of 16: 32 bytes; an MN-major one's: 2048):
+// start address >> 4, leading offset 1 (unused: one 128-byte swizzle atom
+// across the contiguous dimension), stride 1024 bytes (8 rows), 128B swizzle.
+__device__ __forceinline__ uint64_t sw_desc(const void* tile, uint32_t offset) {
+  const uint32_t addr = smem_addr(tile) + offset;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// shared-memory writes by this thread (st.shared, cp.async) made visible to
+// the wgmma (async) proxy; a barrier must follow before another thread's
+// wgmma reads them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keeps the compiler from moving reads of accumulators across the wait
+__device__ __forceinline__ void fence_acc(float d[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) asm volatile("" : "+f"(d[j][x])::"memory");
+}
+
+// d (64 x 64 fp32, this thread's 32) = or += A B, A and B by descriptor
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float d[8][4], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// d += A B, A (the warp's 16 rows x 16) from registers in the mma.sync A layout
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float d[8][4], const uint32_t a[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kTransB));
+}
+
+// d = A B^T over K = 64: A (M = 64 rows) and B (N = 64 rows) both K-major
+// tiles (q k^T, g v^T and their transposes); started, not waited for
+__device__ __forceinline__ void wg_rows_nt(float d[8][4], const __nv_bfloat16* a,
+                                           const __nv_bfloat16* b) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) wgmma_ss<0, 0>(d, sw_desc(a, 32 * t), sw_desc(b, 32 * t), t > 0);
+}
+
+// d += P B over K = 64: P (the warp's 16 rows) packed from fp32 C-layout
+// values, B an MN-major tile (rows along K: e^T (g inv), ds^T q)
+__device__ __forceinline__ void pack_a_frags(uint32_t a[4][4], const float p[8][4]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    a[t][0] = pack_bf16(p[2 * t][0], p[2 * t][1]);
+    a[t][1] = pack_bf16(p[2 * t][2], p[2 * t][3]);
+    a[t][2] = pack_bf16(p[2 * t + 1][0], p[2 * t + 1][1]);
+    a[t][3] = pack_bf16(p[2 * t + 1][2], p[2 * t + 1][3]);
+  }
+}
+__device__ __forceinline__ void wg_regs_nn(float d[8][4], const uint32_t a[4][4],
+                                           const __nv_bfloat16* b) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) wgmma_rs<1>(d, a[t], sw_desc(b, 2048 * t));
+}
+
+// d = A B over K = 64, A staged transposed (at[k][m], MN-major) and B an
+// MN-major tile (ds k from ds^T)
+__device__ __forceinline__ void wg_tn(float d[8][4], const __nv_bfloat16* at,
+                                      const __nv_bfloat16* b) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    wgmma_ss<1, 1>(d, sw_desc(at, 2048 * t), sw_desc(b, 2048 * t), t > 0);
 }
 
 // Whether a (B, H, N, 64) bf16 operand can be staged with 16-byte copies.

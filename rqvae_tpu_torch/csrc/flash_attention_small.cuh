@@ -28,16 +28,6 @@ constexpr int kMaxWarps = 8;
 constexpr int kSmsH100 = 132;
 constexpr long long kPairSmemBudget = 110 * 1024;   // a CTA's pairs stay within it: two CTAs an SM
 
-// 16-byte asynchronous copy global -> shared; ``bytes`` (0 or 16) are read,
-// the rest zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Issue the copies of rows [r0, r0 + n_pad) of a (n, 64) bf16 slice into
 // dst[n_pad][kMP]; rows past n become zeros. Every thread of the block takes
 // part; cp_async_wait_all() and a barrier make them visible.

@@ -28,7 +28,7 @@ from rqvae_tpu_torch.models import mlp, quantize
 from rqvae_tpu_torch.models.losses import categorical_reconstruction_loss
 from rqvae_tpu_torch.models.normalize import l2norm
 from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
-from rqvae_tpu_torch.ops.quantize_kernels import rq_quantize_train, rq_tokenize
+from rqvae_tpu_torch.ops.quantize_kernels import MAX_D, rq_quantize_train, rq_tokenize
 from rqvae_tpu_torch.utils.device import resolve_device
 
 
@@ -108,6 +108,20 @@ def _level_kwargs(cfg: RqVaeConfig, level: int):
 FUSED_TRAIN_MIN_CODEBOOK_VOLUME = 65536
 
 
+def kernel_width(cfg: RqVaeConfig) -> bool:
+    """Whether ``embed_dim`` fits the quantizer kernels (the port's route
+    rule; JAX's Pallas kernels take any width). Both kernels stage tiles of
+    D-wide fp32 codewords in a 144 KB budget of the 227 KB of shared memory
+    an H100 block may use, and keep each row's residual in registers, D / 32
+    values a lane (``csrc/rq_common.cuh``), so they take D <= ``MAX_D`` (128)
+    and raise above it. A wider embedding takes the plain per-level loop on
+    both quantizer routes (training and ``encode_and_tokenize``): the same
+    function, so the ids and values are JAX's up to near-ties and fp32
+    rounding. It is a route, not a fallback: the kernels are never tried on
+    such a width."""
+    return cfg.embed_dim <= MAX_D
+
+
 def _fused_train_quantize(params, cfg: RqVaeConfig, res: torch.Tensor) -> RqVaeOutput:
     """The hard estimators through one ``rq_quantize_train`` call for the
     whole residual loop; outputs cast back to the residual's dtype."""
@@ -130,7 +144,8 @@ def get_semantic_ids(params, cfg: RqVaeConfig, x: torch.Tensor, *, gumbel_t: flo
     res = encode(params, cfg, x)
     if (training
             and cfg.codebook_mode in (QuantizeForwardMode.STE, QuantizeForwardMode.ROTATION_TRICK)
-            and cfg.codebook_size * cfg.embed_dim >= FUSED_TRAIN_MIN_CODEBOOK_VOLUME):
+            and cfg.codebook_size * cfg.embed_dim >= FUSED_TRAIN_MIN_CODEBOOK_VOLUME
+            and kernel_width(cfg)):
         return _fused_train_quantize(params, cfg, res)
     embs, residuals, sem_ids = [], [], []
     q_loss = torch.zeros(res.shape[:-1], dtype=res.dtype, device=res.device)
@@ -199,7 +214,11 @@ def effective_codebooks(params, cfg: RqVaeConfig) -> torch.Tensor:
 def encode_and_tokenize(params, cfg: RqVaeConfig, x: torch.Tensor) -> torch.Tensor:
     """Hard-argmin tokenization: encoder MLP + the fused RQ kernel, in fp32.
     Same ids as ``get_semantic_ids(...).sem_ids`` up to near-ties (the kernel
-    orders the distance terms as the TPU kernel does)."""
+    orders the distance terms as the TPU kernel does). An embedding wider
+    than the kernel takes (``kernel_width``) is tokenized by
+    ``get_semantic_ids``, as JAX does with Pallas disabled."""
+    if not kernel_width(cfg):
+        return get_semantic_ids(params, cfg, x).sem_ids
     z = encode(params, cfg, x).float().contiguous()
     cbs = effective_codebooks(params, cfg).float().contiguous()
     return rq_tokenize(z, cbs, commitment_weight=cfg.commitment_weight).sem_ids

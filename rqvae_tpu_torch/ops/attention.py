@@ -21,6 +21,16 @@ tensors and their plain twin on the CPU:
   801-token ML-32M encoder);
 * everything else: the dense ``sdpa``.
 
+One rule is the port's own (JAX's Pallas kernels take any width): every
+kernel route also needs Dh <= ``FLASH_MAX_DH`` (128). The CUDA kernels stage
+Dh-wide q / k / v / g tiles of 64 rows in shared memory, at most 227 KB a
+block on an H100 (the fp32 dk / dv kernel's tiles take 166 KB at Dh = 128
+and would take 297 KB at 256), and their wrappers raise on a wider head.
+Wider heads (Dh = 256, say) take the dense ``sdpa`` under the same mask
+``build_mask`` builds, the span mask included: the same function, so the
+output equals JAX's kernel route to fp32 rounding. It is a route, not a
+fallback: the kernels are never tried on such a shape.
+
 The 256-token cut is the JAX package's, measured on a TPU v5e; it has not
 been re-measured on the H100. Layout is (batch, seq, heads, head_dim)
 throughout; the kernel routes see the operands as (B, H, N, Dh) views
@@ -42,6 +52,7 @@ from typing import Optional
 import torch
 
 from rqvae_tpu_torch.ops.flash_attention import (
+    MAX_DH,
     flash_attention,
     flash_attention_plain,
     flash_attention_small,
@@ -54,6 +65,7 @@ from rqvae_tpu_torch.ops.flash_attention import (
 NEG_INF = -1e30
 FLASH_MIN_LEN = 256   # the JAX package's cut (Nq and Nk), with Dh >= 64
 FLASH_MIN_DH = 64
+FLASH_MAX_DH = MAX_DH  # the port's rule: wider heads go dense (the module docstring says why)
 SHORT_FLASH_ENV = "RQVAE_TPU_SHORT_FLASH"   # "1": shorter shapes take flash_attention_small
 
 
@@ -94,9 +106,10 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = 
            q_spans: Optional[tuple] = None) -> torch.Tensor:
     """Structured-mask attention entry point used by the transformer.
     ``k_mask`` (B, Nk) bool, True = attend; ``q_spans`` (lo, hi, extra),
-    each (B, Nq) int."""
-    big = (q.shape[1] >= FLASH_MIN_LEN and k.shape[1] >= FLASH_MIN_LEN
-           and q.shape[-1] >= FLASH_MIN_DH)
+    each (B, Nq) int. Routes as the module docstring says; a head wider than
+    ``FLASH_MAX_DH`` always takes the dense ``sdpa``."""
+    kernel_dh = FLASH_MIN_DH <= q.shape[-1] <= FLASH_MAX_DH
+    big = q.shape[1] >= FLASH_MIN_LEN and k.shape[1] >= FLASH_MIN_LEN and kernel_dh
     on_card = q.device.type == "cuda"
     if q_spans is not None:
         if big and not causal and k_mask is None:
@@ -106,8 +119,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = 
         mask = build_mask(q.shape[1], k.shape[1], causal=causal, k_mask=k_mask,
                           q_spans=q_spans, device=q.device)
         return sdpa(q, k, v, mask)
-    short = (q.shape[1] < FLASH_MIN_LEN and k.shape[1] < FLASH_MIN_LEN
-             and q.shape[-1] >= FLASH_MIN_DH and os.environ.get(SHORT_FLASH_ENV, "0") == "1")
+    short = (q.shape[1] < FLASH_MIN_LEN and k.shape[1] < FLASH_MIN_LEN and kernel_dh
+             and os.environ.get(SHORT_FLASH_ENV, "0") == "1")
     if short or big:
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         if short:

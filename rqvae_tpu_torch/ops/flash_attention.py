@@ -10,7 +10,7 @@ hand-written CUDA kernel (``csrc/flash_attention_fwd.cu``,
 twin for CPU tensors; any other device raises, and there is no fallback from
 one to the other. ``flash_attention_fwd.launches`` and
 ``flash_attention_bwd.launches`` count kernel launches (one backward launch
-runs the dq kernel and the dk / dv kernel).
+runs the backward's kernels, see ``csrc/flash_attention_bwd.cuh``).
 
 ``flash_attention_spans(q, k, v, lo, hi, extra)`` is the packed-training
 variant, built the same way (``flash_attention_spans_fwd`` /
@@ -54,12 +54,15 @@ the (B, N, H, Dh) layout and returned as (B, H, N, Dh) views, so the caller's
 The TPU kernel's ``block_q`` is a detail of its VMEM tiling and is not an
 argument here: the CUDA kernels tile 64 rows x 64 keys. For bf16 operands
 with Dh = 64 whose rows are 16-byte aligned (the model's case) the kernels
-run on the tensor cores (mma.sync); fp32 operands, other head sizes up to
-128 and unaligned views run an fp32 CUDA-core variant of the same function.
-The span kernels skip every (query tile, key tile) pair in which no row may
-attend any key; that adds exactly nothing to the sums (a fully masked row
-still gives zeros), so only the order of the fp32 sums differs from the
-twin's.
+run on the tensor cores (mma.sync; the flat and span backward on wgmma,
+adding dq into a (B, H, Nq, 64) fp32 accumulator with atomics, so its fp32
+sum order varies from run to run); fp32 operands, other head sizes up to 128
+and unaligned views run an fp32 CUDA-core variant of the same function. The
+kernels take no Dh above ``MAX_DH`` and raise on it; ``attend`` routes such
+heads to its dense path. The span kernels skip every (query tile, key tile)
+pair in which no row may attend any key; that adds exactly nothing to the
+sums (a fully masked row still gives zeros), so only the order of the fp32
+sums differs from the twin's.
 """
 from __future__ import annotations
 
@@ -70,6 +73,7 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
+MAX_DH = 128   # the widest head the CUDA kernels stage (csrc/flash_attention_common.cuh: dp_for)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -137,10 +141,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _plain_fwd(q, k, v, _key_masker(bias, causal))[0]
 
 
-def _plain_bwd(q, k, v, g, masker):
+def _plain_bwd(q, k, v, g, masker, c=None):
+    """The backward twins' body. ``c`` (B, H, Nq, 1) fp32, when given,
+    replaces the TPU's rowsum(dp * e) * inv (``tests/test_torch_flash_bwd_c.py``
+    measures rowsum(g * out) there, the shortcut the kernels do not take)."""
     scale, _, e, inv = _scores(q, k, masker)
     dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
-    c = torch.sum(dp * e, dim=-1, keepdim=True) * inv
+    if c is None:
+        c = torch.sum(dp * e, dim=-1, keepdim=True) * inv
     ds = (e * ((dp - c) * inv)).to(k.dtype).float()
     dq = torch.matmul(ds, k.float()) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
@@ -162,9 +170,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # wrapper name -> (the C prefix of csrc/<name>.cu's functions, its launch argtypes)
 _C_FUNCTIONS = {
     "flash_attention_fwd": ("flash_fwd", [_I] + [_P] * 8 + [_I] * 6 + [_F, _I, _P]),
-    "flash_attention_bwd": ("flash_bwd", [_I] + [_P] * 12 + [_I] * 6 + [_F, _I, _P]),
+    "flash_attention_bwd": ("flash_bwd", [_I] + [_P] * 13 + [_I] * 6 + [_F, _I, _P]),
     "flash_attention_spans_fwd": ("flash_spans_fwd", [_I] + [_P] * 10 + [_I] * 5 + [_F, _I, _P]),
-    "flash_attention_spans_bwd": ("flash_spans_bwd", [_I] + [_P] * 14 + [_I] * 5 + [_F, _I, _P]),
+    "flash_attention_spans_bwd": ("flash_spans_bwd", [_I] + [_P] * 15 + [_I] * 5 + [_F, _I, _P]),
     "flash_attention_small_fwd": ("flash_small_fwd", [_I] + [_P] * 8 + [_I] * 6 + [_F, _I, _P]),
     "flash_attention_small_bwd": ("flash_small_bwd", [_I] + [_P] * 11 + [_I] * 6 + [_F, _I, _P]),
 }
@@ -220,8 +228,8 @@ def _check_kernel_operands(tensors, names):
     nk = tensors[1].shape[2]
     if nq == 0 or nk == 0:
         raise ValueError(f"empty attention: Nq {nq}, Nk {nk}")
-    if dh > 128:
-        raise ValueError(f"the flash kernels take Dh <= 128, got {dh}")
+    if dh > MAX_DH:
+        raise ValueError(f"the flash kernels take Dh <= {MAX_DH}, got {dh}")
 
 
 def _bnhd_empty(b, h, n, dh, like):
@@ -236,6 +244,27 @@ def _strides(*tensors):
 
 def _device_index(t) -> int:
     return t.device.index if t.device.index is not None else torch.cuda.current_device()
+
+
+def _check_bwd_operands(q, g, m, inv):
+    b, h, nq, _ = q.shape
+    if g.shape != q.shape or m.shape != (b, h, nq) or inv.shape != (b, h, nq):
+        raise ValueError(f"g {tuple(g.shape)}, m {tuple(m.shape)}, inv {tuple(inv.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+
+
+def _bwd_scratch(q, m):
+    """The flat and span backward kernels' scratch: c (B, H, Nq) fp32 and,
+    for the tensor-core path (bf16, Dh = 64), the (B, H, Nq, 64) fp32 dq
+    accumulator (the c kernel zeroes it), else None."""
+    acc = None
+    if q.dtype == torch.bfloat16 and q.shape[-1] == 64:
+        acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    return torch.empty_like(m), acc
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _bias_fwd(wrapper, q, k, v, k_mask, causal):
@@ -260,29 +289,27 @@ def _bias_fwd(wrapper, q, k, v, k_mask, causal):
 
 def _bias_bwd(wrapper, q, k, v, g, m, inv, k_mask, causal):
     """The body of the key-bias backward wrappers (``flash_attention_bwd``,
-    whose dq kernel hands c to its dk / dv kernel through a (B, H, Nq) fp32
-    scratch, and ``flash_attention_small_bwd``, one kernel, none)."""
+    whose kernels take the scratch of ``_bwd_scratch``, and
+    ``flash_attention_small_bwd``, one kernel, none)."""
     dev = _check_operands(q, k, v, (g, m, inv))
     b, h, nq, dh = q.shape
     nk = k.shape[2]
-    if g.shape != q.shape or m.shape != (b, h, nq) or inv.shape != (b, h, nq):
-        raise ValueError(f"g {tuple(g.shape)}, m {tuple(m.shape)}, inv {tuple(inv.shape)} do not "
-                         f"fit q {tuple(q.shape)}")
+    _check_bwd_operands(q, g, m, inv)
     bias = mask_bias(k_mask, b, nk, dev)
     if dev.type == "cpu":
         return _plain_bwd(q, k, v, g, _key_masker(bias, causal))
     _check_kernel_operands((q, k, v, g), ("q", "k", "v", "g"))
     m = m.to(torch.float32).contiguous()
     inv = inv.to(torch.float32).contiguous()
-    scratch = () if wrapper is flash_attention_small_bwd else (torch.empty_like(m),)
+    scratch = () if wrapper is flash_attention_small_bwd else _bwd_scratch(q, m)
     dq = _bnhd_empty(b, h, nq, dh, q)
     dk = _bnhd_empty(b, h, nk, dh, k)
     dv = _bnhd_empty(b, h, nk, dh, v)
     _launch(wrapper, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias.data_ptr(), g.data_ptr(), m.data_ptr(), inv.data_ptr(),
-            *(t.data_ptr() for t in scratch), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _strides(q, k, v, g, dq, dk, dv), b, h, nq, nk, dh, int(causal),
-            1.0 / math.sqrt(dh), _device_index(q), torch.cuda.current_stream(dev).cuda_stream)
+            bias.data_ptr(), g.data_ptr(), m.data_ptr(), inv.data_ptr(), *map(_ptr, scratch),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, g, dq, dk, dv), b, h, nq,
+            nk, dh, int(causal), 1.0 / math.sqrt(dh), _device_index(q),
+            torch.cuda.current_stream(dev).cuda_stream)
     return dq, dk, dv
 
 
@@ -469,22 +496,20 @@ def flash_attention_spans_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = _check_operands(q, k, v, (lo, hi, extra, g, m, inv))
     b, h, nq, dh = q.shape
     nk = k.shape[2]
-    if g.shape != q.shape or m.shape != (b, h, nq) or inv.shape != (b, h, nq):
-        raise ValueError(f"g {tuple(g.shape)}, m {tuple(m.shape)}, inv {tuple(inv.shape)} do not "
-                         f"fit q {tuple(q.shape)}")
+    _check_bwd_operands(q, g, m, inv)
     lo, hi, extra = _span_operands(lo, hi, extra, b, nq)
     if dev.type == "cpu":
         return _plain_bwd(q, k, v, g, _span_masker(lo, hi, extra))
     _check_kernel_operands((q, k, v, g), ("q", "k", "v", "g"))
     m = m.to(torch.float32).contiguous()
     inv = inv.to(torch.float32).contiguous()
-    c = torch.empty_like(m)
+    c, acc = _bwd_scratch(q, m)
     dq = _bnhd_empty(b, h, nq, dh, q)
     dk = _bnhd_empty(b, h, nk, dh, k)
     dv = _bnhd_empty(b, h, nk, dh, v)
     _launch(flash_attention_spans_bwd, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), lo.data_ptr(), hi.data_ptr(), extra.data_ptr(), g.data_ptr(),
-            m.data_ptr(), inv.data_ptr(), c.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            m.data_ptr(), inv.data_ptr(), c.data_ptr(), _ptr(acc), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _strides(q, k, v, g, dq, dk, dv), b, h, nq, nk, dh,
             1.0 / math.sqrt(dh), _device_index(q), torch.cuda.current_stream(dev).cuda_stream)
     return dq, dk, dv
