@@ -34,8 +34,11 @@ weights made from a seed and seeded synthetic data:
      operands, recorded in a rerun of the step (first 16 batch rows, N =
      801; the upstream gradient scaled to unit RMS): bf16 to 2e-2, fp32 to
      1e-4, plus a causal case, a random key mask with fully masked rows
-     (their outputs and every gradient of their batch rows exactly 0) and
-     a mask whose first two key tiles are all masked;
+     (their outputs and every gradient of their batch rows exactly 0), a
+     mask whose first two key tiles are all masked, and the operands as
+     views whose rows are not 16-byte aligned (the CUDA-core path: the C
+     dispatcher's path rule must give no dq accumulator there and one for
+     the aligned bf16 operands);
   8. a 2-user fp32 train step (dropout 0) on the GPU against the CPU: loss
      to 1e-4 relative, every gradient leaf to 1e-3 of its max-abs;
   9. ML-32M serving: 64 users x 801 tokens against the 84,432-item index,
@@ -83,7 +86,8 @@ weights made from a seed and seeded synthetic data:
      upstream gradient scaled to unit RMS), bf16 to 2e-2 and fp32 to 1e-4,
      plus rows that attend nothing (their output and dq must be exactly 0),
      rows with only the extra column, windows across 64-key tile edges, extra
-     columns outside the window and Nq = 777;
+     columns outside the window and Nq = 777; the span library's C path rule
+     must give the aligned bf16 operands a dq accumulator;
  18. a 2-row fp32 packed step (dropout 0) on the GPU against the CPU: loss
      to 1e-4 relative, every gradient leaf to 1e-3 of its max-abs;
  19. both span kernels timed on phase 16's operands beside their twins and
@@ -752,11 +756,19 @@ def _ml32m(dev):
     holes[:2] = False   # two rows with no valid key
     late = torch.zeros_like(kms)
     late[:, 130:] = True  # the first two 64-key tiles all masked, valid keys after
+    def unaligned(t):  # the same values in a view whose rows are not 16-byte aligned
+        buf = torch.empty(t.shape[:-1] + (t.shape[-1] + 1,), dtype=t.dtype, device=t.device)
+        buf[..., 1:] = t
+        return buf[..., 1:]
+
     checks, errs = [], {"fwd": 0.0, "bwd": 0.0}
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         for case, case_mask, causal in (("train", kms, False), ("causal", kms, True),
-                                        ("holes", holes, False), ("late", late, False)):
+                                        ("holes", holes, False), ("late", late, False),
+                                        ("unaligned", kms, False)):
             a = [t.to(dtype) for t in (qs, ks, vs, gs)]
+            if case == "unaligned":   # the CUDA-core path; the C rule gives no dq accumulator
+                a = [unaligned(t) for t in a]
             out, mm, inv = fa.flash_attention_fwd(*a[:3], k_mask=case_mask, causal=causal)
             ref = fa.flash_attention_plain(*a[:3], k_mask=case_mask, causal=causal)
             got = fa.flash_attention_bwd(*a, mm, inv, k_mask=case_mask, causal=causal)
@@ -775,6 +787,10 @@ def _ml32m(dev):
                 check(float(out[:2].abs().max()) == 0.0, "fully masked rows are not zero")
                 check(max(float(t[:2].abs().max()) for t in got) == 0.0,
                       "rows with inv = 0 have nonzero gradients")
+            if dtype == torch.bfloat16 and case in ("train", "unaligned"):
+                acc = fa._bwd_scratch(fa.flash_attention_bwd, *a, mm)[1]
+                check((acc is None) == (case == "unaligned"),
+                      f"flash {case}: dq accumulator {acc is not None}, against the C path rule")
             if dtype == torch.bfloat16 and case == "train":
                 errs = {"fwd": row["out"], "bwd": max(row["dq"], row["dk"], row["dv"])}
             checks.append(row)
@@ -1073,6 +1089,9 @@ def _packed(dev):
                 masked = torch.from_numpy(empty_rows).to(dev)[:, None, :, None].expand_as(out)
                 check(float(out[masked].abs().max()) == 0.0, "fully masked rows are not zero")
                 check(float(got[0][masked].abs().max()) == 0.0, "rows with inv = 0 have nonzero dq")
+            if dtype == torch.bfloat16 and case == "train":
+                check(fa._bwd_scratch(fa.flash_attention_spans_bwd, *a, mm)[1] is not None,
+                      "spans train: the C path rule gives no dq accumulator")
             if dtype == torch.bfloat16 and case == "train":
                 errs = {"fwd": row["out"], "bwd": max(row["dq"], row["dk"], row["dv"])}
             checks.append(row)

@@ -43,8 +43,7 @@
 // Three blocks an SM (168 registers a thread). The atomics make dq's fp32
 // sum order over the key tiles vary from run to run (dk and dv are summed in
 // one block, in order). A dq kernel that recomputes s and dp instead
-// (deterministic, 18 flops) was slower in the same call
-// (experiments/torch_flash_bwd_dq_schemes.py).
+// (deterministic, 18 flops) was slower in the same call (PERF.md, row 3b).
 //
 // c stays exact. rowsum(g * out) from the forward's output is the same
 // number in exact arithmetic and would save the c kernel, but out is rounded
@@ -462,13 +461,13 @@ constexpr size_t mma_bwd_smem_bytes() {
          2 * sizeof(typename Mask::Smem) + kSmemSlack;
 }
 
-// The one pass over (key tile, q tile) pairs (see the header). kDq = false
-// leaves dq out (no ds^T staging, no atomics): the dk / dv half that
-// experiments/flash_bwd_dq_kernel.cu times beside a dq kernel of its own.
-// kMinBlocks: the blocks an SM should hold (the register budget; the
-// package's kBwdBlocks).
-template <typename Mask, bool kDq, int kMinBlocks>
-__global__ void __launch_bounds__(kMmaThreads, kMinBlocks)
+// Blocks an SM holds of the one-pass kernel: three (168 registers a thread)
+// beat two in the same call (PERF.md, row 3b).
+constexpr int kBwdBlocks = 3;
+
+// The one pass over (key tile, q tile) pairs (see the header).
+template <typename Mask>
+__global__ void __launch_bounds__(kMmaThreads, kBwdBlocks)
 flash_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const Mask mask,
                      const __nv_bfloat16* __restrict__ g, const float* __restrict__ m_in,
@@ -589,12 +588,10 @@ flash_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
         st[j][x] = ev;
         dpt[j][x] = ev * ((dpt[j][x] - (o ? cq.y : cq.x)) * (o ? iq.y : iq.x));
       }
-      if constexpr (kDq) {  // ds^T for dq: rows kl, columns qc, qc + 1
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          *reinterpret_cast<uint32_t*>(reinterpret_cast<char*>(Ds) + sw_offset(kl[r], qc)) =
-              pack_bf16(dpt[j][2 * r], dpt[j][2 * r + 1]);
-      }
+      for (int r = 0; r < 2; ++r)  // ds^T for dq: rows kl, columns qc, qc + 1
+        *reinterpret_cast<uint32_t*>(reinterpret_cast<char*>(Ds) + sw_offset(kl[r], qc)) =
+            pack_bf16(dpt[j][2 * r], dpt[j][2 * r + 1]);
     }
     uint32_t ea[4][4], da[4][4];
     pack_a_frags(ea, st);
@@ -608,25 +605,23 @@ flash_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     wgmma_wait_all();  // before dq: the packed e and ds and dq's accumulator do not overlap
     fence_acc(dv_acc);
     fence_acc(dk_acc);
-    if constexpr (kDq) {
-      // dq of the warp's 16 q rows over this key tile, added to the
-      // accumulator (8-byte atomics: two adjacent dimensions a lane)
-      float dq[8][4];
-      wgmma_fence();
-      wg_tn(dq, Ds, Ks);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_acc(dq);
+    // dq of the warp's 16 q rows over this key tile, added to the
+    // accumulator (8-byte atomics: two adjacent dimensions a lane)
+    float dq[8][4];
+    wgmma_fence();
+    wg_tn(dq, Ds, Ks);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(dq);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
-        if (row >= Nq) continue;
-        float* dst = dq_acc + (stat0 + row) * kMD + 2 * c;
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
+      if (row >= Nq) continue;
+      float* dst = dq_acc + (stat0 + row) * kMD + 2 * c;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          atomicAdd(reinterpret_cast<float2*>(dst + 8 * j),
-                    make_float2(dq[j][2 * r], dq[j][2 * r + 1]));
-      }
+      for (int j = 0; j < 8; ++j)
+        atomicAdd(reinterpret_cast<float2*>(dst + 8 * j),
+                  make_float2(dq[j][2 * r], dq[j][2 * r + 1]));
     }
     t = tn;
   }
@@ -673,12 +668,7 @@ struct BwdStrides {
         dv{st[18], st[19], st[20]} {}
 };
 
-// Blocks an SM holds of the one-pass kernel: three (168 registers a thread,
-// no spills) beat two for both mask policies in the same call
-// (experiments/torch_flash_bwd_dq_schemes.py).
-constexpr int kBwdBlocks = 3;
-
-template <typename Mask, int kMinBlocks = kBwdBlocks>
+template <typename Mask>
 int launch_bwd_mma(const Mask& mask, const void* q, const void* k, const void* v, const void* g,
                    const float* m, const float* inv, float* c, float* dq_acc, void* dq, void* dk,
                    void* dv, const BwdStrides& s, int B, int H, int Nq, int Nk, float scale,
@@ -697,7 +687,7 @@ int launch_bwd_mma(const Mask& mask, const void* q, const void* k, const void* v
       (P)q, (P)k, (P)v, mask, (P)g, m, inv, c, dq_acc, s.q, s.k, s.v, s.g, H, Nq, Nk, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  auto kernel = flash_bwd_mma_kernel<Mask, true, kMinBlocks>;
+  auto kernel = flash_bwd_mma_kernel<Mask>;
   e = prepare(kernel, mma_bwd_smem_bytes<Mask>(), device);
   if (e != cudaSuccess) return (int)e;
   kernel<<<(unsigned)kv_blocks, kMmaThreads, mma_bwd_smem_bytes<Mask>(), stream>>>(
@@ -759,13 +749,27 @@ int launch_bwd_dp(int DP, const Mask& mask, const void* q, const void* k, const 
   return (int)cudaErrorInvalidValue;
 }
 
+// Whether bwd_dispatch takes the tensor-core path: bf16, Dh = 64, the rows
+// of q, k, v, g 16-byte aligned (strides: their 12 element strides). The one
+// place this rule lives: the *_bwd_mma_path exports hand it to the caller,
+// which allocates the path's dq accumulator exactly when it holds.
+inline bool bwd_mma_path(int dtype, const void* q, const void* k, const void* v, const void* g,
+                         const long long* strides, int Dh) {
+  if (dtype != 1 || Dh != kMD) return false;
+  const void* in[4] = {q, k, v, g};
+  for (int i = 0; i < 4; ++i)
+    if (!mma_aligned(in[i], strides + 3 * i)) return false;
+  return true;
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, g, dq, dk, dv share it).
 // strides: 21 element strides, (batch, head, seq) of q, k, v, g, dq, dk, dv.
 // m, inv: the forward's (B, H, Nq) row statistics; c: (B, H, Nq) fp32
-// scratch; dq_acc: a (B, H, Nq, 64) fp32 scratch that the tensor-core path
-// needs (bf16, Dh = 64, 16-byte-aligned rows; it may be null otherwise, and
-// that path then returns an error). Launches the path's kernels on
-// ``stream``; returns the first CUDA error code (0 = ok).
+// scratch; dq_acc: a (B, H, Nq, 64) fp32 scratch, given exactly when
+// bwd_mma_path holds. That path writes dq, dk, dv in bf16 pairs, so their
+// rows must be 4-byte aligned; it returns an error without dq_acc or with
+// unaligned outputs. Launches the path's kernels on ``stream``; returns the
+// first CUDA error code (0 = ok).
 template <typename Mask>
 int bwd_dispatch(const Mask& mask, int dtype, const void* q, const void* k, const void* v,
                  const void* g, const float* m, const float* inv, float* c, float* dq_acc,
@@ -773,25 +777,22 @@ int bwd_dispatch(const Mask& mask, int dtype, const void* q, const void* k, cons
                  int Nk, int Dh, float scale, int device, void* stream) {
   if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0) return 0;
   const int DP = dp_for(Dh);
-  if (Dh <= 0 || DP == 0) return (int)cudaErrorInvalidValue;
+  if (Dh <= 0 || DP == 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   const BwdStrides s(strides);
-  if (dtype == 0)
-    return launch_bwd_dp<Mask, float>(DP, mask, q, k, v, g, m, inv, c, dq, dk, dv, s, B, H, Nq, Nk, Dh, scale, device, st);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  bool mma = Dh == kMD;
-  const void* in[4] = {q, k, v, g};
-  for (int i = 0; i < 4; ++i) mma = mma && mma_aligned(in[i], strides + 3 * i);
-  void* out[3] = {dq, dk, dv};
-  for (int i = 0; i < 3; ++i)
-    mma = mma && (uintptr_t)out[i] % 4 == 0 && strides[12 + 3 * i] % 2 == 0 &&
-          strides[13 + 3 * i] % 2 == 0 && strides[14 + 3 * i] % 2 == 0;
-  if (mma) {
+  if (bwd_mma_path(dtype, q, k, v, g, strides, Dh)) {
+    const void* out[3] = {dq, dk, dv};
+    for (int i = 0; i < 3; ++i)
+      if ((uintptr_t)out[i] % 4 != 0 || strides[12 + 3 * i] % 2 != 0 ||
+          strides[13 + 3 * i] % 2 != 0 || strides[14 + 3 * i] % 2 != 0)
+        return (int)cudaErrorInvalidValue;
     if (dq_acc == nullptr) return (int)cudaErrorInvalidValue;
     return launch_bwd_mma<Mask>(mask, q, k, v, g, m, inv, c, dq_acc, dq, dk, dv, s, B, H, Nq, Nk, scale, device, st);
   }
+  if (dtype == 0)
+    return launch_bwd_dp<Mask, float>(DP, mask, q, k, v, g, m, inv, c, dq, dk, dv, s, B, H, Nq, Nk, Dh, scale, device, st);
   return launch_bwd_dp<Mask, __nv_bfloat16>(DP, mask, q, k, v, g, m, inv, c, dq, dk, dv, s, B, H, Nq, Nk, Dh, scale, device, st);
 }
 

@@ -26,7 +26,7 @@ extern "C" {
 // lo, hi, extra: (B, Nq) int32, contiguous. strides: 21 element strides,
 // (batch, head, seq) of q, k, v, g, dq, dk, dv. m, inv: the forward's
 // (B, H, Nq) row statistics; c: (B, H, Nq) fp32 scratch; dq_acc: (B, H, Nq,
-// 64) fp32 scratch for the tensor-core path (bf16, Dh = 64), else null.
+// 64) fp32 scratch when flash_spans_bwd_mma_path says 1, else null.
 // Launches on ``stream``; returns the first CUDA error code (0 = ok).
 int flash_spans_bwd_launch(int dtype, const void* q, const void* k, const void* v, const int* lo,
                            const int* hi, const int* extra, const void* g, const float* m,
@@ -35,6 +35,14 @@ int flash_spans_bwd_launch(int dtype, const void* q, const void* k, const void* 
                            float scale, int device, void* stream) {
   return flash::bwd_dispatch(flash::SpanMask{lo, hi, extra, Nq, Nk}, dtype, q, k, v, g, m, inv, c,
                              dq_acc, dq, dk, dv, strides, B, H, Nq, Nk, Dh, scale, device, stream);
+}
+
+// 1 when flash_spans_bwd_launch takes the tensor-core path for these
+// operands (it then needs dq_acc), else 0; strides: the 12 element strides
+// of q, k, v, g, as flash_spans_bwd_launch takes them.
+int flash_spans_bwd_mma_path(int dtype, const void* q, const void* k, const void* v, const void* g,
+                             const long long* strides, int Dh) {
+  return flash::bwd_mma_path(dtype, q, k, v, g, strides, Dh) ? 1 : 0;
 }
 
 const char* flash_spans_bwd_error_string(int code) {

@@ -141,14 +141,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _plain_fwd(q, k, v, _key_masker(bias, causal))[0]
 
 
-def _plain_bwd(q, k, v, g, masker, c=None):
-    """The backward twins' body. ``c`` (B, H, Nq, 1) fp32, when given,
-    replaces the TPU's rowsum(dp * e) * inv (``tests/test_torch_flash_bwd_c.py``
-    measures rowsum(g * out) there, the shortcut the kernels do not take)."""
+def _plain_bwd(q, k, v, g, masker):
     scale, _, e, inv = _scores(q, k, masker)
     dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
-    if c is None:
-        c = torch.sum(dp * e, dim=-1, keepdim=True) * inv
+    c = torch.sum(dp * e, dim=-1, keepdim=True) * inv
     ds = (e * ((dp - c) * inv)).to(k.dtype).float()
     dq = torch.matmul(ds, k.float()) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
@@ -178,16 +174,22 @@ _C_FUNCTIONS = {
 }
 
 
+def _c_function(wrapper, suffix: str):
+    """``<prefix>_<suffix>`` of ``csrc/<wrapper.__name__>.cu``'s library
+    (built at first use)."""
+    from rqvae_tpu_torch.ops import _cuda_build
+
+    name = wrapper.__name__
+    return getattr(_cuda_build.load(name), f"{_C_FUNCTIONS[name][0]}_{suffix}")
+
+
 def _launch(wrapper, *args) -> None:
     """Launch the kernel(s) of ``csrc/<wrapper.__name__>.cu`` with ``args``
     (built at first use), raise on the CUDA error code it returns, and count
     the launch on ``wrapper.launches``."""
-    from rqvae_tpu_torch.ops import _cuda_build
-
     name = wrapper.__name__
-    lib = _cuda_build.load(name)
-    prefix, argtypes = _C_FUNCTIONS[name]
-    launch, error = getattr(lib, f"{prefix}_launch"), getattr(lib, f"{prefix}_error_string")
+    argtypes = _C_FUNCTIONS[name][1]
+    launch, error = _c_function(wrapper, "launch"), _c_function(wrapper, "error_string")
     if launch.argtypes is None:
         launch.argtypes, launch.restype = argtypes, ctypes.c_int
         error.argtypes, error.restype = [ctypes.c_int], ctypes.c_char_p
@@ -253,12 +255,19 @@ def _check_bwd_operands(q, g, m, inv):
                          f"fit q {tuple(q.shape)}")
 
 
-def _bwd_scratch(q, m):
+def _bwd_scratch(wrapper, q, k, v, g, m):
     """The flat and span backward kernels' scratch: c (B, H, Nq) fp32 and,
-    for the tensor-core path (bf16, Dh = 64), the (B, H, Nq, 64) fp32 dq
-    accumulator (the c kernel zeroes it), else None."""
+    where the C dispatcher takes its tensor-core path for these operands
+    (``<prefix>_mma_path``, the one place that rule lives), the
+    (B, H, Nq, 64) fp32 dq accumulator that its c kernel zeroes, else None.
+    Allocated before the gradients, so that the caching allocator hands each
+    backward call the blocks the previous one freed."""
+    path = _c_function(wrapper, "mma_path")
+    if path.argtypes is None:
+        path.argtypes, path.restype = [_I] + [_P] * 5 + [_I], ctypes.c_int
     acc = None
-    if q.dtype == torch.bfloat16 and q.shape[-1] == 64:
+    if path(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            _strides(q, k, v, g), q.shape[-1]):
         acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     return torch.empty_like(m), acc
 
@@ -301,7 +310,7 @@ def _bias_bwd(wrapper, q, k, v, g, m, inv, k_mask, causal):
     _check_kernel_operands((q, k, v, g), ("q", "k", "v", "g"))
     m = m.to(torch.float32).contiguous()
     inv = inv.to(torch.float32).contiguous()
-    scratch = () if wrapper is flash_attention_small_bwd else _bwd_scratch(q, m)
+    scratch = () if wrapper is flash_attention_small_bwd else _bwd_scratch(wrapper, q, k, v, g, m)
     dq = _bnhd_empty(b, h, nq, dh, q)
     dk = _bnhd_empty(b, h, nk, dh, k)
     dv = _bnhd_empty(b, h, nk, dh, v)
@@ -503,7 +512,7 @@ def flash_attention_spans_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_kernel_operands((q, k, v, g), ("q", "k", "v", "g"))
     m = m.to(torch.float32).contiguous()
     inv = inv.to(torch.float32).contiguous()
-    c, acc = _bwd_scratch(q, m)
+    c, acc = _bwd_scratch(flash_attention_spans_bwd, q, k, v, g, m)
     dq = _bnhd_empty(b, h, nq, dh, q)
     dk = _bnhd_empty(b, h, nk, dh, k)
     dv = _bnhd_empty(b, h, nk, dh, v)

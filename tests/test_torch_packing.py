@@ -17,6 +17,7 @@ gradients (the JAX tests' own); integers exactly; embeddings 1e-6; losses
 orders over two layers); parameters after one AdamW step 1e-5.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -136,10 +137,39 @@ def test_span_mask_semantics():
     assert m[0, 1].tolist() == [False] * 5   # lo = hi = 0, extra = -1: attends nothing
 
 
+def _numeric_state():
+    """The process-wide settings that decide fp32 results on the CPU."""
+    return dict(torch_threads=torch.get_num_threads(),
+                torch_matmul=torch.get_float32_matmul_precision(),
+                jax_matmul=str(jax.config.jax_default_matmul_precision),
+                jax_x64=bool(jax.config.jax_enable_x64), xla_flags=os.environ.get("XLA_FLAGS", ""),
+                omp_threads=os.environ.get("OMP_NUM_THREADS"))
+
+
+def _span_attention_f64(q, k, v, spans, g):
+    """Span attention and its (dq, dk, dv) for ``g`` in float64: the
+    reference that tells which side of a parity failure moved."""
+    q, k, v = (torch.from_numpy(x).double().requires_grad_(True) for x in (q, k, v))
+    allow = tattn.span_mask(tuple(map(torch.from_numpy, spans)), k.shape[2])[:, None]
+    s = torch.where(allow, q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5, -1e300)
+    e = torch.exp(s - s.amax(-1, keepdim=True).detach()) * allow
+    out = (e @ v) / e.sum(-1, keepdim=True).clamp_min(1e-300)
+    grads = torch.autograd.grad(out, (q, k, v), torch.from_numpy(g).double())
+    return out.detach().numpy(), [t.numpy() for t in grads]
+
+
+def _sides(want, got, ref):
+    """How far each side lies from the float64 reference."""
+    return (f"max |JAX kernel - float64| {np.abs(np.asarray(want) - ref).max():.3e}, "
+            f"max |port twin - float64| {np.abs(np.asarray(got) - ref).max():.3e}")
+
+
 # JAX's cases (tests/test_packing.py: 70 x 70), plus Nq != Nk and Nq not a
-# multiple of 64 on either side
+# multiple of 64 on either side. A failure names the side that moved against
+# a float64 reference, and the settings printed first name the state.
 @pytest.mark.parametrize("nq,nk", [(70, 70), (70, 100), (130, 67)])
 def test_span_twins_match_jax_kernel(nq, nk):
+    print("numeric state:", _numeric_state())
     rng = np.random.RandomState(0)
     b, h, dh = 2, 2, 64
     q, k, v = (rng.randn(b, h, n, dh).astype(np.float32) for n in (nq, nk, nk))
@@ -157,7 +187,9 @@ def test_span_twins_match_jax_kernel(nq, nk):
     tspans = tuple(map(torch.from_numpy, spans))
     tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
     got = tfa.flash_attention_spans_plain(tq, tk, tv, *tspans)
-    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    ref, ref_grads = _span_attention_f64(q, k, v, spans, g)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=2e-5, atol=2e-5,
+                               err_msg=_sides(want, got.detach(), ref))
     np.testing.assert_array_equal(got[:, :, :3].detach().numpy(), 0.0)   # fully masked rows
     autograd = torch.autograd.grad(got, (tq, tk, tv), torch.from_numpy(g))
     twin = tfa.flash_attention_spans_bwd_plain(tq.detach(), tk.detach(), tv.detach(), *tspans,
@@ -168,8 +200,9 @@ def test_span_twins_match_jax_kernel(nq, nk):
     np.testing.assert_array_equal(fn_out.detach().numpy(), got.detach().numpy())
     function = torch.autograd.grad(fn_out, (fq, fk, fv), torch.from_numpy(g))
     for grads in (autograd, twin, function):
-        for a, b_ in zip(grads, want_grads):
-            np.testing.assert_allclose(a.numpy(), np.asarray(b_), rtol=1e-4, atol=1e-4)
+        for a, b_, r in zip(grads, want_grads, ref_grads):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b_), rtol=1e-4, atol=1e-4,
+                                       err_msg=_sides(b_, a, r))
 
 
 def test_span_wrappers_check_bounds_and_count_no_launch_on_the_cpu():
