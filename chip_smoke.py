@@ -35,15 +35,22 @@ weights made from a seed and seeded synthetic data:
      801; the upstream gradient scaled to unit RMS): bf16 to 2e-2, fp32 to
      1e-4, plus a causal case, a random key mask with fully masked rows
      (their outputs and every gradient of their batch rows exactly 0), a
-     mask whose first two key tiles are all masked, and the operands as
+     mask whose first two key tiles are all masked, the operands as
      views whose rows are not 16-byte aligned (the CUDA-core path: the C
      dispatcher's path rule must give no dq accumulator there and one for
-     the aligned bf16 operands);
+     the aligned bf16 operands) and q cut to its first 705 rows (the last
+     128-row block of the bf16 forward holds 65 rows, one of them in its
+     second warpgroup); in every case the forward's row statistics against
+     the twin's: m to 1e-5 of its max-abs, inv to 1e-3 relative (bf16) or
+     1e-5 (fp32), and m = -1e30, inv = 0 exactly on rows with no allowed
+     key;
   8. a 2-user fp32 train step (dropout 0) on the GPU against the CPU: loss
      to 1e-4 relative, every gradient leaf to 1e-3 of its max-abs;
   9. ML-32M serving: 64 users x 801 tokens against the 84,432-item index,
      k = 32, 256 candidates, through the flash forward kernel;
- 10. time every kernel, its twin and the library call beside it; dense
+ 10. time every kernel, its twin and the library call beside it (the flash
+     bound counts the (q, k) pairs with a valid key, the dense count and the
+     exp floor beside it); dense
      ``sdpa`` against ``flash_attention`` at N = 801 and 81; trace one
      corpus tokenization, one Amazon beam search and one ML-32M train step
      with torch.profiler;
@@ -86,8 +93,9 @@ weights made from a seed and seeded synthetic data:
      upstream gradient scaled to unit RMS), bf16 to 2e-2 and fp32 to 1e-4,
      plus rows that attend nothing (their output and dq must be exactly 0),
      rows with only the extra column, windows across 64-key tile edges, extra
-     columns outside the window and Nq = 777; the span library's C path rule
-     must give the aligned bf16 operands a dq accumulator;
+     columns outside the window and Nq = 777, the row statistics held as in
+     phase 7; the span library's C path rule must give the aligned bf16
+     operands a dq accumulator;
  18. a 2-row fp32 packed step (dropout 0) on the GPU against the CPU: loss
      to 1e-4 relative, every gradient leaf to 1e-3 of its max-abs;
  19. both span kernels timed on phase 16's operands beside their twins and
@@ -183,6 +191,7 @@ SHORT_FLASH_ENV = "RQVAE_TPU_SHORT_FLASH"   # attend's short-route switch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32, outside the tensor cores
 BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
+EXP_PER_S = 132 * 16 * 1.98e9   # H100 SXM ex2 on the special-function units, 1.98 GHz boost
 
 
 def log(msg: str) -> None:
@@ -765,16 +774,20 @@ def _ml32m(dev):
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         for case, case_mask, causal in (("train", kms, False), ("causal", kms, True),
                                         ("holes", holes, False), ("late", late, False),
-                                        ("unaligned", kms, False)):
+                                        ("unaligned", kms, False), ("nq_705", kms, False)):
             a = [t.to(dtype) for t in (qs, ks, vs, gs)]
             if case == "unaligned":   # the CUDA-core path; the C rule gives no dq accumulator
                 a = [unaligned(t) for t in a]
+            if case == "nq_705":      # the last 128-row block: 65 rows, one in its second warpgroup
+                a[0], a[3] = a[0][:, :, :705], a[3][:, :, :705]
             out, mm, inv = fa.flash_attention_fwd(*a[:3], k_mask=case_mask, causal=causal)
-            ref = fa.flash_attention_plain(*a[:3], k_mask=case_mask, causal=causal)
+            ref, ref_m, ref_inv = fa._plain_fwd(
+                *a[:3], fa._key_masker(fa.mask_bias(case_mask, small, a[1].shape[2], dev), causal))
             got = fa.flash_attention_bwd(*a, mm, inv, k_mask=case_mask, causal=causal)
             want = fa.flash_attention_bwd_plain(*a, k_mask=case_mask, causal=causal)
             torch.cuda.synchronize()
             row = {"dtype": str(dtype)[6:], "case": case, "tol": tol}
+            row.update(_hold_stats(f"flash {case} {dtype}", dtype, mm, inv, ref_m, ref_inv))
             for name, x, y in (("out", out, ref), ("dq", got[0], want[0]), ("dk", got[1], want[1]),
                                ("dv", got[2], want[2])):
                 x, y = x.float(), y.float()
@@ -875,7 +888,11 @@ def _ml32m(dev):
     sdpa_fwd_bwd = cuda_ms(lambda: torch.autograd.backward(
         F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask), g), 10)
     del leaves
-    fwd_flops = 4 * b * h * n * n * dh
+    # the work counts the (q, k) pairs with a valid key: a masked key adds
+    # exactly nothing, and the forward skips tiles of them (dense count beside)
+    pairs = h * n * int(km.sum())
+    dense_pairs = b * h * n * n
+    fwd_flops = 4 * dh * pairs
     elt = q.element_size()
     fwd_bytes = elt * 4 * b * h * n * dh + 4 * b * n + 8 * b * h * n
     bwd_bytes = elt * 7 * b * h * n * dh + 4 * b * n + 8 * b * h * n
@@ -923,6 +940,11 @@ def _ml32m(dev):
     train = dict(flat=flat_out, bucketed=bucketed_out, flash_checks=checks,
                  gpu_vs_cpu=dict(users=2, tokens=ML_HIST * 4 + 1, loss_rel_err=loss_rel,
                                  worst_leaf_rel_err=leaf_rel),
+                 flash_bounds=dict(valid_pairs=pairs, dense_pairs=dense_pairs,
+                                   valid_share=pairs / dense_pairs,
+                                   fwd_exp_floor_ms=pairs / EXP_PER_S * 1e3,
+                                   dense_bound_ms={"fwd": 4 * dh * dense_pairs / BF16_FLOP_PER_S * 1e3,
+                                                   "bwd": 10 * dh * dense_pairs / BF16_FLOP_PER_S * 1e3}),
                  sdpa_library_ms=dict(fwd=sdpa_fwd, fwd_bwd=sdpa_fwd_bwd),
                  dense_vs_flash=cut, train_profile=train_profile)
     return train, ml_serving, flash_kernels
@@ -1072,11 +1094,12 @@ def _packed(dev):
         for case, spans, nq in cases:
             a = [t.to(dtype) for t in (qs[:, :, :nq], ks, vs, gs[:, :, :nq])]
             out, mm, inv = fa.flash_attention_spans_fwd(*a[:3], *spans)
-            ref = fa.flash_attention_spans_plain(*a[:3], *spans)
+            ref, ref_m, ref_inv = fa._plain_fwd(*a[:3], fa._span_masker(*spans))
             got = fa.flash_attention_spans_bwd(*a[:3], *spans, a[3], mm, inv)
             want = fa.flash_attention_spans_bwd_plain(*a[:3], *spans, a[3])
             torch.cuda.synchronize()
             row = {"dtype": str(dtype)[6:], "case": case, "nq": nq, "tol": tol}
+            row.update(_hold_stats(f"spans {case} {dtype}", dtype, mm, inv, ref_m, ref_inv))
             for name, x, y in (("out", out, ref), ("dq", got[0], want[0]), ("dk", got[1], want[1]),
                                ("dv", got[2], want[2])):
                 x, y = x.float(), y.float()
@@ -1176,6 +1199,7 @@ def _packed(dev):
                         worst_leaf_rel_err=leaf_rel),
         span_bounds=dict(allowed_pairs=pairs, dense_pairs=dense_pairs,
                          allowed_share=pairs / dense_pairs,
+                         fwd_exp_floor_ms=pairs / EXP_PER_S * 1e3,
                          dense_bound_ms={"fwd": 4 * dh * dense_pairs / BF16_FLOP_PER_S * 1e3,
                                          "bwd": 10 * dh * dense_pairs / BF16_FLOP_PER_S * 1e3}),
         sdpa_library_ms=dict(fwd=sdpa_fwd, fwd_bwd=sdpa_fwd_bwd))
@@ -1913,6 +1937,29 @@ def _amazon_decoder(dev, rq_ckpt, work):
                           sdpa_library={"fwd": sdpa_fwd, "bwd": sdpa_fwd_bwd - sdpa_fwd},
                           dense_sdpa={"fwd": dense_fwd, "bwd": dense_fwd_bwd - dense_fwd}))
     return amazon, kernels
+
+
+def _hold_stats(what, dtype, m, inv, ref_m, ref_inv) -> dict:
+    """The forward's row statistics against the twin's: m to fp32 rounding of
+    the scores (1e-5 of its max-abs over rows with an allowed key), inv to
+    1e-3 relative in bf16 and 1e-5 in fp32; on rows with no allowed key
+    (the twin's m <= -5e29) m = -1e30 and inv = 0 exactly."""
+    import torch
+
+    live = ref_m > 0.5 * -1e30
+    row = {"dead_rows": int((~live).sum())}
+    check(bool(torch.isfinite(m).all()) and bool(torch.isfinite(inv).all()),
+          f"{what}: non-finite m or inv")
+    check(bool((m[~live] == -1e30).all()) and bool((inv[~live] == 0).all()),
+          f"{what}: rows with no allowed key must store m = -1e30 and inv = 0")
+    if bool(live.any()):
+        row["m"] = float((m - ref_m)[live].abs().max())
+        row["m_max_abs"] = float(ref_m[live].abs().max())
+        row["inv_rel"] = float(((inv - ref_inv) / ref_inv)[live].abs().max())
+        check(row["m"] <= 1e-5 * row["m_max_abs"], f"{what}: m differs from the twin by {row['m']}")
+        inv_tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+        check(row["inv_rel"] <= inv_tol, f"{what}: inv differs from the twin by {row['inv_rel']} relative")
+    return row
 
 
 def _profile(fn, top: int = 8) -> dict:

@@ -342,13 +342,6 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 
 // ---- tensor-core variant: bf16, Dh = 64, wgmma ----
 
-// The block's shared memory from a 1024-byte boundary (the swizzle's atom);
-// the launch asks for kSmemSlack bytes more than the layout needs.
-constexpr int kSmemSlack = 1024;
-__device__ __forceinline__ unsigned char* smem_base(unsigned char* raw) {
-  return raw + ((1024u - (smem_addr(raw) & 1023u)) & 1023u);
-}
-
 // Shared memory of flash_bwd_c_mma_kernel: Q, G, two buffers of K and V
 // (swizzled tiles), two of the mask policy's per-pair state.
 template <typename Mask>

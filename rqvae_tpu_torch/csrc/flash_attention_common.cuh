@@ -28,6 +28,10 @@ constexpr int kBK = 64;        // keys per tile
 constexpr int kSP = kBK + 1;   // pitch of a (kBQ, kBK) score tile in shared memory
 constexpr float kNegInf = -1e30f;   // the TPU kernel's mask value
 constexpr unsigned kFull = 0xffffffffu;
+// the wgmma forward keeps scores in log2 units (s log2 e, so exp(s) = 2^(s log2 e))
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf2 = kNegInf * kLog2e;   // the mask value in those units
 
 struct Strides {
   long long b, h, n;
@@ -78,6 +82,31 @@ __device__ __forceinline__ void load_tile(float* dst, int pitch, const T* src, l
   }
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// Asynchronous copies global -> shared (cp.async): ``bytes`` of the source
+// are read (16 / 4, or 0), the rest of the destination zero-filled. The
+// source address must be valid even when no byte is read. cp_async_commit
+// closes a group of copies; cp_async_wait_all closes one and waits for all.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---- mask policies ----
 //
 // The kernels (flash_attention_fwd.cuh, flash_attention_bwd.cuh) are
@@ -94,6 +123,30 @@ __device__ __forceinline__ void load_tile(float* dst, int pitch, const T* src, l
 // scaled score: -inf for a key past Nk (a tile's ragged tail, which must
 // weigh nothing), -1e30 (the TPU kernels' mask value) where the mask
 // forbids.
+
+// The wgmma forward (flash_attention_fwd.cuh: flash_fwd_wg_kernel) asks a
+// policy other questions. Each thread owns two query rows for the whole
+// kernel and keeps what the mask needs of them in ``Rows`` (``rows``; a row
+// past Nq attends nothing). The key tiles a warpgroup computes are words of
+// 32 tiles: ``key_need`` (over the block's threads, tid of n) gives the
+// tiles that hold a key some row may attend as far as the keys alone say,
+// and in ``mixed`` the tiles whose scores need the per-score mask whatever
+// the rows; ``row_need`` the tiles the thread's rows may attend. A tile
+// outside both is skipped, exactly as ``tile`` rejects a pair. ``fetch``
+// starts the cp.async copies of what ``scores`` reads of a key tile into a
+// ring stage (``Stage``). ``scores`` is called by a whole warp on its raw
+// q k^T dot products: it returns true, alike in the warp, when the warp's
+// rows may attend every key of the tile with nothing added (the caller then
+// folds scale log2 e into the exponent), else it writes the masked, scaled
+// scores in log2 units (the mask value kNegInf2). The ragged tail of the
+// last key tile is the caller's (-inf).
+
+// bits j < 32 of the key tiles t0 + j in [a, z]
+__device__ __forceinline__ unsigned tile_range_bits(int a, int z, int t0) {
+  const int lo = max(a - t0, 0), hi = min(z - t0, 31);
+  if (lo > hi) return 0u;
+  return (hi == 31 ? kFull : (1u << (hi + 1)) - 1u) & ~((1u << lo) - 1u);
+}
 
 // flash_attention's mask: an additive fp32 key bias (0 / -1e30), then the
 // causal cut as a select, as rqvae_tpu/ops/flash_attention.py:_flash_kernel.
@@ -123,6 +176,64 @@ struct BiasMask {
     if (col >= Nk) return -INFINITY;
     const float s = dot * scale + sm.bias[cl];
     return (causal && col > row) ? kNegInf : s;
+  }
+
+  // ---- the wgmma forward (see above) ----
+  // A key tile every key of which has a bias <= -5e29 is skipped (exact for
+  // the 0 / -1e30 bias of the wrappers: such a key weighs exp(-1e30 - m) = 0
+  // against a row with a valid key, and a row with none has inv = 0); with
+  // the causal cut, so is a tile past a warpgroup's last row. A tile whose
+  // bias is 0 throughout, full and, under the cut, at or below a warp's
+  // first row takes no per-score mask.
+  struct Rows {
+    int r[2];  // the rows, -1 past Nq
+  };
+  struct Stage {
+    float bias[kBK];
+  };
+  __device__ __forceinline__ Rows rows(int r0, int r1, int Nq) const {
+    return {{r0 < Nq ? r0 : -1, r1 < Nq ? r1 : -1}};
+  }
+  __device__ __forceinline__ unsigned key_need(int t0, int tid, int n, unsigned& mixed) const {
+    unsigned need = 0u, mix = 0u;
+    const int k1 = min(Nk, (t0 + 32) * kBK);
+    for (int key = t0 * kBK + tid; key < k1; key += n) {
+      const float x = bias[key];
+      const unsigned bit = 1u << ((key >> 6) - t0);
+      if (x > 0.5f * kNegInf) need |= bit;
+      if (x != 0.f) mix |= bit;
+    }
+    if (tid == 0 && Nk % kBK != 0) mix |= tile_range_bits((Nk - 1) / kBK, (Nk - 1) / kBK, t0);
+    mixed = mix;
+    return need;
+  }
+  __device__ __forceinline__ unsigned row_need(const Rows& rw, int t0) const {
+    unsigned bits = 0u;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (rw.r[i] >= 0) bits |= tile_range_bits(0, causal ? rw.r[i] / kBK : (Nk - 1) / kBK, t0);
+    return bits;
+  }
+  __device__ __forceinline__ void fetch(Stage& st, int k0, int tid) const {
+    if (tid < kBK) {
+      const bool ok = k0 + tid < Nk;
+      cp_async4(&st.bias[tid], ok ? bias + k0 + tid : bias, ok ? 4 : 0);
+    }
+  }
+  __device__ __forceinline__ bool scores(const Rows& rw, const Stage& st, bool mixed, float s[8][4],
+                                         int k0, int warp_row0, float sl2, int c) const {
+    if (!mixed && (!causal || k0 + kBK - 1 <= warp_row0)) return true;  // alike in the warp
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 b = *reinterpret_cast<const float2*>(&st.bias[8 * j + 2 * c]);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int col = k0 + 8 * j + 2 * c + (x & 1);
+        const float v = fmaf(s[j][x], sl2, ((x & 1) ? b.y : b.x) * kLog2e);
+        s[j][x] = (causal && col > rw.r[x >> 1]) ? kNegInf2 : v;
+      }
+    }
+    return false;
   }
 };
 
@@ -196,6 +307,57 @@ struct SpanMask {
     if (col >= Nk) return -INFINITY;
     return ((sm.allow[rl] >> cl) & 1ull) ? dot * scale : kNegInf;
   }
+
+  // ---- the wgmma forward (see above) ----
+  // The thread keeps its two rows' bounds in registers and folds them into
+  // each tile's 64-bit key mask itself: nothing is staged. A warp whose
+  // rows all attend every key of a (full) tile takes no per-score select.
+  struct Rows {
+    int l[2], h[2], x[2];
+  };
+  struct Stage {};
+  __device__ __forceinline__ Rows rows(int r0, int r1, int) const {
+    Rows rw{{0, 0}, {0, 0}, {-1, -1}};  // rows past Nq attend nothing
+    const int r[2] = {r0, r1};
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (r[i] < Nq) {
+        rw.l[i] = lo[r[i]];
+        rw.h[i] = hi[r[i]];
+        rw.x[i] = ex[r[i]];
+      }
+    return rw;
+  }
+  __device__ __forceinline__ unsigned key_need(int t0, int, int, unsigned& mixed) const {
+    mixed = 0u;
+    return tile_range_bits(0, (Nk - 1) / kBK, t0);
+  }
+  __device__ __forceinline__ unsigned row_need(const Rows& rw, int t0) const {
+    unsigned bits = 0u;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int a = max(rw.l[i], 0), z = min(rw.h[i], Nk) - 1;
+      if (a <= z) bits |= tile_range_bits(a / kBK, z / kBK, t0);
+      if (rw.x[i] >= 0 && rw.x[i] < Nk) bits |= tile_range_bits(rw.x[i] / kBK, rw.x[i] / kBK, t0);
+    }
+    return bits;
+  }
+  __device__ __forceinline__ void fetch(Stage&, int, int) const {}
+  __device__ __forceinline__ bool scores(const Rows& rw, const Stage&, bool, float s[8][4], int k0,
+                                         int, float sl2, int c) const {
+    unsigned long long b[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) b[i] = key_bits(rw.l[i], rw.h[i], rw.x[i], k0);
+    if (__all_sync(kFull, (b[0] & b[1]) == ~0ull)) return true;
+    b[0] >>= 2 * c;
+    b[1] >>= 2 * c;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        s[j][x] = ((b[x >> 1] >> (8 * j + (x & 1))) & 1ull) ? s[j][x] * sl2 : kNegInf2;
+    return false;
+  }
 };
 
 // The row max a kernel stores for the backward: a row that met no key tile
@@ -207,8 +369,9 @@ inline int dp_for(int Dh) { return Dh <= 32 ? 32 : (Dh <= 64 ? 64 : (Dh <= 128 ?
 
 // ---- tensor-core path: bf16, Dh = 64, mma.sync.m16n8k16 ----
 //
-// Four warps per block; each warp owns 16 rows of a 64-row tile. Tiles are
-// staged in shared memory as bf16 [64][kMP] (a 144-byte pitch, so the eight
+// The short kernels' products (flash_attention_small.cuh); the flat and span
+// kernels run on wgmma (below). A warp owns 16 rows of a tile. Tiles are
+// staged in shared memory as bf16 [rows][kMP] (a 144-byte pitch, so the eight
 // 16-byte rows an ldmatrix reads fall in distinct banks) and read into
 // fragments with ldmatrix. Fragment layouts of m16n8k16 (g = lane / 4,
 // c = lane % 4): A (16 x 16) a0a1 = (g, 2c..), a2a3 = (g + 8, 2c..),
@@ -219,9 +382,6 @@ constexpr int kMmaThreads = 128;
 constexpr int kMD = 64;        // head dimension of the tensor-core path
 constexpr int kMP = kMD + 8;   // bf16 pitch of a staged tile
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const __nv_bfloat16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -245,36 +405,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Stage rows [r0, r0 + 64) of a (n_rows, 64) bf16 slice into dst[64][kMP]
-// with 16-byte copies; rows past n_rows become zeros.
-__device__ __forceinline__ void load_tile_mma(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                              long long row_stride, int r0, int n_rows) {
-  for (int e = threadIdx.x; e < 64 * (kMD / 8); e += kMmaThreads) {
-    const int r = e / (kMD / 8);
-    const int ch = e % (kMD / 8);
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n_rows) v = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * row_stride + ch * 8);
-    *reinterpret_cast<uint4*>(dst + r * kMP + ch * 8) = v;
-  }
-}
-
-// Asynchronous copies global -> shared (cp.async): ``bytes`` of the source
-// are read (16 / 4, or 0), the rest of the destination zero-filled. The
-// source address must be valid even when no byte is read. cp_async_commit
-// closes a group of copies; cp_async_wait_all closes one and waits for all.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(bytes));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
 // A fragments (16 rows x 64 dims, four k-steps of 16) of a warp's 16 rows
 // starting at ``row0`` of a staged tile.
 __device__ __forceinline__ void load_a_frags(uint32_t f[4][4], const __nv_bfloat16* tile, int row0) {
@@ -282,43 +412,6 @@ __device__ __forceinline__ void load_a_frags(uint32_t f[4][4], const __nv_bfloat
 #pragma unroll
   for (int s = 0; s < 4; ++s)
     ldsm_x4(f[s], tile + (row0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kMP + 16 * s + 8 * (lane >> 4));
-}
-
-// acc[j] (16 x 8 block j of a 16 x 64 result) += A (16 x 64, fragments f) B,
-// B[k][n] = tile[n][k] (a product with a staged tile's rows: q k^T, g v^T).
-__device__ __forceinline__ void mma_rows_nt(float acc[8][4], const uint32_t f[4][4],
-                                            const __nv_bfloat16* tile) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      uint32_t b[4];
-      ldsm_x4(b, tile + (16 * jj + (lane & 7) + 8 * (lane >> 4)) * kMP + 16 * s + 8 * ((lane >> 3) & 1));
-      mma16816(acc[2 * jj], f[s], b[0], b[1]);
-      mma16816(acc[2 * jj + 1], f[s], b[2], b[3]);
-    }
-}
-
-// acc[j] (16 x 8 block j of a 16 x 64 result) += P (16 x 64 along the
-// tile's rows, fp32 values in C layout, rounded to bf16 here) B,
-// B[k][n] = tile[k][n] (p v, ds k, p^T g, ds^T q).
-__device__ __forceinline__ void mma_rows_nn(float acc[8][4], const float p[8][4],
-                                            const __nv_bfloat16* tile) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const uint32_t a[4] = {pack_bf16(p[2 * t][0], p[2 * t][1]), pack_bf16(p[2 * t][2], p[2 * t][3]),
-                           pack_bf16(p[2 * t + 1][0], p[2 * t + 1][1]),
-                           pack_bf16(p[2 * t + 1][2], p[2 * t + 1][3])};
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      uint32_t b[4];
-      ldsm_x4_t(b, tile + (16 * t + (lane & 7) + 8 * ((lane >> 3) & 1)) * kMP + 16 * jj + 8 * (lane >> 4));
-      mma16816(acc[2 * jj], a, b[0], b[1]);
-      mma16816(acc[2 * jj + 1], a, b[2], b[3]);
-    }
-  }
 }
 
 // ---- wgmma path: 64 x 64 bf16 tiles in the 128-byte swizzle ----
@@ -333,6 +426,13 @@ __device__ __forceinline__ void mma_rows_nn(float acc[8][4], const float p[8][4]
 // mma.sync A layout, so the fragments of the mma.sync path carry over.
 constexpr int kSwTile = 64 * 64;   // bf16 elements of a swizzled tile (8 KB)
 
+// The block's shared memory from a 1024-byte boundary (the swizzle's atom);
+// the launch asks for kSmemSlack bytes more than the layout needs.
+constexpr int kSmemSlack = 1024;
+__device__ __forceinline__ unsigned char* smem_base(unsigned char* raw) {
+  return raw + ((1024u - (smem_addr(raw) & 1023u)) & 1023u);
+}
+
 // byte offset of element (r, col) of a swizzled tile
 __device__ __forceinline__ uint32_t sw_offset(int r, int col) {
   return (uint32_t)(r * 128 + (((col >> 3) ^ (r & 7)) << 4) + (col & 7) * 2);
@@ -340,9 +440,12 @@ __device__ __forceinline__ uint32_t sw_offset(int r, int col) {
 
 // Stage rows [r0, r0 + 64) of a (n_rows, 64) bf16 slice into a swizzled
 // tile by cp.async (started, not waited for); rows past n_rows become zeros.
+// Threads tid of nthreads share the copies.
 __device__ __forceinline__ void load_tile_sw_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                   long long row_stride, int r0, int n_rows) {
-  for (int e = threadIdx.x; e < 64 * 8; e += kMmaThreads) {
+                                                   long long row_stride, int r0, int n_rows,
+                                                   int tid = threadIdx.x,
+                                                   int nthreads = kMmaThreads) {
+  for (int e = tid; e < 64 * 8; e += nthreads) {
     const int r = e >> 3;
     const int ch = e & 7;
     const bool ok = r0 + r < n_rows;
@@ -367,9 +470,12 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N of this warpgroup's committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
 // shared-memory writes by this thread (st.shared, cp.async) made visible to
 // the wgmma (async) proxy; a barrier must follow before another thread's
 // wgmma reads them
@@ -382,6 +488,22 @@ __device__ __forceinline__ void fence_acc(float d[8][4]) {
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int x = 0; x < 4; ++x) asm volatile("" : "+f"(d[j][x])::"memory");
+}
+
+// keeps a register A operand's registers from reuse until a wait has retired
+// the wgmma that reads them
+__device__ __forceinline__ void fence_frags(uint32_t a[4][4]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) asm volatile("" : "+r"(a[t][x])::"memory");
+}
+
+// 2^x on the special-function unit (ex2.approx, ~2 ulp; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // d (64 x 64 fp32, this thread's 32) = or += A B, A and B by descriptor

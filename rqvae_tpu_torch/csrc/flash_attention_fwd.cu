@@ -8,12 +8,16 @@
 // backward needs: m (final row max) and inv, each (B, H, Nq) fp32, when the
 // pointers are not null.
 //
-// What bounds it on an H100: 4 B H Nq Nk Dh flops (the TPU cost estimate);
-// at B = 256, H = 8, N = 801, Dh = 64 that is 0.34 ms at 989 TFLOP/s bf16,
-// against ~0.1 GB of operand traffic (0.03 ms at 3.35 TB/s): operations.
-// The tensor-core variant (bf16, Dh = 64) loads its tiles synchronously and
-// runs the exp / mask work on the CUDA cores, so it stays well above that
-// bound; see flash_attention_fwd.cuh for both variants.
+// What bounds it on an H100 (B = 256, H = 8, N = 801, Dh = 64, bf16, the
+// ML-32M step): 4 Dh tensor flops a score, 0.34 ms at 989 TFLOP/s for the
+// dense 801 x 801 scores; one exp a score, as long again on the
+// special-function units; ~0.1 GB of operands, 0.03 ms at 3.35 TB/s. Key
+// tiles whose every key is masked are skipped (exact: they weigh exp(-1e30
+// - m) = 0), so under the training batch's key mask the work follows the
+// valid keys. The bf16 Dh = 64 kernel (flash_attention_fwd.cuh:
+// flash_fwd_wg_kernel) runs both products on wgmma, two warpgroups a block
+// sharing each K / V tile of a cp.async ring, and the softmax in log2 units
+// beside the products; see that header.
 #include "flash_attention_fwd.cuh"
 
 extern "C" {
@@ -30,5 +34,8 @@ int flash_fwd_launch(int dtype, const void* q, const void* k, const void* v, con
 }
 
 const char* flash_fwd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+// The wgmma kernel's schedule (flash_attention_fwd.cuh: kSched).
+void flash_fwd_set_schedule(int sched) { flash::fwd_set_schedule(sched); }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 // Fused masked attention, forward, templated on a mask policy
 // (flash_attention_common.cuh): out = softmax(masked(q k^T / sqrt(Dh))) v,
 // plus the row statistics the backward reads. flash_attention_fwd.cu binds
-// it to the key-bias mask, flash_attention_spans_fwd.cu to the span mask.
+// it to the key-bias mask and replaces the TPU kernel
+// rqvae_tpu/ops/flash_attention.py:_flash_kernel; flash_attention_spans_fwd.cu
+// binds it to the span mask and replaces :_flash_span_kernel.
 //
 // Same function as the TPU kernels: scores in fp32, the mask applied as its
 // policy says, the unnormalised e = exp(s - m) cast to the operand type
@@ -22,12 +24,27 @@
 // unlike the TPU wrappers).
 //
 // Two variants compute the same function:
-//   * flash_fwd_mma_kernel, for bf16 operands with Dh = 64 whose rows can be
-//     copied 16 bytes at a time (the model's case): q k^T and p v on the
-//     tensor cores (mma.sync m16n8k16, fp32 accumulate), four warps of 16
-//     query rows each. Tile loads are synchronous and the exp / mask work
-//     runs on the CUDA cores, so it stays well above its bound; cp.async or
-//     TMA pipelining and wgmma are the next steps.
+//   * flash_fwd_wg_kernel, for bf16 operands with Dh = 64 whose rows can be
+//     copied 16 bytes at a time (the model's case). Its bound on an H100 is
+//     the largest of three: 4 Dh tensor flops a computed score over 989
+//     TFLOP/s, one exp a score over the special-function units (16 ex2 a
+//     clock an SM, ~4.2e12 a second at 1.98 GHz), and the operand bytes
+//     over 3.35 TB/s. At Dh = 64 the first two are equal (256 flops a
+//     score), so the exp and mask work must shrink and run beside the
+//     products. The design: two warpgroups of 64 query rows a block share
+//     every K / V tile, which a 3-stage ring brings in by cp.async into the
+//     128-byte swizzle while the block computes (the next needed tile's
+//     copies are in flight during the current one); s = q k^T and o += e v
+//     run on wgmma (m64n64k16, e from registers, rounded to bf16 where it
+//     enters, the sum taking the unrounded values); the softmax is in log2
+//     units, scale log2 e folded into one FMA before ex2.approx, and a
+//     tile's e v product runs while the next tile's softmax does; a warp
+//     whose rows need no mask on a tile (the policy says when) skips the
+//     per-score work; a key tile no row of a warpgroup may attend is
+//     skipped by that warpgroup, and by the block when no warpgroup needs
+//     it. The stored m is in natural units (m2 ln 2, once in the
+//     epilogue; -1e30 for a row that met no allowed key), inv = 0 exactly
+//     where m <= -5e29. ptxas (sm_90a): see PERF.md, row 3a.
 //   * flash_fwd_kernel, for fp32 operands, other head sizes (Dh <= 128) and
 //     unaligned views: fp32 FMAs on the CUDA cores (67 TFLOP/s) from
 //     shared-memory tiles, bound by fp32 operations and shared-memory
@@ -161,113 +178,256 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-// Tensor-core variant for bf16 at Dh = 64 (the model's shape): the same
-// function and tiling, with q k^T and p v on mma.sync. Each warp owns 16 of
-// the tile's 64 query rows; its score block (16 x 64 keys) and output
-// (16 x 64 dims) live in registers in the mma C layout, so the row max and
-// sum reduce over the 4 lanes that share a row. e is rounded to bf16 when
-// packed into the A fragments of the p v product, as the TPU kernel casts
-// it; the running sum adds the unrounded values.
-template <typename Mask>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const Mask mask,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ m_out,
-                     float* __restrict__ inv_out, Strides sq, Strides sk, Strides sv, Strides so,
-                     int H, int Nq, int Nk, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[64 * kMP];
-  __shared__ __align__(16) __nv_bfloat16 Ks[64 * kMP];
-  __shared__ __align__(16) __nv_bfloat16 Vs[64 * kMP];
-  __shared__ typename Mask::Smem msm;
+// ---- tensor-core variant: bf16, Dh = 64, wgmma (see the header) ----
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
+constexpr int kFwdWG = 2;                          // warpgroups a block, 64 query rows each
+constexpr int kFwdThreads = kFwdWG * kMmaThreads;
+constexpr int kFwdBQ = kFwdWG * kBQ;               // query rows a block
+constexpr int kFwdStages = 3;                      // the K / V ring
+constexpr int kFwdBlocks = 2;                      // blocks an SM (launch bounds)
+
+// Shared memory of flash_fwd_wg_kernel: a Q tile per warpgroup, the ring of
+// K and V tiles (swizzled), the block's tile words, the mask's ring stages.
+template <typename Mask>
+constexpr size_t fwd_wg_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (kFwdWG + 2 * kFwdStages) * kSwTile +
+         sizeof(unsigned) * (2 + kFwdWG) + kFwdStages * sizeof(typename Mask::Stage) + kSmemSlack;
+}
+
+// kSched: 0, a tile's e V product waited for at once and the next tile's
+// copies issued one tile ahead; 1, that product run under the next tile's
+// softmax (one ahead); 2, waited for at once, copies two tiles ahead.
+template <typename Mask, int kSched>
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocks)
+flash_fwd_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, const Mask mask,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ m_out,
+                    float* __restrict__ inv_out, Strides sq, Strides sk, Strides sv, Strides so,
+                    int H, int Nq, int Nk, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_base(smem_raw));  // [kFwdWG]
+  __nv_bfloat16* Ks = Qs + kFwdWG * kSwTile;        // [kFwdStages]
+  __nv_bfloat16* Vs = Ks + kFwdStages * kSwTile;    // [kFwdStages]
+  // the key tiles of one 32-tile word: with a key to attend, mixed, and
+  // attended by the rows of warpgroup w (2 + w)
+  unsigned* words = reinterpret_cast<unsigned*>(Vs + kFwdStages * kSwTile);
+  typename Mask::Stage* mst = reinterpret_cast<typename Mask::Stage*>(words + 2 + kFwdWG);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / kMmaThreads;
+  const int warp = (tid % kMmaThreads) >> 5;
+  const int lane = tid & 31;
   const int c = lane & 3;
-  const int n_qt = (Nq + kBQ - 1) / kBQ;
+  const int n_qt = (Nq + kFwdBQ - 1) / kFwdBQ;
+  const int n_kt = (Nk + kBK - 1) / kBK;
   const int qt = blockIdx.x % n_qt;
   const int bh = blockIdx.x / n_qt;
   const int h = bh % H;
   const int b = bh / H;
-  const int q0 = qt * kBQ;
-  Mask mk = mask.at(b);  // tile() keeps per-thread state
+  const int q0 = qt * kFwdBQ;
+  const int w0 = q0 + wg * kBQ + warp * 16;  // the warp's first row
+  const int row[2] = {w0 + (lane >> 2), w0 + (lane >> 2) + 8};
+  const Mask mk = mask.at(b);
+  const typename Mask::Rows rw = mk.rows(row[0], row[1], Nq);
   const __nv_bfloat16* kp = k + b * sk.b + h * sk.h;
   const __nv_bfloat16* vp = v + b * sv.b + h * sv.h;
 
-  load_tile_mma(Qs, q + b * sq.b + h * sq.h, sq.n, q0, Nq);
-  __syncthreads();
-  uint32_t qf[4][4];
-  load_a_frags(qf, Qs, warp * 16);
+#pragma unroll
+  for (int i = 0; i < kFwdWG; ++i)
+    load_tile_sw_async(Qs + i * kSwTile, q + b * sq.b + h * sq.h, sq.n, q0 + i * kBQ, Nq, tid,
+                       kFwdThreads);
+  cp_async_commit();
 
-  const int rl[2] = {warp * 16 + g, warp * 16 + g + 8};
-  const int row[2] = {q0 + rl[0], q0 + rl[1]};
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[8][4];
+  // this thread's copy of the current word: the tiles the block computes
+  // (those of any warpgroup), its warpgroup's, the mixed ones
+  unsigned need_blk = 0u, need_wg = 0u, mixed = 0u;
+  int word_end = 0;
+  auto load_words = [&](int t0) {  // alike in every thread of the block
+    __syncthreads();               // the previous word has been read
+    if (tid < 2 + kFwdWG) words[tid] = 0u;
+    __syncthreads();
+    unsigned mix;
+    const unsigned kn = __reduce_or_sync(kFull, mk.key_need(t0, tid, kFwdThreads, mix));
+    mix = __reduce_or_sync(kFull, mix);
+    const unsigned rn = __reduce_or_sync(kFull, mk.row_need(rw, t0));
+    if (lane == 0) {
+      atomicOr(&words[0], kn);
+      atomicOr(&words[1], mix);
+      atomicOr(&words[2 + wg], rn);
+    }
+    __syncthreads();
+    unsigned any_rows = 0u;
+#pragma unroll
+    for (int i = 0; i < kFwdWG; ++i) any_rows |= words[2 + i];
+    need_blk = words[0] & any_rows;
+    need_wg = words[0] & words[2 + wg];
+    mixed = words[1];
+    word_end = t0 + 32;
+  };
+  auto next_needed = [&](int t) {  // the first key tile from t on that the block computes
+    while (t < n_kt) {
+      if (t >= word_end) load_words(t & ~31);
+      const unsigned rest = need_blk >> (t & 31);
+      if (rest) return t + __ffs(rest) - 1;
+      t = word_end;
+    }
+    return n_kt;
+  };
+  auto fetch = [&](int t, int st) {  // key tile t's K, V and mask stage into ring stage st
+    load_tile_sw_async(Ks + st * kSwTile, kp, sk.n, t * kBK, Nk, tid, kFwdThreads);
+    load_tile_sw_async(Vs + st * kSwTile, vp, sv.n, t * kBK, Nk, tid, kFwdThreads);
+    mk.fetch(mst[st], t * kBK, tid);
+    cp_async_commit();
+  };
+  struct Tile {
+    int t;
+    bool mine, mix;  // this warpgroup computes it; its scores may need the mask
+  };
+  auto next_tile = [&](int from) {  // read before the word moves on
+    const int t = next_needed(from);
+    return Tile{t, t < n_kt && ((need_wg >> (t & 31)) & 1u), t < n_kt && ((mixed >> (t & 31)) & 1u)};
+  };
+
+  const float sl2 = scale * kLog2e;
+  // the warp's 16 rows: acc (16 x 64 output dims), the running max m2 in
+  // log2 units, and this thread's part of the running sum l
+  float acc[8][4], m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int x = 0; x < 4; ++x) acc[j][x] = 0.f;
+  // e of the last computed tile as bf16 A fragments, and the V tile it
+  // multiplies; under kSched 1 that product is issued with the next tile's
+  // s, so every wgmma is issued on every path (ptxas serialises wgmma behind
+  // a branch it cannot prove uniform): before the first tile pa = 0 against
+  // the (finite) Q tile, which adds exactly 0
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) pa[t][x] = 0u;
+  const __nv_bfloat16* pv = Qs;
 
-  for (int k0 = 0; k0 < Nk; k0 += kBK) {
-    if (!mk.tile(msm, q0, k0)) continue;
-    load_tile_mma(Ks, kp, sk.n, k0, Nk);
-    load_tile_mma(Vs, vp, sv.n, k0, Nk);
-    __syncthreads();
+  constexpr int kAhead = kSched == 2 ? 2 : 1;  // tiles in flight beyond the current one
+  fetch(0, 0);  // at once, before the words: key tile 0 is the one a block needs first
+  Tile cur = next_tile(0);
+  if (cur.t != 0 && cur.t < n_kt) {
+    cp_async_wait_all();
+    fetch(cur.t, 0);
+  }
+  Tile nxt = kAhead == 2 && cur.t < n_kt ? next_tile(cur.t + 1) : Tile{n_kt, false, false};
+  if (kAhead == 2 && nxt.t < n_kt) fetch(nxt.t, 1);
+  for (int st = 0; cur.t < n_kt; st = (st + 1) % kFwdStages) {
+    const int k0 = cur.t * kBK;
+    const Tile ahead = next_tile((kAhead == 2 ? nxt.t : cur.t) + 1);
+    if (kAhead == 2 && nxt.t < n_kt)
+      cp_async_wait<1>();  // tile cur has landed; nxt may still be in flight
+    else
+      cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();  // every warpgroup is done with the stage the next fetch fills
+    if (ahead.t < n_kt) fetch(ahead.t, (st + kAhead) % kFwdStages);
+    const Tile me = cur;
+    if (kAhead == 2) {
+      cur = nxt;
+      nxt = ahead;
+    } else {
+      cur = ahead;
+    }
+    // no row of this warpgroup attends a key of the tile (kSched 1 computes
+    // it all the same: its scores are masked, exactly as if skipped)
+    if (kSched != 1 && !me.mine) continue;
+    float s[8][4];
+    wgmma_fence();
+    wg_rows_nt(s, Qs + wg * kSwTile, Ks + st * kSwTile);
+    wgmma_commit();
+    if constexpr (kSched == 1) {  // the previous tile's e V, behind s
+      wg_regs_nn(acc, pa, pv);
+      wgmma_commit();
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_acc(s);
 
-    float sc[8][4];
+    const bool raw = mk.scores(rw, mst[st], me.mix, s, k0, w0, sl2, c);
+    if (!raw && k0 + kBK > Nk) {  // the ragged tail weighs nothing
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          if (k0 + 8 * j + 2 * c + (x & 1) >= Nk) s[j][x] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY}, alpha[2], nm[2], rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-    mma_rows_nt(sc, qf, Ks);
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * c + (e & 1);
-        sc[j][e] = mk.score(msm, sc[j][e], scale, rl[e >> 1], col, row[e >> 1], k0 + col);
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
-      }
-    float alpha[2], rs[2] = {0.f, 0.f};
+      for (int x = 0; x < 4; ++x) mx[x >> 1] = fmaxf(mx[x >> 1], s[j][x]);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);  // finite: every tile has a key < Nk
-      alpha[r] = expf(m[r] - m_new);            // 0 on the first tile (m = -inf)
-      m[r] = m_new;
+      // finite: every computed tile has a key < Nk; 2^(-inf) = 0 on the first
+      const float mn = fmaxf(m2[r], raw ? mx[r] * sl2 : mx[r]);
+      alpha[r] = ex2(m2[r] - mn);
+      m2[r] = mn;
+      nm[r] = -mn;
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[j][e] = expf(sc[j][e] - m[e >> 1]);
-        rs[e >> 1] += sc[j][e];
-        acc[j][e] *= alpha[e >> 1];
+      for (int x = 0; x < 4; ++x) {
+        s[j][x] = ex2(raw ? fmaf(s[j][x], sl2, nm[x >> 1]) : s[j][x] + nm[x >> 1]);
+        rs[x >> 1] += s[j][x];
       }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(kFull, rs[r], 1);
-      rs[r] += __shfl_xor_sync(kFull, rs[r], 2);
-      l[r] = l[r] * alpha[r] + rs[r];
+    if constexpr (kSched == 1) {
+      wgmma_wait<0>();
+      fence_acc(acc);
+      fence_frags(pa);
     }
-    mma_rows_nn(acc, sc, Vs);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[j][x] *= alpha[x >> 1];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+    pack_a_frags(pa, s);  // e rounded to bf16 where it enters the product
+    pv = Vs + st * kSwTile;
+    if constexpr (kSched != 1) {
+      wgmma_fence();
+      wg_regs_nn(acc, pa, pv);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+    }
   }
+  if constexpr (kSched == 1) {  // the last tile's e V
+    wgmma_fence();
+    wg_regs_nn(acc, pa, pv);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+  }
+  cp_async_wait_all();  // a block that computed no tile still has its Q copies in flight
 
   __nv_bfloat16* op = o + b * so.b + h * so.h;
   const long long stat0 = ((long long)b * H + h) * Nq;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
     if (row[r] >= Nq) continue;
-    const float inv = m[r] > 0.5f * kNegInf ? 1.f / l[r] : 0.f;
+    const bool any = m2[r] > 0.5f * kNegInf2;  // the row met an allowed key
+    const float inv = any ? 1.f / l[r] : 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       *reinterpret_cast<uint32_t*>(op + (long long)row[r] * so.n + 8 * j + 2 * c) =
           pack_bf16(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
     if (c == 0 && m_out != nullptr) {
-      m_out[stat0 + row[r]] = stored_max(m[r]);
+      m_out[stat0 + row[r]] = any ? m2[r] * kLn2 : kNegInf;
       inv_out[stat0 + row[r]] = inv;
     }
   }
@@ -308,21 +468,36 @@ int launch_fwd_dp(int DP, const Mask& mask, const void* q, const void* k, const 
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename Mask>
-int launch_fwd_mma(const Mask& mask, const void* q, const void* k, const void* v, void* o,
-                   float* m, float* inv, const long long* st, int B, int H, int Nq, int Nk,
-                   float scale, int device, cudaStream_t stream) {
+template <typename Mask, int kSched>
+int launch_fwd_wg(const Mask& mask, const void* q, const void* k, const void* v, void* o, float* m,
+                  float* inv, const long long* st, int B, int H, int Nq, int Nk, float scale,
+                  int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)B * H * ((Nq + kBQ - 1) / kBQ);
+  const long long blocks = (long long)B * H * ((Nq + kFwdBQ - 1) / kFwdBQ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = flash_fwd_wg_kernel<Mask, kSched>;
+  constexpr size_t smem = fwd_wg_smem_bytes<Mask>();
+  // the opt-in shared memory is raised once per device, not per call
+  static bool raised[64] = {};
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  if (!raised[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    raised[device] = true;
+  }
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]},
       so{st[9], st[10], st[11]};
-  flash_fwd_mma_kernel<Mask><<<(unsigned)blocks, kMmaThreads, 0, stream>>>(
+  kernel<<<(unsigned)blocks, kFwdThreads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, mask,
       (__nv_bfloat16*)o, m, inv, sq, sk, sv, so, H, Nq, Nk, scale);
   return (int)cudaGetLastError();
 }
+
+// The wgmma kernel's schedule (kSched), set by fwd_set_schedule while the
+// schedules are compared.
+static int g_fwd_sched = 0;
+inline void fwd_set_schedule(int sched) { g_fwd_sched = sched; }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it). strides: 12
 // element strides, (batch, head, seq) of q, k, v, o. m, inv: (B, H, Nq) fp32
@@ -343,7 +518,11 @@ int fwd_dispatch(const Mask& mask, int dtype, const void* q, const void* k, cons
   if (Dh == kMD && mma_aligned(q, strides) && mma_aligned(k, strides + 3) &&
       mma_aligned(v, strides + 6) && strides[9] % 2 == 0 && strides[10] % 2 == 0 &&
       strides[11] % 2 == 0 && (uintptr_t)o % 4 == 0)
-    return launch_fwd_mma<Mask>(mask, q, k, v, o, m, inv, strides, B, H, Nq, Nk, scale, device, s);
+    switch (g_fwd_sched) {
+      case 0: return launch_fwd_wg<Mask, 0>(mask, q, k, v, o, m, inv, strides, B, H, Nq, Nk, scale, device, s);
+      case 1: return launch_fwd_wg<Mask, 1>(mask, q, k, v, o, m, inv, strides, B, H, Nq, Nk, scale, device, s);
+      default: return launch_fwd_wg<Mask, 2>(mask, q, k, v, o, m, inv, strides, B, H, Nq, Nk, scale, device, s);
+    }
   return launch_fwd_dp<Mask, __nv_bfloat16>(DP, mask, q, k, v, o, m, inv, strides, B, H, Nq, Nk, Dh, scale, device, s);
 }
 

@@ -4,24 +4,25 @@
 //
 // Replaces the TPU kernel rqvae_tpu/ops/flash_attention.py:_flash_span_kernel
 // (flash_attention_spans' forward, :491). The kernels are
-// flash_attention_fwd.cuh's (64 x 64 tiles, online softmax, mma.sync for
-// bf16 at Dh = 64, fp32 CUDA cores otherwise), bound here to the span mask
-// (flash_attention_common.cuh:SpanMask): each block stages its 64 query
-// rows' (lo, hi, extra) per key tile and masks with two compares and an
-// equality, a select after scaling as the TPU kernel's _span_allow. Also
-// writes the row statistics m and inv, each (B, H, Nq) fp32, for the
+// flash_attention_fwd.cuh's (64-key tiles, online softmax; for bf16 at
+// Dh = 64 wgmma with two warpgroups a block, fp32 CUDA cores otherwise),
+// bound here to the span mask (flash_attention_common.cuh:SpanMask): each
+// thread folds its rows' (lo, hi, extra) into a 64-bit mask of the tile's
+// allowed keys, a select after scaling as the TPU kernel's _span_allow.
+// Also writes the row statistics m and inv, each (B, H, Nq) fp32, for the
 // backward (flash_attention_spans_bwd.cu).
 //
 // What bounds it on an H100: the work is the allowed (q, k) pairs, not the
-// dense Nq x Nk: 4 H Dh flops per pair. In packed training (96 rows of 808
-// tokens, 8 heads, Dh = 64, bf16) about a third of the dense pairs are
-// allowed, ~0.1 ms at 989 TFLOP/s, against ~0.1 GB of operands (~0.03 ms
-// at 3.35 TB/s): operations. The design skips every key tile in which no
-// row of the query tile is allowed (exact: those scores weigh exp(-1e30 -
-// m) = 0), so the tiles it computes follow the allowed pairs up to tile
-// granularity; a segment's window is contiguous and every extra column (a
-// user token) sits in key tile 0. Within a computed tile the masked pairs
-// still cost their multiply-adds, and tile loads are synchronous.
+// dense Nq x Nk: 4 H Dh flops per pair, and one exp. In packed training (96
+// rows of 808 tokens, 8 heads, Dh = 64, bf16) 0.642 of the dense pairs are
+// allowed, ~0.083 ms at 989 TFLOP/s (as long again for the exp), against
+// ~0.1 GB of operands (~0.03 ms at 3.35 TB/s). The design skips every key
+// tile in which no row of a warpgroup is allowed (exact: those scores weigh
+// exp(-1e30 - m) = 0), so the tiles it computes follow the allowed pairs up
+// to tile granularity; a segment's window is contiguous and every extra
+// column (a user token) sits in key tile 0. A warp whose rows may attend a
+// whole tile takes no per-score select; within the other computed tiles
+// the masked pairs still cost their products.
 #include "flash_attention_fwd.cuh"
 
 extern "C" {
@@ -41,5 +42,8 @@ int flash_spans_fwd_launch(int dtype, const void* q, const void* k, const void* 
 const char* flash_spans_fwd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+// The wgmma kernel's schedule (flash_attention_fwd.cuh: kSched).
+void flash_spans_fwd_set_schedule(int sched) { flash::fwd_set_schedule(sched); }
 
 }  // extern "C"

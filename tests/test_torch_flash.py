@@ -147,3 +147,134 @@ def test_attend_routes_and_matches_jax_attend(n, causal, flash, monkeypatch):
     assert bool(calls) == flash
     assert got.shape == (1, n, 1, 64)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 wgmma forward's arithmetic (csrc/flash_attention_fwd.cuh:
+# flash_fwd_wg_kernel) where it departs from the twins': scores in log2
+# units (scale log2 e folded into one FMA before exp2), no per-score mask on
+# a warp's tiles that need none, key tiles skipped per 64-row warpgroup, an
+# online softmax over 64-key tiles, and m converted back to natural units
+# once. The twins stay the TPU kernels' arithmetic; this emulation is held
+# against them at the card's bounds (bf16 2e-2, fp32 1e-4).
+# ---------------------------------------------------------------------------
+
+_LOG2E = np.float32(1.4426950408889634)
+_LN2 = np.float32(0.6931471805599453)
+_NEG2 = np.float32(np.float32(tfa.NEG_INF) * _LOG2E)   # the mask value in log2 units
+
+
+def _fma32(a, b, c):
+    """fp32 fma(a, b, c): the exact product and sum in float64, rounded once."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _wg_forward(q, k, v, *, bias=None, causal=False, spans=None):
+    """(out, m, inv, stats) by the wgmma kernel's formula (see above)."""
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
+    sl2 = torch.tensor(np.float32(1.0 / np.sqrt(dh)) * _LOG2E)
+    dots = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    rows, cols = torch.arange(nq), torch.arange(nk)
+    if spans is not None:
+        allow = tfa.span_mask(spans, nk)                                # (B, Nq, Nk)
+    n_kt = (nk + 63) // 64
+    m = torch.full((b, h, nq), -np.inf)
+    l = torch.zeros((b, h, nq))
+    acc = torch.zeros((b, h, nq, dh))
+    stats = {"whole": 0, "masked": 0, "skipped": 0}
+    for t in range(n_kt):
+        k0, k1 = 64 * t, min(64 * t + 64, nk)
+        d = dots[..., k0:k1]
+        full = k1 - k0 == 64
+        if spans is None:
+            bt = bias[:, k0:k1]                                         # (B, kt)
+            key_need = (bt > 0.5 * tfa.NEG_INF).any(-1)                 # (B,)
+            row_need = (k0 <= rows) if causal else torch.ones(nq, dtype=torch.bool)
+            need = key_need[:, None] & torch.stack(
+                [row_need[g:g + 64].any() for g in range(0, nq, 64)]).repeat_interleave(64)[:nq][None]
+            warp0 = rows // 16 * 16
+            whole = (full & ~(bt != 0).any(-1))[:, None] & (
+                (k0 + 63 <= warp0) if causal else torch.ones(nq, dtype=torch.bool))[None]
+            s = _fma32(d, sl2, (bt * _LOG2E)[:, None, None, :])
+            if causal:
+                s = torch.where(cols[k0:k1][None, :] > rows[:, None], _NEG2, s)
+        else:
+            at = allow[..., k0:k1]                                      # (B, Nq, kt)
+            grp = torch.arange(nq) // 64
+            need = torch.stack([at[:, grp == g].any(-1).any(-1) for g in range(grp.max() + 1)],
+                               -1)[:, grp]                              # (B, Nq)
+            rw = at.all(-1) & full                                      # rows past Nq: none
+            pad = (-nq) % 16
+            rw = torch.cat([rw, torch.zeros((b, pad), dtype=torch.bool)], 1)
+            whole = rw.view(b, -1, 16).all(-1).repeat_interleave(16, 1)[:, :nq]
+            s = torch.where(at[:, None], d * sl2, _NEG2)
+        need, whole = need[:, None], whole[:, None]                     # over heads
+        stats["skipped"] += int((~need).sum())
+        stats["whole"] += int((need & whole).sum())
+        stats["masked"] += int((need & ~whole).sum())
+        mx = torch.where(whole, d.amax(-1) * sl2, s.amax(-1))
+        m_new = torch.maximum(m, mx)
+        alpha = torch.exp2(m - m_new)
+        e = torch.where(whole[..., None], torch.exp2(_fma32(d, sl2, -m_new[..., None])),
+                        torch.exp2(s - m_new[..., None]))
+        pv = torch.matmul(e.to(v.dtype).float(), v[:, :, k0:k1].float())
+        m = torch.where(need, m_new, m)
+        l = torch.where(need, l * alpha + e.sum(-1), l)
+        acc = torch.where(need[..., None], acc * alpha[..., None] + pv, acc)
+    live = m > 0.5 * _NEG2
+    inv = torch.where(live, 1.0 / l, torch.zeros(()))
+    out = (acc * inv[..., None]).to(q.dtype)
+    return out, torch.where(live, m * _LN2, torch.tensor(tfa.NEG_INF)), inv, stats
+
+
+def _wg_case(kind, size, dtype):
+    """Operands, the kernel's mask arguments and the twin's masker: batch row
+    0 attends nothing, row 1 has its first two key tiles masked, row 2 is a
+    crop-like valid prefix (or, for spans, rows with whole windows, rows that
+    attend nothing, late windows and random windows)."""
+    if size == "ml32m":     # the ML-32M step's layer-0 magnitudes as max-abs: |q|, |k| ~ 3, |v| ~ 10
+        b, h, n, k_max, v_max = 3, 2, 801, 3.0, 10.0
+    else:
+        b, h, n, k_max, v_max = 3, 1, 150, None, None
+    rng = np.random.RandomState(11)
+    q, k, v = (torch.from_numpy(rng.randn(b, h, n, 64).astype(np.float32)) for _ in range(3))
+    if k_max is not None:
+        q, k, v = (t * (mx / t.abs().max()) for t, mx in ((q, k_max), (k, k_max), (v, v_max)))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    if kind == "span":
+        lo = rng.randint(0, n - 40, (b, n))
+        hi = lo + rng.randint(1, 40, (b, n))
+        ex = rng.randint(-1, n, (b, n))
+        lo[:, :16], hi[:, :16], ex[:, :16] = 0, n, -1        # whole windows
+        lo[:, 16:40], hi[:, 16:40], ex[:, 16:40] = 0, 0, -1  # rows that attend nothing
+        lo[:, 40:70], hi[:, 40:70], ex[:, 40:70] = 130, n, -1  # first two tiles masked
+        lo[0], hi[0], ex[0] = 0, 0, -1
+        spans = tuple(torch.from_numpy(a.astype(np.int32)) for a in (lo, hi, ex))
+        return (q, k, v), dict(spans=spans), tfa._span_masker(*spans)
+    km = np.zeros((b, n), bool)
+    km[1, 130:] = True
+    km[2, :1 + 4 * (n // 8)] = True
+    bias = tfa.mask_bias(torch.from_numpy(km), b, n, "cpu")
+    causal = kind == "causal"
+    return (q, k, v), dict(bias=bias, causal=causal), tfa._key_masker(bias, causal)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("size", ["ml32m", "small"])
+@pytest.mark.parametrize("kind", ["key", "causal", "span"])
+def test_wgmma_forward_arithmetic_matches_the_twin(kind, size, dtype, tol):
+    (q, k, v), args, masker = _wg_case(kind, size, dtype)
+    out, m, inv, stats = _wg_forward(q, k, v, **args)
+    want_out, want_m, want_inv = tfa._plain_fwd(q, k, v, masker)
+    assert stats["whole"] > 0 and stats["masked"] > 0 and stats["skipped"] > 0
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol, atol=tol)
+    live = want_m > 0.5 * tfa.NEG_INF
+    assert bool((~live).any()) and bool(live.any())
+    assert torch.equal(live, m > 0.5 * tfa.NEG_INF)
+    assert bool((m[~live] == tfa.NEG_INF).all()) and bool((inv[~live] == 0).all())
+    assert bool((out[~live] == 0).all())                  # rows with no allowed key: exactly 0
+    m_err = float((m - want_m)[live].abs().max())
+    assert m_err <= 1e-5 * float(want_m[live].abs().max())
+    inv_rel = float(((inv - want_inv) / want_inv)[live].abs().max())
+    assert inv_rel <= (1e-3 if dtype == torch.bfloat16 else 1e-5)
