@@ -49,8 +49,8 @@ weights made from a seed and seeded synthetic data:
   9. ML-32M serving: 64 users x 801 tokens against the 84,432-item index,
      k = 32, 256 candidates, through the flash forward kernel;
  10. time every kernel, its twin and the library call beside it (the flash
-     bound counts the (q, k) pairs with a valid key, the dense count and the
-     exp floor beside it); dense
+     bound counts the (q, k) pairs with a valid key and the K / V bytes of
+     the valid keys, the dense count and the exp floor beside it); dense
      ``sdpa`` against ``flash_attention`` at N = 801 and 81; trace one
      corpus tokenization, one Amazon beam search and one ML-32M train step
      with torch.profiler;
@@ -100,8 +100,9 @@ weights made from a seed and seeded synthetic data:
      to 1e-4 relative, every gradient leaf to 1e-3 of its max-abs;
  19. both span kernels timed on phase 16's operands beside their twins and
      ``F.scaled_dot_product_attention`` under the span mask as a (B, 1, Nq,
-     Nk) additive bias; the bound counts the allowed (q, k) pairs (the
-     dense count beside it); one packed step traced;
+     Nk) additive bias; the bound counts the allowed (q, k) pairs and the
+     K / V bytes of the keys some row attends (the dense count beside it);
+     one packed step traced;
  20. the Amazon decoder (run after stage 1), ``RQVAE_TPU_SHORT_FLASH=1``:
      ``train_decoder.train`` on ``configs/decoder_amazon.json`` (4 + 4
      layers, width 512, 8 heads, embedding 128, K = 256, batch 256,
@@ -888,14 +889,18 @@ def _ml32m(dev):
     sdpa_fwd_bwd = cuda_ms(lambda: torch.autograd.backward(
         F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask), g), 10)
     del leaves
-    # the work counts the (q, k) pairs with a valid key: a masked key adds
-    # exactly nothing, and the forward skips tiles of them (dense count beside)
-    pairs = h * n * int(km.sum())
+    # the work counts the valid keys: a masked key adds exactly nothing, and
+    # the forward skips tiles of them, so its operations are the (q, k) pairs
+    # with a valid key and its K / V reads those keys' rows; q, out, g and
+    # the gradients cover every row (the dense count beside)
+    valid_keys = int(km.sum())
+    pairs = h * n * valid_keys
     dense_pairs = b * h * n * n
     fwd_flops = 4 * dh * pairs
     elt = q.element_size()
-    fwd_bytes = elt * 4 * b * h * n * dh + 4 * b * n + 8 * b * h * n
-    bwd_bytes = elt * 7 * b * h * n * dh + 4 * b * n + 8 * b * h * n
+    kv_bytes = elt * 2 * h * dh * valid_keys
+    fwd_bytes = elt * 2 * b * h * n * dh + kv_bytes + 4 * b * n + 8 * b * h * n
+    bwd_bytes = elt * 5 * b * h * n * dh + kv_bytes + 4 * b * n + 8 * b * h * n
     flash_kernels = []
     for name, flops, nbytes, line, lib in (
             ("flash_attention_fwd", fwd_flops, fwd_bytes, 41, sdpa_fwd),
@@ -942,6 +947,7 @@ def _ml32m(dev):
                                  worst_leaf_rel_err=leaf_rel),
                  flash_bounds=dict(valid_pairs=pairs, dense_pairs=dense_pairs,
                                    valid_share=pairs / dense_pairs,
+                                   bytes={"fwd": fwd_bytes, "bwd": bwd_bytes},
                                    fwd_exp_floor_ms=pairs / EXP_PER_S * 1e3,
                                    dense_bound_ms={"fwd": 4 * dh * dense_pairs / BF16_FLOP_PER_S * 1e3,
                                                    "bwd": 10 * dh * dense_pairs / BF16_FLOP_PER_S * 1e3}),
@@ -1178,9 +1184,14 @@ def _packed(dev):
     sdpa_fwd_bwd = cuda_ms(lambda: torch.autograd.backward(
         F.scaled_dot_product_attention(*leaves, attn_mask=lib_bias), g), 10)
     del leaves, lib_bias
+    # K / V are read for the keys some row attends (the forward skips the
+    # tiles no row of a block attends); q, out, g and the gradients cover
+    # every row
+    attended = int(allow.any(dim=1).sum())
     elt = q.element_size()
-    fwd_bytes = elt * 4 * b * h * n * dh + 12 * b * n + 8 * b * h * n
-    bwd_bytes = elt * 7 * b * h * n * dh + 12 * b * n + 8 * b * h * n
+    kv_bytes = elt * 2 * h * dh * attended
+    fwd_bytes = elt * 2 * b * h * n * dh + kv_bytes + 12 * b * n + 8 * b * h * n
+    bwd_bytes = elt * 5 * b * h * n * dh + kv_bytes + 12 * b * n + 8 * b * h * n
     kernels = []
     for name, per_pair, nbytes, line, lib in (
             ("flash_attention_spans_fwd", 4, fwd_bytes, 491, sdpa_fwd),
@@ -1199,6 +1210,8 @@ def _packed(dev):
                         worst_leaf_rel_err=leaf_rel),
         span_bounds=dict(allowed_pairs=pairs, dense_pairs=dense_pairs,
                          allowed_share=pairs / dense_pairs,
+                         attended_key_share=attended / (b * n),
+                         bytes={"fwd": fwd_bytes, "bwd": bwd_bytes},
                          fwd_exp_floor_ms=pairs / EXP_PER_S * 1e3,
                          dense_bound_ms={"fwd": 4 * dh * dense_pairs / BF16_FLOP_PER_S * 1e3,
                                          "bwd": 10 * dh * dense_pairs / BF16_FLOP_PER_S * 1e3}),
@@ -1964,7 +1977,9 @@ def _hold_stats(what, dtype, m, inv, ref_m, ref_inv) -> dict:
 
 def _profile(fn, top: int = 8) -> dict:
     """One traced call of ``fn``: wall time, summed device time (the device's
-    busy share of the wall time) and the ops with the most device time."""
+    busy share of the wall time), the ops with the most device time, and
+    every launch of the port's attention kernels (``flash::`` / ``small::``,
+    whether or not they make the top)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1982,7 +1997,9 @@ def _profile(fn, top: int = 8) -> dict:
     busy_us = sum(_dev_us(e) for e in events)
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                 device_idle_share=1.0 - busy_us / wall_us if busy_us else None,
-                top_device_ops=[[e.key[:90], _dev_us(e) / 1e3, e.count] for e in events[:top]])
+                top_device_ops=[[e.key[:90], _dev_us(e) / 1e3, e.count] for e in events[:top]],
+                attention_kernels=[[e.key[:90], _dev_us(e) / 1e3, e.count] for e in events
+                                   if "flash::" in e.key or "small::" in e.key])
 
 
 def _dev_us(event) -> float:

@@ -101,11 +101,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // ---- mask policies ----
 //
@@ -182,9 +177,12 @@ struct BiasMask {
   // A key tile every key of which has a bias <= -5e29 is skipped (exact for
   // the 0 / -1e30 bias of the wrappers: such a key weighs exp(-1e30 - m) = 0
   // against a row with a valid key, and a row with none has inv = 0); with
-  // the causal cut, so is a tile past a warpgroup's last row. A tile whose
+  // the causal cut, so is a tile past the block's last row. A tile whose
   // bias is 0 throughout, full and, under the cut, at or below a warp's
-  // first row takes no per-score mask.
+  // first row takes no per-score mask. Both warpgroups of a block attend the
+  // same key tiles (under the cut all but the diagonal ones), so the
+  // schedule is the overlapped one.
+  static constexpr bool kFwdOverlap = true;
   struct Rows {
     int r[2];  // the rows, -1 past Nq
   };
@@ -312,6 +310,10 @@ struct SpanMask {
   // The thread keeps its two rows' bounds in registers and folds them into
   // each tile's 64-bit key mask itself: nothing is staged. A warp whose
   // rows all attend every key of a (full) tile takes no per-score select.
+  // The two warpgroups of a block often cover different packed segments, so
+  // the schedule is the serial one, in which each skips the key tiles its
+  // rows do not attend.
+  static constexpr bool kFwdOverlap = false;
   struct Rows {
     int l[2], h[2], x[2];
   };

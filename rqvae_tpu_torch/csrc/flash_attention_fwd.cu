@@ -9,15 +9,19 @@
 // pointers are not null.
 //
 // What bounds it on an H100 (B = 256, H = 8, N = 801, Dh = 64, bf16, the
-// ML-32M step): 4 Dh tensor flops a score, 0.34 ms at 989 TFLOP/s for the
-// dense 801 x 801 scores; one exp a score, as long again on the
-// special-function units; ~0.1 GB of operands, 0.03 ms at 3.35 TB/s. Key
-// tiles whose every key is masked are skipped (exact: they weigh exp(-1e30
-// - m) = 0), so under the training batch's key mask the work follows the
-// valid keys. The bf16 Dh = 64 kernel (flash_attention_fwd.cuh:
+// ML-32M step, whose crop leaves 0.35 of the keys valid): key tiles whose
+// every key is masked are skipped (exact: they weigh exp(-1e30 - m) = 0), so
+// the work follows the valid keys. Bytes: q read and out written for every
+// row (0.42 GB), K and V read for the valid keys (0.15 GB), the bias and the
+// row statistics (0.01 GB): ~0.58 GB, 0.17 ms at 3.35 TB/s, the bound.
+// Operations: 4 Dh tensor flops a valid (q, k) pair, 0.12 ms at 989
+// TFLOP/s; one exp a pair, 0.11 ms on the special-function units. With
+// every key valid the three are 0.25 (bytes), 0.34 and 0.31 ms, and the
+// tensor flops bound it. chip_smoke.py counts all three from its run's
+// data. The bf16 Dh = 64 kernel (flash_attention_fwd.cuh:
 // flash_fwd_wg_kernel) runs both products on wgmma, two warpgroups a block
-// sharing each K / V tile of a cp.async ring, and the softmax in log2 units
-// beside the products; see that header.
+// sharing each K / V tile of a cp.async ring, and the softmax in log2
+// units beside the products; see that header.
 #include "flash_attention_fwd.cuh"
 
 extern "C" {
@@ -34,8 +38,5 @@ int flash_fwd_launch(int dtype, const void* q, const void* k, const void* v, con
 }
 
 const char* flash_fwd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
-
-// The wgmma kernel's schedule (flash_attention_fwd.cuh: kSched).
-void flash_fwd_set_schedule(int sched) { flash::fwd_set_schedule(sched); }
 
 }  // extern "C"

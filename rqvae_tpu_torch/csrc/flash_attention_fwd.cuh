@@ -31,20 +31,27 @@
 //     clock an SM, ~4.2e12 a second at 1.98 GHz), and the operand bytes
 //     over 3.35 TB/s. At Dh = 64 the first two are equal (256 flops a
 //     score), so the exp and mask work must shrink and run beside the
-//     products. The design: two warpgroups of 64 query rows a block share
-//     every K / V tile, which a 3-stage ring brings in by cp.async into the
-//     128-byte swizzle while the block computes (the next needed tile's
-//     copies are in flight during the current one); s = q k^T and o += e v
-//     run on wgmma (m64n64k16, e from registers, rounded to bf16 where it
-//     enters, the sum taking the unrounded values); the softmax is in log2
-//     units, scale log2 e folded into one FMA before ex2.approx, and a
-//     tile's e v product runs while the next tile's softmax does; a warp
+//     products. On the model's operands, whose masks leave a share of the
+//     pairs to compute, the bytes (K and V read for the keys attended)
+//     bound both instances, the operations 1.2x (spans) to 1.5x (key bias)
+//     below them; the .cu files give the counts. The design: two
+//     warpgroups of 64 query rows a block share every K / V tile, which a
+//     3-stage ring brings in by cp.async into the 128-byte swizzle while
+//     the block computes (the next needed tile's copies are in flight
+//     during the current one); s = q k^T and o += e v run on wgmma
+//     (m64n64k16, e from registers, rounded to bf16 where it enters, the
+//     sum taking the unrounded values); the softmax is in log2
+//     units, scale log2 e folded into one FMA before ex2.approx; a warp
 //     whose rows need no mask on a tile (the policy says when) skips the
-//     per-score work; a key tile no row of a warpgroup may attend is
-//     skipped by that warpgroup, and by the block when no warpgroup needs
-//     it. The stored m is in natural units (m2 ln 2, once in the
-//     epilogue; -1e30 for a row that met no allowed key), inv = 0 exactly
-//     where m <= -5e29. ptxas (sm_90a): see PERF.md, row 3a.
+//     per-score work; a key tile no row of the block attends is not loaded
+//     (under the key mask: a tile of masked keys). The schedule is the
+//     policy's: the key-bias mask overlaps a tile's e v product with the
+//     next tile's softmax, the span mask waits for it and lets each
+//     warpgroup skip the tiles its rows do not attend. The stored m is in
+//     natural units (m2 ln 2, once in the epilogue; -1e30 for a row that met
+//     no allowed key), inv = 0 exactly where m <= -5e29. ptxas (sm_90a): 128
+//     registers (key bias) / 122 (spans), no spills, 2 blocks an SM by
+//     registers, 67 KB of shared memory a block.
 //   * flash_fwd_kernel, for fp32 operands, other head sizes (Dh <= 128) and
 //     unaligned views: fp32 FMAs on the CUDA cores (67 TFLOP/s) from
 //     shared-memory tiles, bound by fp32 operations and shared-memory
@@ -194,10 +201,14 @@ constexpr size_t fwd_wg_smem_bytes() {
          sizeof(unsigned) * (2 + kFwdWG) + kFwdStages * sizeof(typename Mask::Stage) + kSmemSlack;
 }
 
-// kSched: 0, a tile's e V product waited for at once and the next tile's
-// copies issued one tile ahead; 1, that product run under the next tile's
-// softmax (one ahead); 2, waited for at once, copies two tiles ahead.
-template <typename Mask, int kSched>
+// The schedule is the mask policy's (Mask::kFwdOverlap): overlapped, a
+// tile's e V product is issued with the next tile's s and runs under its
+// softmax, and a warpgroup computes every tile the block loads; serial, the
+// product is waited for at once and a warpgroup skips the tiles none of its
+// rows attends. Overlapped wins on the key-bias mask, whose warpgroups
+// need the same tiles (experiments/torch_flash_fwd_schedules.py times both
+// there), serial on packed spans (PERF.md, row 3a).
+template <typename Mask>
 __global__ void __launch_bounds__(kFwdThreads, kFwdBlocks)
 flash_fwd_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const Mask mask,
@@ -281,12 +292,13 @@ flash_fwd_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   };
   struct Tile {
     int t;
-    bool mine, mix;  // this warpgroup computes it; its scores may need the mask
+    bool mine, mix;  // this warpgroup's rows attend it; its scores may need the mask
   };
   auto next_tile = [&](int from) {  // read before the word moves on
     const int t = next_needed(from);
     return Tile{t, t < n_kt && ((need_wg >> (t & 31)) & 1u), t < n_kt && ((mixed >> (t & 31)) & 1u)};
   };
+  constexpr bool kOverlap = Mask::kFwdOverlap;
 
   const float sl2 = scale * kLog2e;
   // the warp's 16 rows: acc (16 x 64 output dims), the running max m2 in
@@ -297,7 +309,7 @@ flash_fwd_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
     for (int x = 0; x < 4; ++x) acc[j][x] = 0.f;
   // e of the last computed tile as bf16 A fragments, and the V tile it
-  // multiplies; under kSched 1 that product is issued with the next tile's
+  // multiplies; overlapped, that product is issued with the next tile's
   // s, so every wgmma is issued on every path (ptxas serialises wgmma behind
   // a branch it cannot prove uniform): before the first tile pa = 0 against
   // the (finite) Q tile, which adds exactly 0
@@ -308,40 +320,26 @@ flash_fwd_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     for (int x = 0; x < 4; ++x) pa[t][x] = 0u;
   const __nv_bfloat16* pv = Qs;
 
-  constexpr int kAhead = kSched == 2 ? 2 : 1;  // tiles in flight beyond the current one
   fetch(0, 0);  // at once, before the words: key tile 0 is the one a block needs first
   Tile cur = next_tile(0);
   if (cur.t != 0 && cur.t < n_kt) {
     cp_async_wait_all();
     fetch(cur.t, 0);
   }
-  Tile nxt = kAhead == 2 && cur.t < n_kt ? next_tile(cur.t + 1) : Tile{n_kt, false, false};
-  if (kAhead == 2 && nxt.t < n_kt) fetch(nxt.t, 1);
   for (int st = 0; cur.t < n_kt; st = (st + 1) % kFwdStages) {
-    const int k0 = cur.t * kBK;
-    const Tile ahead = next_tile((kAhead == 2 ? nxt.t : cur.t) + 1);
-    if (kAhead == 2 && nxt.t < n_kt)
-      cp_async_wait<1>();  // tile cur has landed; nxt may still be in flight
-    else
-      cp_async_wait_all();
-    fence_proxy_async();
-    __syncthreads();  // every warpgroup is done with the stage the next fetch fills
-    if (ahead.t < n_kt) fetch(ahead.t, (st + kAhead) % kFwdStages);
     const Tile me = cur;
-    if (kAhead == 2) {
-      cur = nxt;
-      nxt = ahead;
-    } else {
-      cur = ahead;
-    }
-    // no row of this warpgroup attends a key of the tile (kSched 1 computes
-    // it all the same: its scores are masked, exactly as if skipped)
-    if (kSched != 1 && !me.mine) continue;
+    const int k0 = me.t * kBK;
+    cur = next_tile(me.t + 1);
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();  // tile me has landed; every warpgroup is done with stage st + 1
+    if (cur.t < n_kt) fetch(cur.t, (st + 1) % kFwdStages);
+    if (!kOverlap && !me.mine) continue;  // no row of this warpgroup attends a key of it
     float s[8][4];
     wgmma_fence();
     wg_rows_nt(s, Qs + wg * kSwTile, Ks + st * kSwTile);
     wgmma_commit();
-    if constexpr (kSched == 1) {  // the previous tile's e V, behind s
+    if constexpr (kOverlap) {  // the previous tile's e V, behind s
       wg_regs_nn(acc, pa, pv);
       wgmma_commit();
       wgmma_wait<1>();
@@ -380,7 +378,7 @@ flash_fwd_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
         s[j][x] = ex2(raw ? fmaf(s[j][x], sl2, nm[x >> 1]) : s[j][x] + nm[x >> 1]);
         rs[x >> 1] += s[j][x];
       }
-    if constexpr (kSched == 1) {
+    if constexpr (kOverlap) {
       wgmma_wait<0>();
       fence_acc(acc);
       fence_frags(pa);
@@ -393,7 +391,7 @@ flash_fwd_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
     pack_a_frags(pa, s);  // e rounded to bf16 where it enters the product
     pv = Vs + st * kSwTile;
-    if constexpr (kSched != 1) {
+    if constexpr (!kOverlap) {
       wgmma_fence();
       wg_regs_nn(acc, pa, pv);
       wgmma_commit();
@@ -401,14 +399,16 @@ flash_fwd_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       fence_acc(acc);
     }
   }
-  if constexpr (kSched == 1) {  // the last tile's e V
+  cp_async_wait_all();  // a block that computed no tile still has copies in flight
+  if constexpr (kOverlap) {  // the last tile's e V (with no tile: 0 against the landed Q tile)
+    fence_proxy_async();
+    __syncthreads();
     wgmma_fence();
     wg_regs_nn(acc, pa, pv);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc);
   }
-  cp_async_wait_all();  // a block that computed no tile still has its Q copies in flight
 
   __nv_bfloat16* op = o + b * so.b + h * so.h;
   const long long stat0 = ((long long)b * H + h) * Nq;
@@ -468,7 +468,7 @@ int launch_fwd_dp(int DP, const Mask& mask, const void* q, const void* k, const 
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename Mask, int kSched>
+template <typename Mask>
 int launch_fwd_wg(const Mask& mask, const void* q, const void* k, const void* v, void* o, float* m,
                   float* inv, const long long* st, int B, int H, int Nq, int Nk, float scale,
                   int device, cudaStream_t stream) {
@@ -476,7 +476,7 @@ int launch_fwd_wg(const Mask& mask, const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)B * H * ((Nq + kFwdBQ - 1) / kFwdBQ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto kernel = flash_fwd_wg_kernel<Mask, kSched>;
+  auto kernel = flash_fwd_wg_kernel<Mask>;
   constexpr size_t smem = fwd_wg_smem_bytes<Mask>();
   // the opt-in shared memory is raised once per device, not per call
   static bool raised[64] = {};
@@ -493,11 +493,6 @@ int launch_fwd_wg(const Mask& mask, const void* q, const void* k, const void* v,
       (__nv_bfloat16*)o, m, inv, sq, sk, sv, so, H, Nq, Nk, scale);
   return (int)cudaGetLastError();
 }
-
-// The wgmma kernel's schedule (kSched), set by fwd_set_schedule while the
-// schedules are compared.
-static int g_fwd_sched = 0;
-inline void fwd_set_schedule(int sched) { g_fwd_sched = sched; }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it). strides: 12
 // element strides, (batch, head, seq) of q, k, v, o. m, inv: (B, H, Nq) fp32
@@ -518,11 +513,7 @@ int fwd_dispatch(const Mask& mask, int dtype, const void* q, const void* k, cons
   if (Dh == kMD && mma_aligned(q, strides) && mma_aligned(k, strides + 3) &&
       mma_aligned(v, strides + 6) && strides[9] % 2 == 0 && strides[10] % 2 == 0 &&
       strides[11] % 2 == 0 && (uintptr_t)o % 4 == 0)
-    switch (g_fwd_sched) {
-      case 0: return launch_fwd_wg<Mask, 0>(mask, q, k, v, o, m, inv, strides, B, H, Nq, Nk, scale, device, s);
-      case 1: return launch_fwd_wg<Mask, 1>(mask, q, k, v, o, m, inv, strides, B, H, Nq, Nk, scale, device, s);
-      default: return launch_fwd_wg<Mask, 2>(mask, q, k, v, o, m, inv, strides, B, H, Nq, Nk, scale, device, s);
-    }
+    return launch_fwd_wg<Mask>(mask, q, k, v, o, m, inv, strides, B, H, Nq, Nk, scale, device, s);
   return launch_fwd_dp<Mask, __nv_bfloat16>(DP, mask, q, k, v, o, m, inv, strides, B, H, Nq, Nk, Dh, scale, device, s);
 }
 

@@ -13,16 +13,20 @@
 // backward (flash_attention_spans_bwd.cu).
 //
 // What bounds it on an H100: the work is the allowed (q, k) pairs, not the
-// dense Nq x Nk: 4 H Dh flops per pair, and one exp. In packed training (96
-// rows of 808 tokens, 8 heads, Dh = 64, bf16) 0.642 of the dense pairs are
-// allowed, ~0.083 ms at 989 TFLOP/s (as long again for the exp), against
-// ~0.1 GB of operands (~0.03 ms at 3.35 TB/s). The design skips every key
-// tile in which no row of a warpgroup is allowed (exact: those scores weigh
-// exp(-1e30 - m) = 0), so the tiles it computes follow the allowed pairs up
-// to tile granularity; a segment's window is contiguous and every extra
-// column (a user token) sits in key tile 0. A warp whose rows may attend a
-// whole tile takes no per-score select; within the other computed tiles
-// the masked pairs still cost their products.
+// dense Nq x Nk. In packed training (96 rows of 808 tokens, 8 heads,
+// Dh = 64, bf16) 0.642 of the dense pairs are allowed: 4 Dh tensor flops a
+// pair, 0.083 ms at 989 TFLOP/s, and one exp, 0.077 ms on the
+// special-function units. Bytes: q read and out written for every row, K
+// and V read for the keys some row attends (nearly all of them), the spans
+// and the row statistics: ~0.32 GB, 0.095 ms at 3.35 TB/s, the bound, with
+// the operations close behind (chip_smoke.py counts all three from its
+// run's data). The design skips every key tile in which no row of a
+// warpgroup is allowed (exact: those scores weigh exp(-1e30 - m) = 0), so
+// the tiles it computes follow the allowed pairs up to tile granularity; a
+// segment's window is contiguous and every extra column (a user token)
+// sits in key tile 0. A warp whose rows may attend a whole tile takes no
+// per-score select; within the other computed tiles the masked pairs still
+// cost their products.
 #include "flash_attention_fwd.cuh"
 
 extern "C" {
@@ -42,8 +46,5 @@ int flash_spans_fwd_launch(int dtype, const void* q, const void* k, const void* 
 const char* flash_spans_fwd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
-
-// The wgmma kernel's schedule (flash_attention_fwd.cuh: kSched).
-void flash_spans_fwd_set_schedule(int sched) { flash::fwd_set_schedule(sched); }
 
 }  // extern "C"

@@ -53,16 +53,19 @@ the (B, N, H, Dh) layout and returned as (B, H, N, Dh) views, so the caller's
 
 The TPU kernel's ``block_q`` is a detail of its VMEM tiling and is not an
 argument here: the CUDA kernels tile 64 rows x 64 keys. For bf16 operands
-with Dh = 64 whose rows are 16-byte aligned (the model's case) the kernels
-run on the tensor cores (mma.sync; the flat and span backward on wgmma,
-adding dq into a (B, H, Nq, 64) fp32 accumulator with atomics, so its fp32
-sum order varies from run to run); fp32 operands, other head sizes up to 128
-and unaligned views run an fp32 CUDA-core variant of the same function. The
-kernels take no Dh above ``MAX_DH`` and raise on it; ``attend`` routes such
-heads to its dense path. The span kernels skip every (query tile, key tile)
-pair in which no row may attend any key; that adds exactly nothing to the
-sums (a fully masked row still gives zeros), so only the order of the fp32
-sums differs from the twin's.
+with Dh = 64 whose rows are 16-byte aligned (the model's case) the flat and
+span kernels run on the tensor cores with wgmma: the forward with two
+64-row warpgroups a block sharing each key tile and its softmax in log2
+units (exp2 of one FMA, m converted back to natural units once), the
+backward adding dq into a (B, H, Nq, 64) fp32 accumulator with atomics, so
+its fp32 sum order varies from run to run; fp32 operands, other head sizes
+up to 128 and unaligned views run an fp32 CUDA-core variant of the same
+function. The kernels take no Dh above ``MAX_DH`` and raise on it;
+``attend`` routes such heads to its dense path. The span kernels skip every
+(query tile, key tile) pair in which no row may attend any key, and the bf16
+flat forward every key tile whose keys are all masked; that adds exactly
+nothing to the sums (a fully masked row still gives zeros, m = -1e30 and
+inv = 0), so only the order of the fp32 sums differs from the twin's.
 """
 from __future__ import annotations
 

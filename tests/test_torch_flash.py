@@ -153,9 +153,9 @@ def test_attend_routes_and_matches_jax_attend(n, causal, flash, monkeypatch):
 # The bf16 wgmma forward's arithmetic (csrc/flash_attention_fwd.cuh:
 # flash_fwd_wg_kernel) where it departs from the twins': scores in log2
 # units (scale log2 e folded into one FMA before exp2), no per-score mask on
-# a warp's tiles that need none, key tiles skipped per 64-row warpgroup, an
-# online softmax over 64-key tiles, and m converted back to natural units
-# once. The twins stay the TPU kernels' arithmetic; this emulation is held
+# a warp's tiles that need none, key tiles skipped per 128-row block (key
+# bias) or per 64-row warpgroup (spans), an online softmax over 64-key
+# tiles, and m converted back to natural units once. The twins stay the TPU kernels' arithmetic; this emulation is held
 # against them at the card's bounds (bf16 2e-2, fp32 1e-4).
 # ---------------------------------------------------------------------------
 
@@ -192,7 +192,7 @@ def _wg_forward(q, k, v, *, bias=None, causal=False, spans=None):
             key_need = (bt > 0.5 * tfa.NEG_INF).any(-1)                 # (B,)
             row_need = (k0 <= rows) if causal else torch.ones(nq, dtype=torch.bool)
             need = key_need[:, None] & torch.stack(
-                [row_need[g:g + 64].any() for g in range(0, nq, 64)]).repeat_interleave(64)[:nq][None]
+                [row_need[g:g + 128].any() for g in range(0, nq, 128)]).repeat_interleave(128)[:nq][None]
             warp0 = rows // 16 * 16
             whole = (full & ~(bt != 0).any(-1))[:, None] & (
                 (k0 + 63 <= warp0) if causal else torch.ones(nq, dtype=torch.bool))[None]
