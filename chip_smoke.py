@@ -117,15 +117,25 @@ weights made from a seed and seeded synthetic data:
      three attention kinds (81 x 81 encoder, causal 5 x 5 decoder, 5 x 81
      cross), recorded in the resumed call's first step (unit-RMS upstream
      gradient), and at the decode step's 1 x 1..4, the 32 x 81 beam-folded
-     cross, 241 x 241 (the ML-32M short bucket), a causal 255 x 255 at
-     Dh = 128 and rows with no valid key (exactly 0): bf16 to 2e-2, fp32 to
-     1e-4;
+     cross, a causal 48 x 48, 208 x 96 and a causal 255 x 16 (the widest
+     query sides of the backward's tiles kernel), 241 x 241 (the ML-32M
+     short bucket), a causal 255 x 255 at Dh = 128 and rows with no valid
+     key (exactly 0): bf16 to 2e-2, fp32 to 1e-4; the bf16 backward's
+     dispatch rule as the CPU tests restate it (``small_bwd_route``) against
+     the library's own at every Nq, Nk <= 255;
  22. a 2-user fp32 Amazon step with the switch on, GPU against CPU;
  23. the switch off / on / on / off in turns: the Amazon train step
-     (batch 256) and beam search (256 users, k = 32); the short kernels'
-     times on the encoder operands beside their twins,
-     ``F.scaled_dot_product_attention`` with the mask as an additive bias,
-     the dense ``sdpa`` and the bound; one traced step;
+     (batch 256) and beam search (256 users, k = 32); one traced step; the
+     short kernels at each step shape (phase 21's layer-0 operands: 81 x 81,
+     causal 5 x 5, 5 x 81): CUDA events, profiler device time, the bound
+     (each operand at its own length, K / V over the valid keys, the
+     products over the allowed pairs, the valid-key share beside it), the
+     twin and
+     ``F.scaled_dot_product_attention`` under the same mask (additive bias,
+     causal cut), and the launch-weighted sum of a step (4 launches of each
+     shape); the dense ``sdpa`` at 81 x 81; each flash kernel library's count
+     of ``cudaFuncSetAttribute`` calls, which must be at least 1 and must
+     not grow over further calls;
  24. the width rule of the kernel routes (run after phase 4): ``attend`` at
      Dh = 256 on a span, a short (switch on) and a flat shape, and the
      RQ-VAE's two quantizer routes at embed_dim = 256 (codebook volume
@@ -1765,6 +1775,12 @@ def _amazon_decoder(dev, rq_ckpt, work):
                rand(b, h, 1, dh), None, False, None) for t in (1, 2, 3, 4)]
     cases += [("beam_cross_32x81", rand(b, h, 32, dh), cross["k"], cross["v"], rand(b, h, 32, dh),
                cross["k_mask"], False, None),
+              ("causal_48x48", rand(b, h, 48, dh), rand(b, h, 48, dh), rand(b, h, 48, dh),
+               rand(b, h, 48, dh), ragged(b, 48), True, None),
+              ("tall_208x96", rand(16, h, 208, dh), rand(16, h, 96, dh), rand(16, h, 96, dh),
+               rand(16, h, 208, dh), ragged(16, 96), False, None),
+              ("tall_255x16", rand(16, h, 255, dh), rand(16, h, 16, dh), rand(16, h, 16, dh),
+               rand(16, h, 255, dh), ragged(16, 16), True, None),
               ("bucket_241", rand(16, h, 241, dh), rand(16, h, 241, dh), rand(16, h, 241, dh),
                rand(16, h, 241, dh), ragged(16, 241), False, None),
               ("causal_255_dh128", rand(4, h, 255, 128), rand(4, h, 255, 128), rand(4, h, 255, 128),
@@ -1795,6 +1811,17 @@ def _amazon_decoder(dev, rq_ckpt, work):
             checks.append(row)
             log(f"small vs plain {row}")
     del out, ref, got, want, cases
+    # the Python restatement of the bf16 backward's dispatch rule (the CPU
+    # tests' emulation reads it) against the library's own, at every shape
+    # the short route takes
+    routes = {}
+    for nq in range(1, fa.SMALL_MAX_LEN + 1):
+        for nk in range(1, fa.SMALL_MAX_LEN + 1):
+            got_route, want_route = fa.small_bwd_route(nq, nk), fa.small_bwd_kernel_route(nq, nk)
+            if got_route != want_route:
+                check(False, f"small_bwd_route({nq}, {nk}) = {got_route}, the library's {want_route}")
+            routes[want_route] = routes.get(want_route, 0) + 1
+    log(f"short backward routes over every (Nq, Nk) <= {fa.SMALL_MAX_LEN}: {routes}")
 
     # ---- phase 22: a 2-user fp32 Amazon step, GPU against CPU, switch on ----
     cpu = torch.device("cpu")
@@ -1894,62 +1921,132 @@ def _amazon_decoder(dev, rq_ckpt, work):
         os.environ.pop(SHORT_FLASH_ENV, None)
     del p_ab, st_ab, gen_params
 
+    # the short kernels at each step shape, on layer 0's recorded operands:
+    # events, device time, the bound with every operand at its own length,
+    # the twin and SDPA under the same mask (additive bias, causal cut)
+    per_kind = model_cfg.n_layers // 2   # a step: 4 encoder self, 4 decoder self, 4 cross
+
+    def time_shape(e):
+        q, k, v, km, causal = e["q"], e["k"], e["v"], e["k_mask"], e["causal"]
+        g = unit_rms(e["g"]).to(q.dtype)
+        sb, sh, nq, sdh = q.shape
+        nk = k.shape[2]
+        _, mm, inv = fa.flash_attention_small_fwd(q, k, v, k_mask=km, causal=causal)
+        fns = {"fwd": lambda: fa.flash_attention_small_fwd(q, k, v, k_mask=km, causal=causal),
+               "bwd": lambda: fa.flash_attention_small_bwd(q, k, v, g, mm, inv, k_mask=km,
+                                                           causal=causal)}
+        plain = {"fwd": lambda: fa.flash_attention_small_plain(q, k, v, k_mask=km, causal=causal),
+                 "bwd": lambda: fa.flash_attention_small_bwd_plain(q, k, v, g, k_mask=km,
+                                                                   causal=causal)}
+        mask = fa._key_masker(fa.mask_bias(km, sb, nk, dev), causal)(
+            torch.zeros((sb, 1, nq, nk), device=dev)).to(q.dtype)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        lib_f = lambda: F.scaled_dot_product_attention(*leaves, attn_mask=mask)   # noqa: E731
+        lib_fb = lambda: torch.autograd.backward(   # noqa: E731
+            F.scaled_dot_product_attention(*leaves, attn_mask=mask), g)
+        lib = {"fwd": cuda_ms(lib_f, 50), "fb": cuda_ms(lib_fb, 50)}
+        lib_dev = {"fwd": _device_ms(lib_f, 20), "fb": _device_ms(lib_fb, 20)}
+        out = dict(shape=[sb, sh, nq, nk, sdh], causal=causal, launches_per_step=per_kind)
+        for d in ("fwd", "bwd"):
+            bound = _short_bound(q, k, km, causal, d)
+            out[d] = dict(ms=cuda_ms(fns[d], 50), device_ms=_device_ms(fns[d], 20, f"small_{d}"),
+                          plain_ms=cuda_ms(plain[d], 20), **bound,
+                          library_ms=lib["fwd"] if d == "fwd" else lib["fb"] - lib["fwd"],
+                          library_device_ms=(lib_dev["fwd"] if d == "fwd"
+                                             else lib_dev["fb"] - lib_dev["fwd"]))
+        return out
+
+    shapes = {kind: time_shape(rec[kind]) for kind in ("encoder_self", "decoder_self", "cross")}
+    per_step = {d: {key: sum(sh_[d][key] * sh_["launches_per_step"] for sh_ in shapes.values())
+                    for key in ("ms", "device_ms", "bound_ms", "library_ms", "library_device_ms")}
+                for d in ("fwd", "bwd")}
+    log(f"short kernels by step shape: {shapes}; launch-weighted per step: {per_step}")
+
+    # each kernel library raised its own kernels' opt-in once: every flash
+    # library is loaded by now, and a further call raises nothing
+    libs = (fa.flash_attention_fwd, fa.flash_attention_bwd, fa.flash_attention_spans_fwd,
+            fa.flash_attention_spans_bwd, fa.flash_attention_small_fwd,
+            fa.flash_attention_small_bwd)
+    attribute_calls = {w.__name__: fa.attribute_calls(w) for w in libs}
+    for e in rec.values():
+        _, mm, inv = fa.flash_attention_small_fwd(e["q"], e["k"], e["v"], k_mask=e["k_mask"],
+                                                  causal=e["causal"])
+        fa.flash_attention_small_bwd(e["q"], e["k"], e["v"], unit_rms(e["g"]).to(e["q"].dtype), mm,
+                                     inv, k_mask=e["k_mask"], causal=e["causal"])
+    torch.cuda.synchronize()
+    again = {w.__name__: fa.attribute_calls(w) for w in libs}
+    check(all(n >= 1 for n in attribute_calls.values()),
+          f"a kernel library never raised its kernels' opt-in: {attribute_calls}")
+    check(again == attribute_calls, f"calls after the first raised an opt-in: {attribute_calls} -> "
+          f"{again}")
+    log(f"cudaFuncSetAttribute calls by library: {attribute_calls}")
+
+    enc_t = shapes["encoder_self"]
     q, k, v, km = enc["q"], enc["k"], enc["v"], enc["k_mask"]
     g = unit_rms(enc["g"]).to(q.dtype)
-    fwd_out, mm, inv = fa.flash_attention_small_fwd(q, k, v, k_mask=km)
-    kernel_ms = {"fwd": cuda_ms(lambda: fa.flash_attention_small_fwd(q, k, v, k_mask=km), 50),
-                 "bwd": cuda_ms(lambda: fa.flash_attention_small_bwd(q, k, v, g, mm, inv, k_mask=km),
-                                50)}
-    plain_ms = {"fwd": cuda_ms(lambda: fa.flash_attention_small_plain(q, k, v, k_mask=km), 20),
-                "bwd": cuda_ms(lambda: fa.flash_attention_small_bwd_plain(q, k, v, g, k_mask=km), 20)}
-    lib_mask = fa.mask_bias(km, b, n, dev)[:, None, None, :].to(q.dtype)
-    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask), 50)
-    sdpa_fwd_bwd = cuda_ms(lambda: torch.autograd.backward(
-        F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask), g), 50)
-    bnhd = [t.transpose(1, 2) for t in leaves]
+    bnhd = [t.clone().requires_grad_(True).transpose(1, 2) for t in (q, k, v)]
     dense_mask = attn_ops.build_mask(n, n, k_mask=km)
     with torch.no_grad():
         dense_fwd = cuda_ms(lambda: attn_ops.sdpa(*bnhd, dense_mask), 50)
     dense_fwd_bwd = cuda_ms(lambda: torch.autograd.backward(
         attn_ops.sdpa(*bnhd, dense_mask), g.transpose(1, 2)), 50)
-    device_ms = {
-        "fwd": _device_ms(lambda: fa.flash_attention_small_fwd(q, k, v, k_mask=km), 20, "small_fwd"),
-        "bwd": _device_ms(lambda: fa.flash_attention_small_bwd(q, k, v, g, mm, inv, k_mask=km), 20,
-                          "small_bwd"),
-        "sdpa_fwd": _device_ms(lambda: F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask),
-                               20),
-        "sdpa_fwd_bwd": _device_ms(lambda: torch.autograd.backward(
-            F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask), g), 20)}
-    del leaves, bnhd
-    flops = 4 * b * h * n * n * dh
-    elt = q.element_size()
-    fwd_bytes = elt * 4 * b * h * n * dh + 4 * b * n + 8 * b * h * n
-    bwd_bytes = elt * 7 * b * h * n * dh + 4 * b * n + 8 * b * h * n
+    del bnhd
     kernels = []
-    for name, ops, nbytes, line, lib in (
-            ("flash_attention_small_fwd", flops, fwd_bytes, 272, sdpa_fwd),
-            ("flash_attention_small_bwd", flops * 10 // 4, bwd_bytes, 296, sdpa_fwd_bwd - sdpa_fwd)):
-        t_ops, t_bytes = ops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-        short = name.rsplit("_", 1)[1]
+    for name, d, line in (("flash_attention_small_fwd", "fwd", 272),
+                          ("flash_attention_small_bwd", "bwd", 296)):
+        t = enc_t[d]
         kernels.append(dict(
             name=name, route="cuda", source=f"rqvae_tpu_torch/csrc/{name}.cu",
             replaces=f"rqvae_tpu/ops/flash_attention.py:{line}",
-            launches=main_launches[name], max_abs_err=errs[short], ms=kernel_ms[short],
-            plain_ms=plain_ms[short], bound_ms=max(t_ops, t_bytes) * 1e3,
-            bound_by="operations" if t_ops > t_bytes else "bytes", library_ms=lib))
-    log(f"short kernels at B={b}, H={h}, N={n}, Dh={dh} {q.dtype}: {kernels}; device time "
-        f"{device_ms}; dense sdpa {dense_fwd:.4f} / {dense_fwd_bwd - dense_fwd:.4f} ms")
+            launches=main_launches[name], max_abs_err=errs[d], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], device_ms=t["device_ms"],
+            shapes={kind: {key: shapes[kind][d][key] for key in
+                           ("ms", "device_ms", "bound_ms", "plain_ms", "library_ms",
+                            "library_device_ms")} | {"launches_per_step": per_kind}
+                    for kind in shapes},
+            ms_per_step=per_step[d]["ms"], device_ms_per_step=per_step[d]["device_ms"]))
+    log(f"short kernels at B={b}, H={h}, N={n}, Dh={dh} {q.dtype}: {kernels}; dense sdpa "
+        f"{dense_fwd:.4f} / {dense_fwd_bwd - dense_fwd:.4f} ms")
     amazon.update(
-        small_checks=checks,
+        small_checks=checks, small_bwd_routes=routes,
         gpu_vs_cpu=dict(users=2, tokens=4 * N_HIST + 1, loss_rel_err=loss_rel,
                         worst_leaf_rel_err=leaf_rel),
         switch_ab=ab, train_profile=profile,   # one traced step, switch off and on
-        attention_ms=dict(shape=[b, h, n, dh], kernel=kernel_ms, kernel_device=device_ms,
-                          plain=plain_ms,
-                          sdpa_library={"fwd": sdpa_fwd, "bwd": sdpa_fwd_bwd - sdpa_fwd},
-                          dense_sdpa={"fwd": dense_fwd, "bwd": dense_fwd_bwd - dense_fwd}))
+        attention_ms=dict(step_shapes=shapes, per_step=per_step,
+                          dense_sdpa={"fwd": dense_fwd, "bwd": dense_fwd_bwd - dense_fwd}),
+        attribute_calls=attribute_calls)
     return amazon, kernels
+
+
+def _short_bound(q, k, k_mask, causal: bool, direction: str) -> dict:
+    """The least time a short attention kernel (``fwd`` or ``bwd``) could take
+    on these operands: the larger of its bytes over the memory rate and its
+    products over the bf16 tensor-core rate. q, the output, g and the
+    gradients count over every row; K and V reads only over the valid keys
+    (a masked key weighs nothing: the kernels need its K and V for no row,
+    and its dk and dv rows are written as zeros); the products (4 Dh a pair
+    forward, 10 Dh backward) over the (query, key) pairs the mask allows."""
+    import torch
+
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
+    valid = torch.ones((b, nk), dtype=torch.bool, device=q.device) if k_mask is None else k_mask
+    allowed = valid[:, None, :].expand(b, nq, nk)
+    if causal:
+        allowed = allowed & torch.ones((nq, nk), dtype=torch.bool, device=q.device).tril()
+    pairs = h * int(allowed.sum())
+    valid_keys = int(valid.sum())
+    elt = q.element_size()
+    kv_bytes = elt * 2 * h * dh * valid_keys
+    stats = 4 * b * nk + 8 * b * h * nq   # key bias; m, inv
+    rows = {"fwd": 2 * nq, "bwd": 3 * nq + 2 * nk}[direction]   # q, out / q, g, dq; dk, dv
+    nbytes = elt * b * h * dh * rows + kv_bytes + stats
+    flops = {"fwd": 4, "bwd": 10}[direction] * dh * pairs
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops > t_bytes else "bytes", bytes=nbytes, flops=flops,
+                valid_key_share=valid_keys / (b * nk), pair_share=int(allowed.sum()) / (b * nq * nk))
 
 
 def _hold_stats(what, dtype, m, inv, ref_m, ref_inv) -> dict:

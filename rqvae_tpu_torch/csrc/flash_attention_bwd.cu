@@ -40,4 +40,6 @@ int flash_bwd_mma_path(int dtype, const void* q, const void* k, const void* v, c
 
 const char* flash_bwd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
+FLASH_EXPORT_ATTRIBUTE_CALLS(flash_bwd)
+
 }  // extern "C"

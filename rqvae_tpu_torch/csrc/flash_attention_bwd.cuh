@@ -771,7 +771,7 @@ int bwd_dispatch(const Mask& mask, int dtype, const void* q, const void* k, cons
   if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0) return 0;
   const int DP = dp_for(Dh);
   if (Dh <= 0 || DP == 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   const BwdStrides s(strides);

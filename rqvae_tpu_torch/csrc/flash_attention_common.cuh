@@ -20,6 +20,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace flash {
 
 constexpr int kThreads = 256;
@@ -591,14 +593,109 @@ inline bool mma_aligned(const void* p, const long long* st) {
   return ((uintptr_t)p % 16 == 0) && st[0] % 8 == 0 && st[1] % 8 == 0 && st[2] % 8 == 0;
 }
 
+// ---- per-library launch state ----
+//
+// A kernel's dynamic shared-memory opt-in (cudaFuncSetAttribute), the
+// device's limits and the occupancy of a launch shape are asked once and
+// kept, so a launch after the first makes none of those runtime calls. The
+// state has internal linkage: each kernel library (one .cu each) keeps its
+// own table. A function-local static of an inline function or template
+// would not do: g++ gives it STB_GNU_UNIQUE binding, and the loader then
+// shares one copy among the separately loaded libraries, so one library's
+// flag would stand for another library's kernel. Entries are keyed on the
+// kernel's host function pointer and the device.
+namespace {
+
+struct FuncState {
+  const void* fn;
+  int device;
+  size_t raised;          // the opt-in set so far (0: none)
+  int occ_threads;        // the last occupancy query: block size, bytes,
+  size_t occ_smem;        // and its answer (blocks an SM)
+  int occ_blocks;
+};
+constexpr int kMaxFuncs = 128;
+constexpr int kMaxDevices = 64;
+FuncState g_funcs[kMaxFuncs];
+int g_n_funcs = 0;
+int g_optin[kMaxDevices];   // max opt-in shared memory a block; 0 = not read yet
+int g_sms[kMaxDevices];     // streaming multiprocessors; 0 = not read yet
+long long g_attribute_calls = 0;   // cudaFuncSetAttribute calls this library made
+std::mutex g_state_mutex;          // ctypes drops the GIL around a launch
+
+FuncState* func_state(const void* fn, int device) {
+  for (int i = 0; i < g_n_funcs; ++i)
+    if (g_funcs[i].fn == fn && g_funcs[i].device == device) return &g_funcs[i];
+  if (g_n_funcs == kMaxFuncs) return nullptr;
+  g_funcs[g_n_funcs] = {fn, device, 0, 0, 0, 0};
+  return &g_funcs[g_n_funcs++];
+}
+
+}  // namespace
+
+// Make ``device`` current for the launch (a kernel library links its own
+// CUDA runtime): a thread-local read, and a set only when it differs.
+inline cudaError_t use_device(int device) {
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err == cudaSuccess && cur == device) return cudaSuccess;
+  return cudaSetDevice(device);
+}
+
+// Let ``kernel`` take ``smem`` bytes of dynamic shared memory on
+// ``device`` (current): the opt-in is raised on the first launch that needs
+// it, and on a later one only if it needs more.
 template <typename Kernel>
 inline cudaError_t prepare(Kernel kernel, size_t smem, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  int max_optin = 0;
-  cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if ((long long)smem > max_optin) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(g_state_mutex);
+  FuncState* st = func_state((const void*)kernel, device);
+  if (st != nullptr && st->raised >= smem) return cudaSuccess;
+  if (g_optin[device] == 0) {
+    int v = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+    g_optin[device] = v;
+  }
+  if ((long long)smem > g_optin[device]) return cudaErrorInvalidValue;
+  ++g_attribute_calls;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && st != nullptr) st->raised = smem;
+  return err;
 }
+
+// Blocks of ``threads`` threads and ``smem`` bytes that fit on one SM at
+// once (0 on an error), asked once per (kernel, device, shape) in a row.
+template <typename Kernel>
+inline int blocks_per_sm(Kernel kernel, int threads, size_t smem, int device) {
+  std::lock_guard<std::mutex> lock(g_state_mutex);
+  FuncState* st = func_state((const void*)kernel, device);
+  if (st != nullptr && st->occ_threads == threads && st->occ_smem == smem) return st->occ_blocks;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) != cudaSuccess) n = 0;
+  if (st != nullptr) {
+    st->occ_threads = threads;
+    st->occ_smem = smem;
+    st->occ_blocks = n;
+  }
+  return n;
+}
+
+inline int sm_count(int device) {
+  if (device < 0 || device >= kMaxDevices) return 0;
+  std::lock_guard<std::mutex> lock(g_state_mutex);
+  if (g_sms[device] == 0) {
+    int v = 0;
+    if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) return 0;
+    g_sms[device] = v;
+  }
+  return g_sms[device];
+}
+
+// A library's count of cudaFuncSetAttribute calls, exported as
+// ``<prefix>_attribute_calls`` (the checks read it to show that each
+// library raises its own kernels' opt-in once).
+#define FLASH_EXPORT_ATTRIBUTE_CALLS(prefix) \
+  long long prefix##_attribute_calls() { return flash::g_attribute_calls; }
 
 }  // namespace flash

@@ -39,4 +39,6 @@ int flash_fwd_launch(int dtype, const void* q, const void* k, const void* v, con
 
 const char* flash_fwd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
+FLASH_EXPORT_ATTRIBUTE_CALLS(flash_fwd)
+
 }  // extern "C"

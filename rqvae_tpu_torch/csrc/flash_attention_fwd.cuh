@@ -472,20 +472,12 @@ template <typename Mask>
 int launch_fwd_wg(const Mask& mask, const void* q, const void* k, const void* v, void* o, float* m,
                   float* inv, const long long* st, int B, int H, int Nq, int Nk, float scale,
                   int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)B * H * ((Nq + kFwdBQ - 1) / kFwdBQ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   auto kernel = flash_fwd_wg_kernel<Mask>;
   constexpr size_t smem = fwd_wg_smem_bytes<Mask>();
-  // the opt-in shared memory is raised once per device, not per call
-  static bool raised[64] = {};
-  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
-  if (!raised[device]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    raised[device] = true;
-  }
+  cudaError_t err = prepare(kernel, smem, device);
+  if (err != cudaSuccess) return (int)err;
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]},
       so{st[9], st[10], st[11]};
   kernel<<<(unsigned)blocks, kFwdThreads, smem, stream>>>(
@@ -506,6 +498,8 @@ int fwd_dispatch(const Mask& mask, int dtype, const void* q, const void* k, cons
   if (B <= 0 || H <= 0 || Nq <= 0) return 0;
   const int DP = dp_for(Dh);
   if (Nk <= 0 || Dh <= 0 || DP == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_fwd_dp<Mask, float>(DP, mask, q, k, v, o, m, inv, strides, B, H, Nq, Nk, Dh, scale, device, s);

@@ -11,9 +11,11 @@
 // scores, then the causal cut col <= row (query rows counted from 0, no
 // block offset), -inf for the zero-filled keys past Nk.
 //
-// Tensor-core tiles (bf16, Dh = 64): a staged operand is [rows][kMP] bf16
-// (flash_attention_common.cuh's 144-byte pitch), rows padded to a multiple of
-// 16 with zeros; the e / ds tiles of the backward are [q rows][keys + 8]
+// Tensor-core tiles (bf16, Dh = 64): a staged operand of the forward and of
+// the backward's strip kernel is [rows][kMP] bf16 (flash_attention_common.cuh's
+// 144-byte pitch; the backward's other kernels use the swizzled 128-byte rows
+// below), rows padded to a multiple of 16 with zeros; the e / ds tiles of the
+// backward are [q rows][keys + 8]
 // (an odd number of 16-byte chunks a row, so ldmatrix rows fall in distinct
 // banks). Fragment layouts are those of flash_attention_common.cuh.
 #pragma once
@@ -115,6 +117,128 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long row_str
       *reinterpret_cast<uint32_t*>(dst + (long long)row * row_stride + 8 * j + 2 * c) =
           pack_bf16(acc[j][2 * r] * mul, acc[j][2 * r + 1] * mul);
   }
+}
+
+// ---- the backward's unpadded, swizzled tiles (flash_attention_small_bwd.cu) ----
+//
+// A staged operand is [rows][64] bf16 with no pitch padding: 16-byte chunk
+// ch of row r lies at chunk ch ^ (r % 8), so the eight rows one ldmatrix
+// phase reads fall in distinct banks. 128 bytes a row instead of 144 is what
+// lets the tiles kernel's ring (two query sides, a key side, e and ds) fit
+// twice on an SM at 81 tokens.
+
+// element offset of (r, col) in such a tile
+__device__ __forceinline__ int sw(int r, int col) {
+  return r * kMD + ((((col >> 3) ^ r) & 7) << 3) + (col & 7);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start the copies of the first n_pad rows of a (n, 64) bf16 slice into a
+// swizzled tile (rows past n become zeros); threads tid of nthreads share them.
+__device__ __forceinline__ void stage_rows_sw(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                              long long row_stride, int n, int n_pad, int tid,
+                                              int nthreads) {
+  for (int e = tid; e < n_pad * 8; e += nthreads) {
+    const int r = e >> 3, ch = e & 7;
+    const bool ok = r < n;
+    cp_async16(dst + sw(r, 8 * ch), ok ? src + (long long)r * row_stride + 8 * ch : src, ok ? 16 : 0);
+  }
+}
+
+// The same for n_pad fp32 values of a contiguous row (zeros past n).
+__device__ __forceinline__ void stage_floats(float* dst, const float* src, int n, int n_pad, int tid,
+                                             int nthreads) {
+  for (int j = tid; j < n_pad; j += nthreads) {
+    const bool ok = j < n;
+    cp_async4(dst + j, ok ? src + j : src, ok ? 4 : 0);
+  }
+}
+
+// A fragments (16 rows x 64 dims, four k-steps of 16) of rows row0.. of a
+// swizzled tile.
+__device__ __forceinline__ void load_a_sw(uint32_t f[4][4], const __nv_bfloat16* tile, int row0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    ldsm_x4(f[s], tile + sw(row0 + (lane & 7) + 8 * ((lane >> 3) & 1), 16 * s + 8 * (lane >> 4)));
+}
+
+// acc0 / acc1 (16 x 8 each: tile rows kr..kr+7 and kr+8..kr+15) += A B with
+// A a warp's 16 x 64 fragments and B[k][n] = tile[kr + n][k]: q k^T, g v^T
+// and, with k or v as A, their transposes.
+__device__ __forceinline__ void mma_nt_sw(float acc0[4], float acc1[4], const uint32_t f[4][4],
+                                          const __nv_bfloat16* tile, int kr) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    uint32_t b[4];
+    ldsm_x4(b, tile + sw(kr + (lane & 7) + 8 * (lane >> 4), 16 * s + 8 * ((lane >> 3) & 1)));
+    mma16816(acc0, f[s], b[0], b[1]);
+    mma16816(acc1, f[s], b[2], b[3]);
+  }
+}
+
+// A bf16 pair times two fp32 factors, rounded back to a bf16 pair.
+__device__ __forceinline__ uint32_t scale_pair(uint32_t w, float lo, float hi) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  return pack_bf16(f.x * lo, f.y * hi);
+}
+
+// acc (16 x 64) += A B over one k-step of 16 tile rows: A a packed bf16
+// fragment (registers), B[k][n] = tile[kr + k][n] (ds k, ds^T q, e^T g).
+// kScale: B's row k is first multiplied by rs[kr + k] and rounded to bf16,
+// as bf16(g * inv) is formed for dv, with no third staged copy of g.
+template <bool kScale>
+__device__ __forceinline__ void mma_pa_sw(float acc[8][4], const uint32_t a[4],
+                                          const __nv_bfloat16* tile, int kr, const float* rs) {
+  const int lane = threadIdx.x & 31;
+  float f[4];
+  if (kScale) {
+    const int k0 = kr + 2 * (lane & 3);
+    f[0] = rs[k0], f[1] = rs[k0 + 1], f[2] = rs[k0 + 8], f[3] = rs[k0 + 9];
+  }
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    uint32_t b[4];
+    ldsm_x4_t(b, tile + sw(kr + (lane & 7) + 8 * ((lane >> 3) & 1), 16 * jj + 8 * (lane >> 4)));
+    if (kScale) {   // b[0], b[2]: rows kr + 2c, +1; b[1], b[3]: rows kr + 8 + 2c, +1
+      b[0] = scale_pair(b[0], f[0], f[1]);
+      b[2] = scale_pair(b[2], f[0], f[1]);
+      b[1] = scale_pair(b[1], f[2], f[3]);
+      b[3] = scale_pair(b[3], f[2], f[3]);
+    }
+    mma16816(acc[2 * jj], a, b[0], b[1]);
+    mma16816(acc[2 * jj + 1], a, b[2], b[3]);
+  }
+}
+
+// The A fragment of a 16 x 16 block from its fp32 C fragments (columns 0-7
+// in p0, 8-15 in p1), rounded to bf16.
+__device__ __forceinline__ void pack_a(uint32_t a[4], const float p0[4], const float p1[4]) {
+  a[0] = pack_bf16(p0[0], p0[1]);
+  a[1] = pack_bf16(p0[2], p0[3]);
+  a[2] = pack_bf16(p1[0], p1[1]);
+  a[3] = pack_bf16(p1[2], p1[3]);
+}
+
+// The transpose of an 8 x 8 bf16 block held as a warp's fragment (thread t:
+// row t / 4, columns 2 (t % 4) and + 1), in the same layout.
+__device__ __forceinline__ uint32_t transpose8x8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// The A fragment of the transpose of a 16 x 16 block given by its A fragment.
+__device__ __forceinline__ void transpose_a(uint32_t t[4], const uint32_t a[4]) {
+  t[0] = transpose8x8(a[0]);
+  t[1] = transpose8x8(a[2]);
+  t[2] = transpose8x8(a[1]);
+  t[3] = transpose8x8(a[3]);
 }
 
 // How many (batch, head) pairs one CTA owns: enough to give it up to

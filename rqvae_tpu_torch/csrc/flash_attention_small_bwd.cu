@@ -20,26 +20,42 @@
 // What bounds it on an H100: at the Amazon encoder shape (B = 256, H = 8,
 // N = 81, Dh = 64, bf16) it moves q, k, v, g, dq, dk and dv, 7 x 21.2 MB,
 // 0.044 ms at 3.35 TB/s, against 10 B H Nq Nk Dh = 8.6 GFLOP, 0.0087 ms at
-// 989 TFLOP/s: bytes. So, as the forward, a CTA stages its pairs' q, k, v
-// and g once (16-byte cp.async) and does everything from shared memory.
+// 989 TFLOP/s: bytes. Tensor-core rate is not the limit; keeping loads in
+// flight, and enough warps to hide the latency of each warp's chain of
+// ldmatrix, mma and exp, is. So the bf16 Dh = 64 kernels are persistent and
+// keep the next pair's copies in flight under the current pair's math
+// (cp.async groups; in the rows kernel, other warps' pairs), in tiles of
+// 128-byte swizzled rows small enough that two tiles CTAs fit on an SM.
 //
-// Two variants compute the same function:
-//   * small_bwd_mma_kernel<SKT, QPW>: bf16, Dh = 64, 16-byte-aligned rows
-//     (the model's case), mma.sync m16n8k16 with fp32 accumulate. Keys are
-//     taken in strips of SKT tiles of 16. Per strip: each warp owns 16
-//     query rows (QPW such tiles at most), computes s and dp for the strip
-//     in registers, forms ds, accumulates dq (ds k) in registers and stages
-//     bf16(e) and bf16(ds) in shared memory; after a barrier each warp owns
-//     16 keys of the strip and takes dk = ds^T q and dv = e^T (g inv) over
-//     every query row of the pair, then writes them: each key's dk and dv
-//     are final within its strip, so nothing is accumulated across CTAs or
-//     strips. When one strip holds every key (Nk <= 96, Nq <= 128: every
-//     Amazon shape) c is taken in the same pass from the whole row, so the
-//     kernel recomputes nothing. Wider shapes (the 241-token ML-32M bucket,
-//     255 x 255) do not fit one strip in 227 KB of shared memory (q, g,
-//     g * inv and the e / ds tiles of 256 rows): they walk strips of 32 keys
-//     and take c in a first pass over the strips, which recomputes s and dp
-//     once.
+// Four variants compute the same function:
+//   * small_bwd_tiles_kernel<KT>: bf16, Dh = 64, 16-byte-aligned rows, Nk <=
+//     96 (KT <= 6 key tiles of 16) and more than 16 queries: the encoder's
+//     81 x 81. Persistent CTAs of 6 warps, two an SM (168 registers), walk
+//     the (batch, head) pairs. Query pass: a warp owns 16 query rows, takes
+//     s and dp over every key in registers (mma.sync m16n8k16), c from the
+//     whole row, ds, dq = ds k written from registers, and stages bf16 e
+//     and ds ([q][key] tiles). Key pass: a warp owns 16 keys, dk = ds^T q
+//     and dv = e^T bf16(g * inv), the g * inv rows formed as the product
+//     reads them (no third copy of g). The query side (q, g, m, inv) is
+//     double-buffered and the next pair's copies start with each pair; the
+//     key side (k, v, key bias) is read only by the query pass, so the next
+//     pair's copies refill it under the key pass. Each key's dk and dv are
+//     final in its warp. (Recomputing s^T and dp^T in the key pass instead
+//     of staging e and ds, to fit more pairs in shared memory, left the
+//     kernel bound by its own math: 0.130 against 0.098 ms at 81 x 81 on an
+//     H100, PERF.md.)
+//   * small_bwd_rows_kernel<KT>: the same operands with at most 16 queries:
+//     the decoder's 5 x 5, the cross attention's 5 x 81, a decode step's
+//     1 x T. A warp owns whole pairs and walks them through its own stage
+//     (the other warps' copies land under its math): s, dp, c, ds
+//     and dq as above, then per key tile dk and dv from the same registers,
+//     e and ds transposed in registers (movmatrix). No barrier but the warp's.
+//   * small_bwd_mma_kernel<SKT, QPW>: the same operands with Nk > 96 (the
+//     241-token ML-32M bucket, 255 x 255), or a tiles-kernel shape whose
+//     query side does not fit shared memory (Nq > 208): one pair a CTA,
+//     keys in strips of 32, c in a first pass over the strips, then per
+//     strip ds and dq on query-owner warps, bf16 e and ds staged in shared
+//     memory, dk and dv on key-owner warps.
 //   * small_bwd_kernel<T, DP>: fp32 operands, other head sizes (Dh <= 128)
 //     and unaligned views, fp32 FMAs on the CUDA cores, one CTA a pair: per
 //     64-row query tile a pass for c and a pass for ds and dq over the key
@@ -49,11 +65,15 @@
 #include "flash_attention_bwd.cuh"
 #include "flash_attention_small.cuh"
 
+#include <algorithm>
+
 namespace flash {
 namespace small {
 
-constexpr int kSingleStripKT = 6;   // one strip when KT <= 6 and n_qt <= 8
-constexpr int kMultiStripKT = 2;    // else strips of 2 key tiles (32 keys)
+constexpr int kRowKT = 6;          // the tiles / rows kernels hold a whole score row: Nk <= 96
+constexpr int kMultiStripKT = 2;   // wider rows: strips of 2 key tiles (32 keys)
+constexpr int kTileWarps = 6;      // and its warps: two CTAs an SM hold 12 at <= 168 registers
+constexpr long long kOneCtaSmem = 232448;   // the shared memory a CTA may take
 
 // e (masked, exponentiated against the stored row max) and dp = g v^T of a
 // warp's 16 query rows (tile qt) against key strip st staged in Ks / Vs.
@@ -94,15 +114,296 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(kFull, v, 2);
 }
 
+// exp(s - m) of the score of key ``col`` for query ``row`` from its raw
+// q k^T product: -inf past Nk (weighs nothing), the key bias, the causal cut.
+__device__ __forceinline__ float exp_score(float dot, float scale, float bias, int row, int col,
+                                           int Nk, int causal, float m) {
+  if (col >= Nk) return 0.f;
+  const float s = (causal && col > row) ? kNegInf : dot * scale + bias;
+  return __expf(s - m);
+}
+
+// The query side of 16 rows (row0..) of a staged pair, as one warp: s and
+// dp over the KT key tiles, c = rowsum(dp e) inv, ds = e ((dp - c) inv)
+// packed to bf16 A fragments (keys 16 t.. in ds_a[t]); e packed likewise
+// when e_a is given; bf16 e and ds stored to the [row][key] tiles Es, Ds
+// (pitch ep) when they are given.
+template <int KT>
+__device__ __forceinline__ void query_side(const __nv_bfloat16* Qs, const __nv_bfloat16* Gs,
+                                           const __nv_bfloat16* Ks, const __nv_bfloat16* Vs,
+                                           const float* ms, const float* is, const float* bs,
+                                           int row0, int Nk, int causal, float scale,
+                                           uint32_t ds_a[KT][4], uint32_t (*e_a)[4],
+                                           __nv_bfloat16* Es, __nv_bfloat16* Ds, int ep) {
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2, c = lane & 3;
+  float e[2 * KT][4], dp[2 * KT][4];
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) e[j][x] = dp[j][x] = 0.f;
+  {
+    uint32_t f[4][4];
+    load_a_sw(f, Qs, row0);
+#pragma unroll
+    for (int t = 0; t < KT; ++t) mma_nt_sw(e[2 * t], e[2 * t + 1], f, Ks, 16 * t);
+    load_a_sw(f, Gs, row0);
+#pragma unroll
+    for (int t = 0; t < KT; ++t) mma_nt_sw(dp[2 * t], dp[2 * t + 1], f, Vs, 16 * t);
+  }
+  const int rows[2] = {row0 + gr, row0 + gr + 8};
+  const float m[2] = {ms[rows[0]], ms[rows[1]]};
+  const float inv[2] = {is[rows[0]], is[rows[1]]};
+  float part[2] = {0.f, 0.f}, cr[2];
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * c);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int r = x >> 1, col = 8 * j + 2 * c + (x & 1);
+      e[j][x] = exp_score(e[j][x], scale, (x & 1) ? b.y : b.x, rows[r], col, Nk, causal, m[r]);
+      part[r] = fmaf(dp[j][x], e[j][x], part[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) cr[r] = quad_sum(part[r]) * inv[r];
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) dp[j][x] = e[j][x] * ((dp[j][x] - cr[x >> 1]) * inv[x >> 1]);
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    pack_a(ds_a[t], dp[2 * t], dp[2 * t + 1]);
+    if (e_a != nullptr) pack_a(e_a[t], e[2 * t], e[2 * t + 1]);
+    if (Es != nullptr) {   // bf16 e and ds at (row, key) of [nqp][ep] tiles
+      uint32_t ea[4];
+      pack_a(ea, e[2 * t], e[2 * t + 1]);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {   // A fragment x: row + 8 (x & 1), key + 8 (x >> 1)
+        const int off = (rows[x & 1]) * ep + 16 * t + 8 * (x >> 1) + 2 * c;
+        *reinterpret_cast<uint32_t*>(Es + off) = ea[x];
+        *reinterpret_cast<uint32_t*>(Ds + off) = ds_a[t][x];
+      }
+    }
+  }
+}
+
+// dq rows row0.. of a pair = ds k * scale, from the packed ds, stored.
+template <int KT>
+__device__ __forceinline__ void store_dq(const uint32_t ds_a[KT][4], const __nv_bfloat16* Ks,
+                                         __nv_bfloat16* dst, long long row_stride, int row0, int Nq,
+                                         float scale) {
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[j][x] = 0.f;
+#pragma unroll
+  for (int t = 0; t < KT; ++t) mma_pa_sw<false>(acc, ds_a[t], Ks, 16 * t, nullptr);
+  store_rows(dst, row_stride, row0, Nq, acc, scale);
+}
+
+// One (batch, head) pair's operands in shared memory: q, g [nqp][64] and
+// k, v [nkp][64] swizzled bf16, m, inv [nqp] and the key bias [nkp] fp32.
+// The query side (q, g, m, inv) and the key side (k, v, bias) are fetched
+// apart: the tiles kernel double-buffers the first and refills the second
+// in place.
+struct PairStage {
+  __nv_bfloat16 *Q, *G, *K, *V;
+  float *M, *I, *B;
+  // every operand in one block at base: Q, G, K, V, M, I, B
+  __device__ __forceinline__ PairStage(unsigned char* base, int nqp, int nkp) {
+    Q = reinterpret_cast<__nv_bfloat16*>(base);
+    G = Q + nqp * kMD;
+    K = G + nqp * kMD;
+    V = K + nkp * kMD;
+    M = reinterpret_cast<float*>(V + nkp * kMD);
+    I = M + nqp;
+    B = I + nqp;
+  }
+  // the query side at qbase (Q, G, M, I), the key side at kbase (K, V, B)
+  __device__ __forceinline__ PairStage(unsigned char* qbase, unsigned char* kbase, int nqp, int nkp) {
+    Q = reinterpret_cast<__nv_bfloat16*>(qbase);
+    G = Q + nqp * kMD;
+    M = reinterpret_cast<float*>(G + nqp * kMD);
+    I = M + nqp;
+    K = reinterpret_cast<__nv_bfloat16*>(kbase);
+    V = K + nkp * kMD;
+    B = reinterpret_cast<float*>(V + nkp * kMD);
+  }
+  // start the copies of pair bh's query side (threads tid of n); padded
+  // rows get m = inv = 0, so they weigh nothing
+  __device__ __forceinline__ void fetch_q(const __nv_bfloat16* q, const __nv_bfloat16* g,
+                                          const float* m_in, const float* inv_in, const Strides& sq,
+                                          const Strides& sg, int bh, int H, int Nq, int nqp,
+                                          int tid, int n) const {
+    const int b = bh / H, h = bh % H;
+    stage_rows_sw(Q, q + b * sq.b + h * sq.h, sq.n, Nq, nqp, tid, n);
+    stage_rows_sw(G, g + b * sg.b + h * sg.h, sg.n, Nq, nqp, tid, n);
+    stage_floats(M, m_in + (long long)bh * Nq, Nq, nqp, tid, n);
+    stage_floats(I, inv_in + (long long)bh * Nq, Nq, nqp, tid, n);
+  }
+  // ... and its key side
+  __device__ __forceinline__ void fetch_k(const __nv_bfloat16* k, const __nv_bfloat16* v,
+                                          const float* bias, const Strides& sk, const Strides& sv,
+                                          int bh, int H, int Nk, int nkp, int tid, int n) const {
+    const int b = bh / H, h = bh % H;
+    stage_rows_sw(K, k + b * sk.b + h * sk.h, sk.n, Nk, nkp, tid, n);
+    stage_rows_sw(V, v + b * sv.b + h * sv.h, sv.n, Nk, nkp, tid, n);
+    stage_floats(B, bias + (long long)b * Nk, Nk, nkp, tid, n);
+  }
+};
+
+__host__ __device__ constexpr long long pair_stage_bytes(int nqp, int nkp) {
+  return (2LL * nqp + 2LL * nkp) * kMD * 2 + (2LL * nqp + nkp) * 4;
+}
+
+#define SMALL_BWD_PARAMS                                                                        \
+  const __nv_bfloat16 *__restrict__ q, const __nv_bfloat16 *__restrict__ k,                      \
+      const __nv_bfloat16 *__restrict__ v, const float *__restrict__ bias,                       \
+      const __nv_bfloat16 *__restrict__ g, const float *__restrict__ m_in,                       \
+      const float *__restrict__ inv_in, __nv_bfloat16 *__restrict__ dq,                          \
+      __nv_bfloat16 *__restrict__ dk, __nv_bfloat16 *__restrict__ dv, Strides sq, Strides sk,    \
+      Strides sv, Strides sg, Strides sdq, Strides sdk, Strides sdv, int BH, int H, int Nq,      \
+      int Nk, int causal, float scale
+
+// The tiles kernel's shared memory: two query-side stages (q, g, m, inv),
+// one key side (k, v, key bias), and the bf16 e and ds tiles [nqp][ep].
+__host__ __device__ constexpr long long tiles_qside_bytes(int nqp) { return nqp * (2LL * kMD * 2 + 8); }
+__host__ __device__ constexpr long long tiles_kside_bytes(int nkp) { return nkp * (2LL * kMD * 2 + 4); }
+__host__ __device__ constexpr long long tiles_smem_bytes(int nqp, int nkp) {
+  return 2 * tiles_qside_bytes(nqp) + tiles_kside_bytes(nkp) + 2LL * nqp * (nkp + 8) * 2;
+}
+
+template <int KT>
+__global__ void __launch_bounds__(kTileWarps * 32, 2)
+small_bwd_tiles_kernel(SMALL_BWD_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int nkp = 16 * KT;
+  constexpr int ep = nkp + 8;   // an odd number of 16-byte chunks a row: conflict-free ldmatrix
+  const int n_qt = (Nq + 15) / 16;
+  const int nqp = 16 * n_qt;
+  unsigned char* kbase = smem_raw + 2 * tiles_qside_bytes(nqp);
+  __nv_bfloat16* Es = reinterpret_cast<__nv_bfloat16*>(kbase + tiles_kside_bytes(nkp));
+  __nv_bfloat16* Ds = Es + nqp * ep;
+  auto stage = [&](int i) {
+    return PairStage(smem_raw + i * tiles_qside_bytes(nqp), kbase, nqp, nkp);
+  };
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  // Copy groups, oldest first: {q side 0, k side 0}, then per pair i
+  // {q side i + 1} at its start and {k side i + 1} after its query pass.
+  int bh = blockIdx.x;
+  if (bh < BH) {
+    stage(0).fetch_q(q, g, m_in, inv_in, sq, sg, bh, H, Nq, nqp, tid, nt);
+    stage(0).fetch_k(k, v, bias, sk, sv, bh, H, Nk, nkp, tid, nt);
+  }
+  cp_async_commit();
+  for (int it = 0; bh < BH; bh += gridDim.x, ++it) {
+    const PairStage st = stage(it & 1);
+    const int next = bh + gridDim.x;
+    // the next pair's query side, into the stage the previous pair's key
+    // pass read before its final barrier
+    if (next < BH) stage((it + 1) & 1).fetch_q(q, g, m_in, inv_in, sq, sg, next, H, Nq, nqp, tid, nt);
+    cp_async_commit();
+    cp_async_wait<1>();   // all but that group: this pair's q and k sides (this thread's copies)
+    __syncthreads();      // ... and every thread's
+    const int b = bh / H, h = bh % H;
+
+    // query pass: c, ds and dq of 16 rows a warp; bf16 e and ds staged
+    for (int qt = warp; qt < n_qt; qt += nwarps) {
+      uint32_t ds_a[KT][4];
+      query_side<KT>(st.Q, st.G, st.K, st.V, st.M, st.I, st.B, 16 * qt, Nk, causal, scale, ds_a,
+                     nullptr, Es, Ds, ep);
+      store_dq<KT>(ds_a, st.K, dq + b * sdq.b + h * sdq.h, sdq.n, 16 * qt, Nq, scale);
+    }
+    __syncthreads();   // e and ds are staged; k, v and the key bias are read
+    if (next < BH) st.fetch_k(k, v, bias, sk, sv, next, H, Nk, nkp, tid, nt);
+    cp_async_commit();   // lands under the key pass
+
+    // key pass: dk = ds^T q and dv = e^T bf16(g inv) of 16 keys a warp
+    for (int kt = warp; kt < KT; kt += nwarps) {
+      float dka[8][4], dva[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) dka[j][x] = dva[j][x] = 0.f;
+      for (int qs = 0; qs < n_qt; ++qs) {
+        if (causal && 16 * qs + 15 < 16 * kt) continue;   // no row of the tile sees these keys
+        uint32_t da[4], ea[4];
+        const int off = (16 * qs + (lane & 7) + 8 * (lane >> 4)) * ep + 16 * kt + 8 * ((lane >> 3) & 1);
+        ldsm_x4_t(da, Ds + off);   // the A fragments of ds^T and e^T (keys x rows)
+        ldsm_x4_t(ea, Es + off);
+        mma_pa_sw<false>(dka, da, st.Q, 16 * qs, nullptr);
+        mma_pa_sw<true>(dva, ea, st.G, 16 * qs, st.I);
+      }
+      store_rows(dk + b * sdk.b + h * sdk.h, sdk.n, 16 * kt, Nk, dka, scale);
+      store_rows(dv + b * sdv.b + h * sdv.h, sdv.n, 16 * kt, Nk, dva, 1.f);
+    }
+    __syncthreads();   // e, ds and this query side are read
+  }
+}
+
+template <int KT>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+small_bwd_rows_kernel(SMALL_BWD_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int nkp = 16 * KT;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const PairStage st(smem_raw + (long long)warp * pair_stage_bytes(16, nkp), 16, nkp);
+  auto fetch = [&](int pair) {   // the warp's lanes copy a whole pair
+    st.fetch_q(q, g, m_in, inv_in, sq, sg, pair, H, Nq, 16, lane, 32);
+    st.fetch_k(k, v, bias, sk, sv, pair, H, Nk, nkp, lane, 32);
+  };
+  const int step = gridDim.x * nwarps;
+
+  int bh = blockIdx.x * nwarps + warp;
+  if (bh < BH)
+    fetch(bh);
+  cp_async_commit();
+  for (; bh < BH; bh += step) {
+    cp_async_wait<0>();
+    __syncwarp();   // every lane's copies of this pair are visible to the warp
+    const int b = bh / H, h = bh % H;
+    uint32_t ds_a[KT][4], e_a[KT][4];
+    query_side<KT>(st.Q, st.G, st.K, st.V, st.M, st.I, st.B, 0, Nk, causal, scale, ds_a, e_a,
+                   nullptr, nullptr, 0);
+    store_dq<KT>(ds_a, st.K, dq + b * sdq.b + h * sdq.h, sdq.n, 0, Nq, scale);
+    // per key tile: dk = ds^T q, dv = e^T bf16(g * inv) over the 16 rows
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      uint32_t at[4];
+      float acc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[j][x] = 0.f;
+      transpose_a(at, ds_a[t]);
+      mma_pa_sw<false>(acc, at, st.Q, 0, nullptr);
+      store_rows(dk + b * sdk.b + h * sdk.h, sdk.n, 16 * t, Nk, acc, scale);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[j][x] = 0.f;
+      transpose_a(at, e_a[t]);
+      mma_pa_sw<true>(acc, at, st.G, 0, st.I);
+      store_rows(dv + b * sdv.b + h * sdv.h, sdv.n, 16 * t, Nk, acc, 1.f);
+    }
+    __syncwarp();   // this stage is read
+    if (bh + step < BH)
+      fetch(bh + step);
+    cp_async_commit();
+  }
+}
+
 template <int SKT, int QPW>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-small_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-                     const __nv_bfloat16* __restrict__ g, const float* __restrict__ m_in,
-                     const float* __restrict__ inv_in, __nv_bfloat16* __restrict__ dq,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Strides sq,
-                     Strides sk, Strides sv, Strides sg, Strides sdq, Strides sdk, Strides sdv,
-                     int BH, int H, int Nq, int Nk, int G, int causal, float scale) {
+small_bwd_mma_kernel(SMALL_BWD_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int skp = 16 * SKT;   // keys of a strip
   constexpr int ep = skp + 8;     // pitch of the e / ds tiles
@@ -111,91 +412,72 @@ small_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int KT = (Nk + 15) / 16;
   const int nkp = 16 * KT;
   const int n_strips = (KT + SKT - 1) / SKT;
-  // per pair: Q, G, N (= g * inv) [nqp][kMP]; K, V [skp][kMP]; E, D [nqp][ep]
-  const int pair_elems = 3 * nqp * kMP + 2 * skp * kMP + 2 * nqp * ep;
-  const int pair_floats = 2 * nqp + nkp;   // m, inv per row; the key bias
-  __nv_bfloat16* base = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  float* fbase = reinterpret_cast<float*>(base + G * pair_elems);
-  auto Qs = [&](int p) { return base + p * pair_elems; };
-  auto Gs = [&](int p) { return Qs(p) + nqp * kMP; };
-  auto Ns = [&](int p) { return Gs(p) + nqp * kMP; };
-  auto Ks = [&](int p) { return Ns(p) + nqp * kMP; };
-  auto Vs = [&](int p) { return Ks(p) + skp * kMP; };
-  auto Es = [&](int p) { return Vs(p) + skp * kMP; };
-  auto Ds = [&](int p) { return Es(p) + nqp * ep; };
-  auto Ms = [&](int p) { return fbase + p * pair_floats; };
-  auto Is = [&](int p) { return Ms(p) + nqp; };
-  auto Bs = [&](int p) { return Is(p) + nqp; };
+  // the CTA's pair: Q, G, N (= g * inv) [nqp][kMP]; K, V [skp][kMP]; E, D
+  // [nqp][ep]; m, inv [nqp] and the key bias [nkp] fp32
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Gs = Qs + nqp * kMP;
+  __nv_bfloat16* Ns = Gs + nqp * kMP;
+  __nv_bfloat16* Ks = Ns + nqp * kMP;
+  __nv_bfloat16* Vs = Ks + skp * kMP;
+  __nv_bfloat16* Es = Vs + skp * kMP;
+  __nv_bfloat16* Ds = Es + nqp * ep;
+  float* Ms = reinterpret_cast<float*>(Ds + nqp * ep);
+  float* Is = Ms + nqp;
+  float* Bs = Is + nqp;
 
-  const int pair0 = blockIdx.x * G;
-  const int npairs = min(G, BH - pair0);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   auto stage_strip = [&](int st) {
-    for (int p = 0; p < npairs; ++p) {
-      const int bh = pair0 + p, b = bh / H, h = bh % H;
-      stage_rows(Ks(p), k + b * sk.b + h * sk.h, sk.n, st * skp, Nk, skp);
-      stage_rows(Vs(p), v + b * sv.b + h * sv.h, sv.n, st * skp, Nk, skp);
-    }
+    stage_rows(Ks, k + b * sk.b + h * sk.h, sk.n, st * skp, Nk, skp);
+    stage_rows(Vs, v + b * sv.b + h * sv.h, sv.n, st * skp, Nk, skp);
   };
-  for (int p = 0; p < npairs; ++p) {
-    const int bh = pair0 + p, b = bh / H, h = bh % H;
-    stage_rows(Qs(p), q + b * sq.b + h * sq.h, sq.n, 0, Nq, nqp);
-    stage_rows(Gs(p), g + b * sg.b + h * sg.h, sg.n, 0, Nq, nqp);
-    for (int j = threadIdx.x; j < nqp; j += blockDim.x) {
-      const bool ok = j < Nq;   // padded rows: m = inv = 0, so they weigh nothing
-      Ms(p)[j] = ok ? m_in[(long long)bh * Nq + j] : 0.f;
-      Is(p)[j] = ok ? inv_in[(long long)bh * Nq + j] : 0.f;
-    }
-    for (int j = threadIdx.x; j < nkp; j += blockDim.x)
-      Bs(p)[j] = j < Nk ? bias[(long long)b * Nk + j] : 0.f;
+  stage_rows(Qs, q + b * sq.b + h * sq.h, sq.n, 0, Nq, nqp);
+  stage_rows(Gs, g + b * sg.b + h * sg.h, sg.n, 0, Nq, nqp);
+  for (int j = threadIdx.x; j < nqp; j += blockDim.x) {
+    const bool ok = j < Nq;   // padded rows: m = inv = 0, so they weigh nothing
+    Ms[j] = ok ? m_in[(long long)bh * Nq + j] : 0.f;
+    Is[j] = ok ? inv_in[(long long)bh * Nq + j] : 0.f;
   }
-  if (n_strips == 1) stage_strip(0);
+  for (int j = threadIdx.x; j < nkp; j += blockDim.x) Bs[j] = j < Nk ? bias[(long long)b * Nk + j] : 0.f;
   cp_async_wait_all();
   __syncthreads();
-  for (int p = 0; p < npairs; ++p)   // g * inv cast to bf16, read after the next barrier
-    for (int e = threadIdx.x; e < nqp * kMD; e += blockDim.x) {
-      const int r = e / kMD, d = e % kMD;
-      Ns(p)[r * kMP + d] = __float2bfloat16(__bfloat162float(Gs(p)[r * kMP + d]) * Is(p)[r]);
-    }
+  for (int e = threadIdx.x; e < nqp * kMD; e += blockDim.x) {   // g * inv as bf16, read after the next barrier
+    const int r = e / kMD, d = e % kMD;
+    Ns[r * kMP + d] = __float2bfloat16(__bfloat162float(Gs[r * kMP + d]) * Is[r]);
+  }
 
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const int lane = threadIdx.x & 31;
   const int gr = lane >> 2;
   const int c = lane & 3;
-  const int n_items = npairs * n_qt;
 
   float cr[QPW][2];
 #pragma unroll
   for (int s = 0; s < QPW; ++s) cr[s][0] = cr[s][1] = 0.f;
-  if (n_strips > 1) {   // c first, over every strip (a recompute; wide shapes only)
-    for (int st = 0; st < n_strips; ++st) {
-      __syncthreads();   // the previous strip's reads are done
-      stage_strip(st);
-      cp_async_wait_all();
-      __syncthreads();
-#pragma unroll
-      for (int s = 0; s < QPW; ++s) {
-        const int item = warp + s * nwarps;
-        if (item >= n_items) continue;
-        const int p = item / n_qt;
-        float e[2 * SKT][4], dp[2 * SKT][4];
-        strip_scores<SKT>(Qs(p), Gs(p), Ks(p), Vs(p), Ms(p), Bs(p), item % n_qt, st, KT, Nk,
-                          causal, scale, e, dp);
-#pragma unroll
-        for (int j = 0; j < 2 * SKT; ++j)
-#pragma unroll
-          for (int x = 0; x < 4; ++x) cr[s][x >> 1] = fmaf(dp[j][x], e[j][x], cr[s][x >> 1]);
-      }
-    }
+  // c first, over every strip (a recompute of s and dp)
+  for (int st = 0; st < n_strips; ++st) {
+    __syncthreads();   // the previous strip's reads are done
+    stage_strip(st);
+    cp_async_wait_all();
+    __syncthreads();
 #pragma unroll
     for (int s = 0; s < QPW; ++s) {
-      const int item = warp + s * nwarps;
-      if (item >= n_items) continue;
-      const float* is = Is(item / n_qt);
-      const int qt = item % n_qt;
+      const int qt = warp + s * nwarps;
+      if (qt >= n_qt) continue;
+      float e[2 * SKT][4], dp[2 * SKT][4];
+      strip_scores<SKT>(Qs, Gs, Ks, Vs, Ms, Bs, qt, st, KT, Nk, causal, scale, e, dp);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) cr[s][r] = quad_sum(cr[s][r]) * is[16 * qt + gr + 8 * r];
+      for (int j = 0; j < 2 * SKT; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) cr[s][x >> 1] = fmaf(dp[j][x], e[j][x], cr[s][x >> 1]);
     }
+  }
+#pragma unroll
+  for (int s = 0; s < QPW; ++s) {
+    const int qt = warp + s * nwarps;
+    if (qt >= n_qt) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) cr[s][r] = quad_sum(cr[s][r]) * Is[16 * qt + gr + 8 * r];
   }
 
   float dqa[QPW][8][4];
@@ -207,32 +489,19 @@ small_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       for (int x = 0; x < 4; ++x) dqa[s][j][x] = 0.f;
 
   for (int st = 0; st < n_strips; ++st) {
-    if (n_strips > 1) {
-      __syncthreads();   // the previous strip's reads (dq, dk, dv) are done
-      stage_strip(st);
-      cp_async_wait_all();
-    }
+    __syncthreads();   // the previous strip's reads (dq, dk, dv) are done
+    stage_strip(st);
+    cp_async_wait_all();
     __syncthreads();   // the strip is staged and N complete
 
     // query side: ds, dq += ds k, and bf16(e), bf16(ds) staged for dk / dv
 #pragma unroll
     for (int s = 0; s < QPW; ++s) {
-      const int item = warp + s * nwarps;
-      if (item >= n_items) continue;
-      const int p = item / n_qt, qt = item % n_qt;
+      const int qt = warp + s * nwarps;
+      if (qt >= n_qt) continue;
       float e[2 * SKT][4], dp[2 * SKT][4];
-      strip_scores<SKT>(Qs(p), Gs(p), Ks(p), Vs(p), Ms(p), Bs(p), qt, st, KT, Nk, causal, scale,
-                        e, dp);
-      const float inv[2] = {Is(p)[16 * qt + gr], Is(p)[16 * qt + gr + 8]};
-      if (n_strips == 1) {   // the whole row is here: c in the same pass
-        float part[2] = {0.f, 0.f};
-#pragma unroll
-        for (int j = 0; j < 2 * SKT; ++j)
-#pragma unroll
-          for (int x = 0; x < 4; ++x) part[x >> 1] = fmaf(dp[j][x], e[j][x], part[x >> 1]);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) cr[s][r] = quad_sum(part[r]) * inv[r];
-      }
+      strip_scores<SKT>(Qs, Gs, Ks, Vs, Ms, Bs, qt, st, KT, Nk, causal, scale, e, dp);
+      const float inv[2] = {Is[16 * qt + gr], Is[16 * qt + gr + 8]};
 #pragma unroll
       for (int j = 0; j < 2 * SKT; ++j)
 #pragma unroll
@@ -240,23 +509,20 @@ small_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
           dp[j][x] = e[j][x] * ((dp[j][x] - cr[s][x >> 1]) * inv[x >> 1]);   // ds
 #pragma unroll
       for (int t = 0; t < SKT; ++t)
-        if (st * SKT + t < KT) mma_nn16(dqa[s], dp[2 * t], dp[2 * t + 1], Ks(p), 16 * t);
-      __nv_bfloat16* es = Es(p);
-      __nv_bfloat16* ds = Ds(p);
+        if (st * SKT + t < KT) mma_nn16(dqa[s], dp[2 * t], dp[2 * t + 1], Ks, 16 * t);
 #pragma unroll
       for (int j = 0; j < 2 * SKT; ++j)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int off = (16 * qt + gr + 8 * r) * ep + 8 * j + 2 * c;
-          *reinterpret_cast<uint32_t*>(es + off) = pack_bf16(e[j][2 * r], e[j][2 * r + 1]);
-          *reinterpret_cast<uint32_t*>(ds + off) = pack_bf16(dp[j][2 * r], dp[j][2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(Es + off) = pack_bf16(e[j][2 * r], e[j][2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(Ds + off) = pack_bf16(dp[j][2 * r], dp[j][2 * r + 1]);
         }
     }
     __syncthreads();   // e and ds of every query row of the strip are staged
 
     // key side: each warp owns 16 keys of the strip; dk, dv over all rows
-    for (int item = warp; item < npairs * SKT; item += nwarps) {
-      const int p = item / SKT, jj = item % SKT;
+    for (int jj = warp; jj < SKT; jj += nwarps) {
       const int kt = st * SKT + jj;
       if (kt >= KT) continue;
       float dka[8][4], dva[8][4];
@@ -265,10 +531,9 @@ small_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #pragma unroll
         for (int x = 0; x < 4; ++x) dka[j][x] = dva[j][x] = 0.f;
       for (int qs = 0; qs < n_qt; ++qs) {
-        mma_tn16(dka, Ds(p), ep, 16 * jj, 16 * qs, Qs(p));
-        mma_tn16(dva, Es(p), ep, 16 * jj, 16 * qs, Ns(p));
+        mma_tn16(dka, Ds, ep, 16 * jj, 16 * qs, Qs);
+        mma_tn16(dva, Es, ep, 16 * jj, 16 * qs, Ns);
       }
-      const int bh = pair0 + p, b = bh / H, h = bh % H;
       store_rows(dk + b * sdk.b + h * sdk.h, sdk.n, 16 * kt, Nk, dka, scale);
       store_rows(dv + b * sdv.b + h * sdv.h, sdv.n, 16 * kt, Nk, dva, 1.f);
     }
@@ -276,10 +541,8 @@ small_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
 #pragma unroll
   for (int s = 0; s < QPW; ++s) {
-    const int item = warp + s * nwarps;
-    if (item >= n_items) continue;
-    const int bh = pair0 + item / n_qt, b = bh / H, h = bh % H;
-    store_rows(dq + b * sdq.b + h * sdq.h, sdq.n, 16 * (item % n_qt), Nq, dqa[s], scale);
+    const int qt = warp + s * nwarps;
+    if (qt < n_qt) store_rows(dq + b * sdq.b + h * sdq.h, sdq.n, 16 * qt, Nq, dqa[s], scale);
   }
 }
 
@@ -476,6 +739,29 @@ inline long long bwd_pair_smem(int nqp, int nkp, int skt) {
          (2LL * nqp + nkp) * 4;
 }
 
+// The bf16 Dh = 64 kernel of a shape: a warp a pair (rows), a CTA a pair
+// at a time (tiles) or key strips of 32 (strips). The one place this rule
+// lives: flash_small_bwd_route exports it.
+enum BwdRoute { kRouteRows = 0, kRouteTiles = 1, kRouteStrips = 2 };
+inline int bwd_route(int Nq, int Nk) {
+  const int KT = (Nk + 15) / 16, n_qt = (Nq + 15) / 16;
+  if (KT > kRowKT) return kRouteStrips;
+  if (n_qt == 1) return kRouteRows;
+  return tiles_smem_bytes(16 * n_qt, 16 * KT) <= kOneCtaSmem ? kRouteTiles : kRouteStrips;
+}
+
+template <typename Kernel, typename... Args>
+inline int launch_persistent(Kernel kernel, int warps, long long smem, int units, int device,
+                             cudaStream_t stream, Args... args) {
+  cudaError_t err = prepare(kernel, (size_t)smem, device);
+  if (err != cudaSuccess) return (int)err;
+  const int per_sm = blocks_per_sm(kernel, 32 * warps, (size_t)smem, device);
+  if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
+  const long long grid = std::min<long long>(units, (long long)per_sm * sm_count(device));
+  kernel<<<(unsigned)grid, 32 * warps, (size_t)smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 inline int launch_bwd_mma(const void* q, const void* k, const void* v, const float* bias,
                           const void* g, const float* m, const float* inv, void* dq, void* dk,
                           void* dv, const Strides* st, int B, int H, int Nq, int Nk, int causal,
@@ -483,40 +769,48 @@ inline int launch_bwd_mma(const void* q, const void* k, const void* v, const flo
   const int KT = (Nk + 15) / 16;
   const int n_qt = (Nq + 15) / 16;
   const int BH = B * H;
-  int skt, qpw, G, warps;
-  if (KT <= kSingleStripKT && n_qt <= kMaxWarps) {   // one strip: every key at once
-    skt = KT;
-    qpw = 1;
-    G = pick_group(BH, n_qt, bwd_pair_smem(16 * n_qt, 16 * KT, skt), kMaxWarps);
-    warps = min(kMaxWarps, G * max(n_qt, KT));
-  } else {
-    skt = kMultiStripKT;
-    G = 1;
-    warps = kMaxWarps;
-    qpw = (n_qt + warps - 1) / warps;
-  }
-  const size_t smem = (size_t)(G * bwd_pair_smem(16 * n_qt, 16 * KT, skt));
-  decltype(&small_bwd_mma_kernel<1, 1>) kernel = nullptr;
-  if (qpw == 1) {
-    switch (skt) {
-      case 1: kernel = small_bwd_mma_kernel<1, 1>; break;
-      case 2: kernel = small_bwd_mma_kernel<2, 1>; break;
-      case 3: kernel = small_bwd_mma_kernel<3, 1>; break;
-      case 4: kernel = small_bwd_mma_kernel<4, 1>; break;
-      case 5: kernel = small_bwd_mma_kernel<5, 1>; break;
-      case 6: kernel = small_bwd_mma_kernel<6, 1>; break;
+  typedef const __nv_bfloat16* P;
+  typedef __nv_bfloat16* O;
+#define SMALL_BWD_ARGS                                                                        \
+  (P)q, (P)k, (P)v, bias, (P)g, m, inv, (O)dq, (O)dk, (O)dv, st[0], st[1], st[2], st[3], st[4], \
+      st[5], st[6], BH, H, Nq, Nk, causal, scale
+  const int route = bwd_route(Nq, Nk);
+  if (route == kRouteRows) {   // a warp a pair, one stage a warp
+    const long long stage = pair_stage_bytes(16, 16 * KT);
+    const int warps = (int)std::min<long long>(kOneCtaSmem / stage, kMaxWarps);
+    const long long smem = warps * stage;
+    const int units = (BH + warps - 1) / warps;
+    switch (KT) {
+#define SMALL_BWD_ROWS(n)                                                                     \
+  case n:                                                                                     \
+    return launch_persistent(small_bwd_rows_kernel<n>, warps, smem, units, device, stream,    \
+                             SMALL_BWD_ARGS);
+      SMALL_BWD_ROWS(1) SMALL_BWD_ROWS(2) SMALL_BWD_ROWS(3)
+      SMALL_BWD_ROWS(4) SMALL_BWD_ROWS(5) SMALL_BWD_ROWS(6)
+#undef SMALL_BWD_ROWS
     }
-  } else if (qpw == 2 && skt == kMultiStripKT) {
-    kernel = small_bwd_mma_kernel<kMultiStripKT, 2>;
   }
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  if (route == kRouteTiles) {   // a CTA a pair at a time
+    const int warps = std::min(kTileWarps, std::max(n_qt, KT));
+    const long long smem = tiles_smem_bytes(16 * n_qt, 16 * KT);
+    switch (KT) {
+#define SMALL_BWD_TILES(n)                                                                    \
+  case n:                                                                                     \
+    return launch_persistent(small_bwd_tiles_kernel<n>, warps, smem, BH, device, stream,      \
+                             SMALL_BWD_ARGS);
+      SMALL_BWD_TILES(1) SMALL_BWD_TILES(2) SMALL_BWD_TILES(3)
+      SMALL_BWD_TILES(4) SMALL_BWD_TILES(5) SMALL_BWD_TILES(6)
+#undef SMALL_BWD_TILES
+    }
+  }
+  // key strips of 32, a CTA a pair
+  const int qpw = (n_qt + kMaxWarps - 1) / kMaxWarps;
+  const size_t smem = (size_t)bwd_pair_smem(16 * n_qt, 16 * KT, kMultiStripKT);
+  auto kernel = qpw == 1 ? small_bwd_mma_kernel<kMultiStripKT, 1> : small_bwd_mma_kernel<kMultiStripKT, 2>;
   cudaError_t err = prepare(kernel, smem, device);
   if (err != cudaSuccess) return (int)err;
-  typedef const __nv_bfloat16* P;
-  kernel<<<(unsigned)((BH + G - 1) / G), 32 * warps, smem, stream>>>(
-      (P)q, (P)k, (P)v, bias, (P)g, m, inv, (__nv_bfloat16*)dq, (__nv_bfloat16*)dk,
-      (__nv_bfloat16*)dv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], BH, H, Nq, Nk, G,
-      causal, scale);
+  kernel<<<(unsigned)BH, 32 * kMaxWarps, smem, stream>>>(SMALL_BWD_ARGS);
+#undef SMALL_BWD_ARGS
   return (int)cudaGetLastError();
 }
 
@@ -570,7 +864,7 @@ int flash_small_bwd_launch(int dtype, const void* q, const void* k, const void* 
   if (Nq > small::kMaxLen || Nk > small::kMaxLen || Dh <= 0 || DP == 0 ||
       (long long)B * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   Strides st[7];
   for (int i = 0; i < 7; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
@@ -590,6 +884,13 @@ int flash_small_bwd_launch(int dtype, const void* q, const void* k, const void* 
   return small::launch_bwd_dp<__nv_bfloat16>(DP, q, k, v, bias, g, m, inv, dq, dk, dv, st, B, H, Nq, Nk, Dh, causal, scale, device, s);
 }
 
+// The bf16 Dh = 64 kernel that takes an (Nq, Nk) shape of aligned operands:
+// 0 = small_bwd_rows_kernel, 1 = small_bwd_tiles_kernel, 2 =
+// small_bwd_mma_kernel (key strips).
+int flash_small_bwd_route(int Nq, int Nk) { return flash::small::bwd_route(Nq, Nk); }
+
 const char* flash_small_bwd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+FLASH_EXPORT_ATTRIBUTE_CALLS(flash_small_bwd)
 
 }  // extern "C"

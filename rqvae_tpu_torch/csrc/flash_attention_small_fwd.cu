@@ -346,7 +346,7 @@ int flash_small_fwd_launch(int dtype, const void* q, const void* k, const void* 
   if (Nk <= 0 || Nq > small::kMaxLen || Nk > small::kMaxLen || Dh <= 0 || DP == 0 ||
       (long long)B * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   const Strides st[4] = {{strides[0], strides[1], strides[2]}, {strides[3], strides[4], strides[5]},
                          {strides[6], strides[7], strides[8]}, {strides[9], strides[10], strides[11]}};
@@ -362,5 +362,7 @@ int flash_small_fwd_launch(int dtype, const void* q, const void* k, const void* 
 }
 
 const char* flash_small_fwd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+FLASH_EXPORT_ATTRIBUTE_CALLS(flash_small_fwd)
 
 }  // extern "C"

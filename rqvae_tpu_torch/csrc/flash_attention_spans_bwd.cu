@@ -49,4 +49,6 @@ const char* flash_spans_bwd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+FLASH_EXPORT_ATTRIBUTE_CALLS(flash_spans_bwd)
+
 }  // extern "C"

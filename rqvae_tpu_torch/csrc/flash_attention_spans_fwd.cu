@@ -47,4 +47,6 @@ const char* flash_spans_fwd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+FLASH_EXPORT_ATTRIBUTE_CALLS(flash_spans_fwd)
+
 }  // extern "C"

@@ -279,13 +279,22 @@ def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _bias_fwd(wrapper, q, k, v, k_mask, causal):
+def attribute_calls(wrapper) -> int:
+    """How many ``cudaFuncSetAttribute`` calls the kernel library of
+    ``wrapper`` has made in this process (each library raises its kernels'
+    shared-memory opt-in once, csrc/flash_attention_common.cuh)."""
+    fn = _c_function(wrapper, "attribute_calls")
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return int(fn())
+
+
+def _bias_fwd(wrapper, q, k, v, bias, causal):
     """The body of the key-bias forward wrappers (``flash_attention_fwd``,
-    ``flash_attention_small_fwd``: one C signature)."""
+    ``flash_attention_small_fwd``: one C signature), given the (B, Nk) key
+    bias of ``mask_bias``."""
     dev = q.device
     b, h, nq, dh = q.shape
     nk = k.shape[2]
-    bias = mask_bias(k_mask, b, nk, dev)
     if dev.type == "cpu":
         return _plain_fwd(q, k, v, _key_masker(bias, causal))
     _check_kernel_operands((q, k, v), ("q", "k", "v"))
@@ -299,15 +308,14 @@ def _bias_fwd(wrapper, q, k, v, k_mask, causal):
     return out, m, inv
 
 
-def _bias_bwd(wrapper, q, k, v, g, m, inv, k_mask, causal):
+def _bias_bwd(wrapper, q, k, v, g, m, inv, bias, causal):
     """The body of the key-bias backward wrappers (``flash_attention_bwd``,
     whose kernels take the scratch of ``_bwd_scratch``, and
-    ``flash_attention_small_bwd``, one kernel, none)."""
-    dev = _check_operands(q, k, v, (g, m, inv))
+    ``flash_attention_small_bwd``, one kernel, none), given the forward's
+    (B, Nk) key bias."""
+    dev = q.device
     b, h, nq, dh = q.shape
     nk = k.shape[2]
-    _check_bwd_operands(q, g, m, inv)
-    bias = mask_bias(k_mask, b, nk, dev)
     if dev.type == "cpu":
         return _plain_bwd(q, k, v, g, _key_masker(bias, causal))
     _check_kernel_operands((q, k, v, g), ("q", "k", "v", "g"))
@@ -331,7 +339,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """(out, m, inv): the attention output (B, H, Nq, Dh) in q's dtype and
     the row statistics the backward reads, each (B, H, Nq) fp32."""
     _check_operands(q, k, v)
-    return _bias_fwd(flash_attention_fwd, q, k, v, k_mask, causal)
+    return _bias_fwd(flash_attention_fwd, q, k, v, mask_bias(k_mask, q.shape[0], k.shape[2], q.device),
+                     causal)
 
 
 flash_attention_fwd.launches = 0
@@ -343,7 +352,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: to
     """(dq, dk, dv) for the upstream gradient ``g`` (B, H, Nq, Dh), given the
     forward's row statistics ``m`` and ``inv`` (the CPU twin recomputes
     them)."""
-    return _bias_bwd(flash_attention_bwd, q, k, v, g, m, inv, k_mask, causal)
+    _check_operands(q, k, v, (g, m, inv))
+    _check_bwd_operands(q, g, m, inv)
+    return _bias_bwd(flash_attention_bwd, q, k, v, g, m, inv,
+                     mask_bias(k_mask, q.shape[0], k.shape[2], q.device), causal)
 
 
 flash_attention_bwd.launches = 0
@@ -351,23 +363,26 @@ flash_attention_bwd.launches = 0
 
 class _FlashAttention(torch.autograd.Function):
     """flash_attention (``small`` False) or flash_attention_small (True):
-    the same function and saved statistics, other kernels."""
+    the same function and saved statistics, other kernels. The operands are
+    checked by the caller; the key bias is built once, in the forward, and
+    saved for the backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, k_mask, causal, small):
         fwd = flash_attention_small_fwd if small else flash_attention_fwd
-        out, m, inv = fwd(q, k, v, k_mask=k_mask, causal=causal)
-        ctx.save_for_backward(q, k, v, k_mask, m, inv)
+        bias = mask_bias(k_mask, q.shape[0], k.shape[2], q.device)
+        out, m, inv = _bias_fwd(fwd, q, k, v, bias, causal)
+        ctx.save_for_backward(q, k, v, bias, m, inv)
         ctx.causal, ctx.small = causal, small
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, k_mask, m, inv = ctx.saved_tensors
+        q, k, v, bias, m, inv = ctx.saved_tensors
         if g.stride(-1) != 1:
             g = g.contiguous()  # autograd may hand over any layout; one copy then
         bwd = flash_attention_small_bwd if ctx.small else flash_attention_bwd
-        dq, dk, dv = bwd(q, k, v, g, m, inv, k_mask=k_mask, causal=ctx.causal)
+        dq, dk, dv = _bias_bwd(bwd, q, k, v, g, m, inv, bias, ctx.causal)
         return dq, dk, dv, None, None, None
 
 
@@ -410,7 +425,8 @@ def flash_attention_small_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     them, from ``csrc/flash_attention_small_fwd.cu``."""
     _check_operands(q, k, v)
     _check_small(q, k)
-    return _bias_fwd(flash_attention_small_fwd, q, k, v, k_mask, causal)
+    return _bias_fwd(flash_attention_small_fwd, q, k, v,
+                     mask_bias(k_mask, q.shape[0], k.shape[2], q.device), causal)
 
 
 flash_attention_small_fwd.launches = 0
@@ -423,11 +439,40 @@ def flash_attention_small_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     given the forward's row statistics (the CPU twin recomputes them), from
     the one-shot kernel ``csrc/flash_attention_small_bwd.cu``."""
     _check_operands(q, k, v, (g, m, inv))
+    _check_bwd_operands(q, g, m, inv)
     _check_small(q, k)
-    return _bias_bwd(flash_attention_small_bwd, q, k, v, g, m, inv, k_mask, causal)
+    return _bias_bwd(flash_attention_small_bwd, q, k, v, g, m, inv,
+                     mask_bias(k_mask, q.shape[0], k.shape[2], q.device), causal)
 
 
 flash_attention_small_bwd.launches = 0
+
+SMALL_BWD_ROUTES = ("rows", "tiles", "strips")
+
+
+def small_bwd_route(nq: int, nk: int) -> str:
+    """The bf16 Dh = 64 kernel of ``csrc/flash_attention_small_bwd.cu`` that
+    takes an (Nq, Nk) shape (``SMALL_BWD_ROUTES``: a warp a pair, a CTA a
+    pair at a time, key strips), restated from its dispatcher (``bwd_route``)
+    for the CPU emulation of that kernel's arithmetic. ``chip_smoke.py``
+    holds it against the library's own answer, ``small_bwd_kernel_route``."""
+    nqp, nkp = 16 * -(-nq // 16), 16 * -(-nk // 16)
+    if nkp > 96:
+        return "strips"
+    if nqp == 16:
+        return "rows"
+    # two query sides (q, g, m, inv), one key side (k, v, key bias), bf16 e and ds
+    smem = 2 * nqp * (4 * 64 + 8) + nkp * (4 * 64 + 4) + 2 * nqp * (nkp + 8) * 2
+    return "tiles" if smem <= 232448 else "strips"
+
+
+def small_bwd_kernel_route(nq: int, nk: int) -> str:
+    """``small_bwd_route`` as the kernel library answers it (built at first
+    use)."""
+    fn = _c_function(flash_attention_small_bwd, "route")
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [_I, _I], ctypes.c_int
+    return SMALL_BWD_ROUTES[fn(nq, nk)]
 
 
 def flash_attention_small(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
