@@ -119,10 +119,15 @@ weights made from a seed and seeded synthetic data:
      gradient), and at the decode step's 1 x 1..4, the 32 x 81 beam-folded
      cross, a causal 48 x 48, 208 x 96 and a causal 255 x 16 (the widest
      query sides of the backward's tiles kernel), 241 x 241 (the ML-32M
-     short bucket), a causal 255 x 255 at Dh = 128 and rows with no valid
-     key (exactly 0): bf16 to 2e-2, fp32 to 1e-4; the bf16 backward's
-     dispatch rule as the CPU tests restate it (``small_bwd_route``) against
-     the library's own at every Nq, Nk <= 255;
+     short bucket), a causal 255 x 255 at Dh = 128, and the encoder's
+     operands under three more masks: two batch rows with no valid key
+     (also the cross attention's), keys 16-31 masked with the rest valid
+     at random (a dead middle key tile), and every key valid: bf16 to 2e-2,
+     fp32 to 1e-4, the backward fed the forward's own m and inv, the
+     forward's row statistics held as in phase 7 (rows with no valid key:
+     m = -1e30, inv = 0, output and gradients exactly 0); the bf16
+     backward's dispatch rule as the CPU tests restate it
+     (``small_bwd_route``) against the library's own at every Nq, Nk <= 255;
  22. a 2-user fp32 Amazon step with the switch on, GPU against CPU;
  23. the switch off / on / on / off in turns: the Amazon train step
      (batch 256) and beam search (256 users, k = 32); one traced step; the
@@ -133,9 +138,14 @@ weights made from a seed and seeded synthetic data:
      twin and
      ``F.scaled_dot_product_attention`` under the same mask (additive bias,
      causal cut), and the launch-weighted sum of a step (4 launches of each
-     shape); the dense ``sdpa`` at 81 x 81; each flash kernel library's count
-     of ``cudaFuncSetAttribute`` calls, which must be at least 1 and must
-     not grow over further calls;
+     shape); the forward on the encoder's operands with every key valid,
+     beside its bound; the forward kernel's launch plan at each step shape;
+     the first short-forward call of each shape in one beam search with the
+     switch on (81 x 81, the beam-folded 32 x 81, the decode steps' 1 x t),
+     held against the twin and timed beside its bound; the dense ``sdpa``
+     at 81 x 81; each flash kernel library's count of
+     ``cudaFuncSetAttribute`` calls, which must be at least 1 and must not
+     grow over further calls;
  24. the width rule of the kernel routes (run after phase 4): ``attend`` at
      Dh = 256 on a span, a short (switch on) and a flat shape, and the
      RQ-VAE's two quantizer routes at embed_dim = 256 (codebook volume
@@ -1767,10 +1777,22 @@ def _amazon_decoder(dev, rq_ckpt, work):
     holes = enc["k_mask"].clone()
     holes[:2] = False   # two rows whose every key is masked
     cross = rec["cross"]
+    dead_cross = cross["k_mask"].clone()
+    dead_cross[:2] = False
+    # keys 16-31 masked (a dead middle tile of the forward) and every other
+    # key valid with probability 1/2
+    scatter = (torch.rand((b, n), device=dev, generator=gen) < 0.5) & (
+        (torch.arange(n, device=dev) < 16) | (torch.arange(n, device=dev) >= 32))
     cases = [(kind, e["q"], e["k"], e["v"], unit_rms(e["g"]), e["k_mask"], e["causal"], None)
              for kind, e in rec.items()]
     cases += [("encoder_no_valid_key", enc["q"], enc["k"], enc["v"], unit_rms(enc["g"]), holes,
-               False, slice(0, 2))]
+               False, slice(0, 2)),
+              ("encoder_holes", enc["q"], enc["k"], enc["v"], unit_rms(enc["g"]), scatter, False,
+               None),
+              ("encoder_all_valid", enc["q"], enc["k"], enc["v"], unit_rms(enc["g"]), None, False,
+               None),
+              ("cross_no_valid_key", cross["q"], cross["k"], cross["v"], unit_rms(cross["g"]),
+               dead_cross, False, slice(0, 2))]
     cases += [(f"decode_1x{t}", rand(b, h, 1, dh), rand(b, h, t, dh), rand(b, h, t, dh),
                rand(b, h, 1, dh), None, False, None) for t in (1, 2, 3, 4)]
     cases += [("beam_cross_32x81", rand(b, h, 32, dh), cross["k"], cross["v"], rand(b, h, 32, dh),
@@ -1790,12 +1812,15 @@ def _amazon_decoder(dev, rq_ckpt, work):
         for case, q, k, v, g, km, causal, empty in cases:
             a = [t.to(dtype) for t in (q, k, v, g)]
             out, mm, inv = fa.flash_attention_small_fwd(*a[:3], k_mask=km, causal=causal)
-            ref = fa.flash_attention_small_plain(*a[:3], k_mask=km, causal=causal)
+            ref, ref_m, ref_inv = fa._plain_fwd(*a[:3], fa._key_masker(
+                fa.mask_bias(km, q.shape[0], k.shape[2], dev), causal))
+            # the backward reads the forward's m and inv
             got = fa.flash_attention_small_bwd(*a, mm, inv, k_mask=km, causal=causal)
             want = fa.flash_attention_small_bwd_plain(*a, k_mask=km, causal=causal)
             torch.cuda.synchronize()
             row = {"dtype": str(dtype)[6:], "case": case, "shape": list(q.shape),
                    "nk": k.shape[2], "causal": causal, "tol": tol}
+            row.update(_hold_stats(f"small {case} {dtype}", dtype, mm, inv, ref_m, ref_inv))
             for name, x, y in (("out", out, ref), ("dq", got[0], want[0]), ("dk", got[1], want[1]),
                                ("dv", got[2], want[2])):
                 x, y = x.float(), y.float()
@@ -1806,11 +1831,13 @@ def _amazon_decoder(dev, rq_ckpt, work):
                       f"small {case} {dtype} {name} differs from the plain twin by {row[name]}")
             if empty is not None:
                 check(float(out[empty].abs().max()) == 0.0, f"small {case}: masked rows not zero")
+                check(all(float(x[empty].abs().max()) == 0.0 for x in got),
+                      f"small {case}: masked rows' gradients not zero")
             if dtype == torch.bfloat16 and case == "encoder_self":
                 errs = {"fwd": row["out"], "bwd": max(row["dq"], row["dk"], row["dv"])}
             checks.append(row)
             log(f"small vs plain {row}")
-    del out, ref, got, want, cases
+    del out, ref, got, want, cases, scatter
     # the Python restatement of the bf16 backward's dispatch rule (the CPU
     # tests' emulation reads it) against the library's own, at every shape
     # the short route takes
@@ -1919,7 +1946,44 @@ def _amazon_decoder(dev, rq_ckpt, work):
         profile["on"] = _profile(lambda: step(p_ab, st_ab, flat, step_gen), top=12)
     finally:
         os.environ.pop(SHORT_FLASH_ENV, None)
-    del p_ab, st_ab, gen_params
+    # the serving path's short forward: the first call of each shape in one
+    # beam search with the switch on (the encoder's 81 x 81, the beam-folded
+    # cross 32 x 81, the decode steps' 1 x t), held against the twin and
+    # timed on those operands
+    serve_rec = {}
+
+    def record_serve(q, k, v, *, k_mask=None, causal=False):
+        key = f"{q.shape[2]}x{k.shape[2]}" + ("_causal" if causal else "")
+        if key not in serve_rec:
+            serve_rec[key] = dict(q=q, k=k, v=v, k_mask=k_mask, causal=causal)
+        return real_small(q, k, v, k_mask=k_mask, causal=causal)
+
+    os.environ[SHORT_FLASH_ENV] = "1"
+    attn_ops.flash_attention_small = record_serve
+    try:
+        serve()
+    finally:
+        attn_ops.flash_attention_small = real_small
+        os.environ.pop(SHORT_FLASH_ENV, None)
+    serving_fwd = {}
+    for key, e in serve_rec.items():
+        sq, sk, sv, skm, sc = e["q"], e["k"], e["v"], e["k_mask"], e["causal"]
+        got = fa.flash_attention_small_fwd(sq, sk, sv, k_mask=skm, causal=sc)[0].float()
+        want = fa.flash_attention_small_plain(sq, sk, sv, k_mask=skm, causal=sc).float()
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and torch.allclose(got, want, rtol=2e-2, atol=2e-2),
+              f"serving short forward {key} differs from the plain twin by {err}")
+        fn = lambda: fa.flash_attention_small_fwd(sq, sk, sv, k_mask=skm, causal=sc)  # noqa: E731
+        serving_fwd[key] = dict(
+            shape=list(sq.shape[:3]) + [sk.shape[2]], max_abs_err=err, ms=cuda_ms(fn, 50),
+            device_ms=_device_ms(fn, 20, "small_fwd"),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_small_plain(sq, sk, sv, k_mask=skm,
+                                                                    causal=sc), 10),
+            **_short_bound(sq, sk, skm, sc, "fwd"))
+    log(f"serving short forward by shape: {serving_fwd}")
+    check({"81x81", "32x81"} <= set(serving_fwd),
+          f"serving short forward shapes {sorted(serving_fwd)}")
+    del p_ab, st_ab, gen_params, serve_rec, got, want
 
     # the short kernels at each step shape, on layer 0's recorded operands:
     # events, device time, the bound with every operand at its own length,
@@ -1957,6 +2021,19 @@ def _amazon_decoder(dev, rq_ckpt, work):
         return out
 
     shapes = {kind: time_shape(rec[kind]) for kind in ("encoder_self", "decoder_self", "cross")}
+    # the forward where nothing can be skipped: the encoder's operands, every key valid
+    all_valid = dict(rec["encoder_self"], k_mask=None)
+    def fn():
+        return fa.flash_attention_small_fwd(all_valid["q"], all_valid["k"], all_valid["v"])
+
+    fwd_all_valid = dict(ms=cuda_ms(fn, 50), device_ms=_device_ms(fn, 20, "small_fwd"),
+                         **_short_bound(all_valid["q"], all_valid["k"], None, False, "fwd"))
+    # the forward kernel's launch at each step shape: pairs a unit, stages,
+    # warps, shared memory, CTAs an SM
+    fwd_plans = {kind: fa.small_fwd_plan(e["q"].shape[0] * e["q"].shape[1], e["q"].shape[2],
+                                         e["k"].shape[2], torch.cuda.current_device())
+                 for kind, e in rec.items()}
+    log(f"short forward, every key valid: {fwd_all_valid}; launch plans {fwd_plans}")
     per_step = {d: {key: sum(sh_[d][key] * sh_["launches_per_step"] for sh_ in shapes.values())
                     for key in ("ms", "device_ms", "bound_ms", "library_ms", "library_device_ms")}
                 for d in ("fwd", "bwd")}
@@ -2014,7 +2091,9 @@ def _amazon_decoder(dev, rq_ckpt, work):
                         worst_leaf_rel_err=leaf_rel),
         switch_ab=ab, train_profile=profile,   # one traced step, switch off and on
         attention_ms=dict(step_shapes=shapes, per_step=per_step,
-                          dense_sdpa={"fwd": dense_fwd, "bwd": dense_fwd_bwd - dense_fwd}),
+                          dense_sdpa={"fwd": dense_fwd, "bwd": dense_fwd_bwd - dense_fwd},
+                          fwd_all_valid=fwd_all_valid, fwd_plans=fwd_plans,
+                          serving_fwd=serving_fwd),
         attribute_calls=attribute_calls)
     return amazon, kernels
 

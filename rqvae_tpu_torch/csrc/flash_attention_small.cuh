@@ -11,16 +11,18 @@
 // scores, then the causal cut col <= row (query rows counted from 0, no
 // block offset), -inf for the zero-filled keys past Nk.
 //
-// Tensor-core tiles (bf16, Dh = 64): a staged operand of the forward and of
-// the backward's strip kernel is [rows][kMP] bf16 (flash_attention_common.cuh's
-// 144-byte pitch; the backward's other kernels use the swizzled 128-byte rows
-// below), rows padded to a multiple of 16 with zeros; the e / ds tiles of the
-// backward are [q rows][keys + 8]
-// (an odd number of 16-byte chunks a row, so ldmatrix rows fall in distinct
-// banks). Fragment layouts are those of flash_attention_common.cuh.
+// Tensor-core tiles (bf16, Dh = 64): a staged operand of the backward's
+// strip kernel is [rows][kMP] bf16 (flash_attention_common.cuh's 144-byte
+// pitch); the forward and the backward's other kernels use the swizzled
+// 128-byte rows below. Rows are padded to a multiple of 16 with zeros; the
+// e / ds tiles of the backward are [q rows][keys + 8] (an odd number of
+// 16-byte chunks a row, so ldmatrix rows fall in distinct banks). Fragment
+// layouts are those of flash_attention_common.cuh.
 #pragma once
 
 #include "flash_attention_common.cuh"
+
+#include <algorithm>
 
 namespace flash {
 namespace small {
@@ -119,13 +121,13 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long row_str
   }
 }
 
-// ---- the backward's unpadded, swizzled tiles (flash_attention_small_bwd.cu) ----
+// ---- unpadded, swizzled tiles (the forward; the backward's tiles and rows kernels) ----
 //
 // A staged operand is [rows][64] bf16 with no pitch padding: 16-byte chunk
 // ch of row r lies at chunk ch ^ (r % 8), so the eight rows one ldmatrix
 // phase reads fall in distinct banks. 128 bytes a row instead of 144 is what
-// lets the tiles kernel's ring (two query sides, a key side, e and ds) fit
-// twice on an SM at 81 tokens.
+// lets the backward tiles kernel's ring (two query sides, a key side, e and
+// ds), and the forward's two stages, fit twice on an SM at 81 tokens.
 
 // element offset of (r, col) in such a tile
 __device__ __forceinline__ int sw(int r, int col) {
@@ -241,16 +243,19 @@ __device__ __forceinline__ void transpose_a(uint32_t t[4], const uint32_t a[4]) 
   t[3] = transpose8x8(a[3]);
 }
 
-// How many (batch, head) pairs one CTA owns: enough to give it up to
-// ``want_warps`` warps of work on short query sides (each warp owns 16 query
-// rows of one pair), as long as the pairs' shared memory stays within the
-// budget and the grid keeps at least two CTAs for each SM.
-inline int pick_group(int BH, int n_qt, long long pair_smem, int want_warps) {
-  int G = 1;
-  while (2 * G * n_qt <= want_warps && 2 * G * pair_smem <= kPairSmemBudget &&
-         (BH + 2 * G - 1) / (2 * G) >= 2 * kSmsH100)
-    G *= 2;
-  return G;
+// Launch a persistent kernel: as many CTAs of ``warps`` warps and ``smem``
+// bytes as fit on the device at once, at most ``units`` (the kernel walks
+// its units with a stride of the grid).
+template <typename Kernel, typename... Args>
+inline int launch_persistent(Kernel kernel, int warps, long long smem, int units, int device,
+                             cudaStream_t stream, Args... args) {
+  cudaError_t err = prepare(kernel, (size_t)smem, device);
+  if (err != cudaSuccess) return (int)err;
+  const int per_sm = blocks_per_sm(kernel, 32 * warps, (size_t)smem, device);
+  if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
+  const long long grid = std::min<long long>(units, (long long)per_sm * sm_count(device));
+  kernel<<<(unsigned)grid, 32 * warps, (size_t)smem, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace small

@@ -65,8 +65,6 @@
 #include "flash_attention_bwd.cuh"
 #include "flash_attention_small.cuh"
 
-#include <algorithm>
-
 namespace flash {
 namespace small {
 
@@ -748,18 +746,6 @@ inline int bwd_route(int Nq, int Nk) {
   if (KT > kRowKT) return kRouteStrips;
   if (n_qt == 1) return kRouteRows;
   return tiles_smem_bytes(16 * n_qt, 16 * KT) <= kOneCtaSmem ? kRouteTiles : kRouteStrips;
-}
-
-template <typename Kernel, typename... Args>
-inline int launch_persistent(Kernel kernel, int warps, long long smem, int units, int device,
-                             cudaStream_t stream, Args... args) {
-  cudaError_t err = prepare(kernel, (size_t)smem, device);
-  if (err != cudaSuccess) return (int)err;
-  const int per_sm = blocks_per_sm(kernel, 32 * warps, (size_t)smem, device);
-  if (per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
-  const long long grid = std::min<long long>(units, (long long)per_sm * sm_count(device));
-  kernel<<<(unsigned)grid, 32 * warps, (size_t)smem, stream>>>(args...);
-  return (int)cudaGetLastError();
 }
 
 inline int launch_bwd_mma(const void* q, const void* k, const void* v, const float* bias,

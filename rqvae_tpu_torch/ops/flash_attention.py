@@ -475,6 +475,18 @@ def small_bwd_kernel_route(nq: int, nk: int) -> str:
     return SMALL_BWD_ROUTES[fn(nq, nk)]
 
 
+def small_fwd_plan(bh: int, nq: int, nk: int, device: int = 0) -> dict:
+    """The bf16 Dh = 64 forward kernel's launch for (B H, Nq, Nk), as the
+    kernel library plans it (built at first use): pairs a unit, stages,
+    warps and shared memory a CTA, CTAs an SM."""
+    fn = _c_function(flash_attention_small_fwd, "plan")
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [_I, _I, _I, _I, _P], None
+    out = (ctypes.c_longlong * 5)()
+    fn(bh, nq, nk, device, out)
+    return dict(zip(("pairs_a_unit", "stages", "warps", "smem_bytes", "ctas_per_sm"), out))
+
+
 def flash_attention_small(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           k_mask: Optional[torch.Tensor] = None,
                           causal: bool = False) -> torch.Tensor:
