@@ -59,26 +59,36 @@ weights made from a seed and seeded synthetic data:
      batch 64, fp32) over 12,101 synthetic items (seed 0): k-means priming,
      400 steps in device-resident chunks of 8, eval and a checkpoint at the
      end; the loss must fall, the eval must tokenize through rq_tokenize and
-     the plain route must not launch rq_quantize_train (volume 8,192);
+     every step must launch rq_quantize_train once (the fused route at every
+     codebook volume: 400 launches);
  12. stage-1 stretch (``bench.py``'s ``rqvae_stretch``: embed 64, 4 x 2048
      codebooks, batch 1024, bf16 compute, 16 steps a chunk) on a 12,101 x 768
      N(0, 1) corpus after k-means priming: rq_quantize_train must launch once
      per step; ``id_diversity_metrics`` tokenizes the corpus through the
      K-tiled rq_tokenize at 4 x 2048 x 64; one chunk is traced;
- 13. rq_quantize_train against its twin on the stretch step's own encoder
-     output and codebooks (ids equal off near-ties, values to 1e-5), its
-     gradients (STE and rotation trick) against the plain per-level
-     ``quantize.apply`` chain to 1e-4 of each leaf's max-abs; the K-tiled
-     rq_tokenize against its twin at 4 x 2048 x 64 on the corpus chunks the
-     diversity metrics tokenized (their own ids) and on the step's rows; both
-     quantizer kernels at four odd shapes (part-filled code tiles, D = 3 and
-     128);
+ 13. rq_quantize_train against its twin on the stretch step's and the
+     flagship step's own encoder output and codebooks (ids equal off
+     near-ties, values to 1e-5), its gradients (STE and rotation trick)
+     against the plain per-level ``quantize.apply`` chain to 1e-4 of each
+     leaf's max-abs; rq_tokenize against its twin at 4 x 2048 x 64 on the
+     corpus chunks the diversity metrics tokenized (their own ids) and on the
+     step's rows; both quantizer kernels at ten odd shapes (B = 1, ragged
+     rows and code blocks, L = 1, D = 3, 4, 16 and 128, D = 128 just under
+     and just over the resident kernel's budget and through the cluster
+     kernel's ring), equal codewords in several lanes (the resident kernel)
+     or CTAs' slices (the cluster kernel): the lowest index, and a row of NaN
+     (code 0); the library's launch plan against ``quantize_kernels.plan``
+     (what the CPU tests emulate) at every shape, each plan resident on the
+     card;
  14. two fp32 stage-1 steps at the Amazon widths, batch 64, GPU against CPU,
-     through both quantizer routes: loss to 1e-5 relative, gradient leaves to
+     through both quantizer routes (``FUSED_TRAIN_MIN_CODEBOOK_VOLUME``
+     forced to 0 and to infinity): loss to 1e-5 relative, gradient leaves to
      1e-4 of their max-abs;
- 15. the new kernel's times beside its twin's and its bound; the step time of
-     the fused and the plain route at both shapes (the module constant
-     ``FUSED_TRAIN_MIN_CODEBOOK_VOLUME`` forced each way);
+ 15. both quantizer kernels timed at both shapes (rq_quantize_train at the
+     flagship's B = 64 x 3 x 256 x 32 and the stretch's 1024 x 4 x 2048 x 64,
+     rq_tokenize at 4,096 rows of each stack): CUDA events, profiler device
+     time, the twin, the bound and the plan; the step time of the fused and
+     the plain route at both shapes (the module constant forced each way);
  16. packed long-context training (``bench.py --profile ml32m_packed``,
      run before the stage-1 phases): the ML-32M widths and corpus, a
      ``SeqDataset`` of 4,096 users with full 200-item histories, a
@@ -128,6 +138,11 @@ weights made from a seed and seeded synthetic data:
      m = -1e30, inv = 0, output and gradients exactly 0); the bf16
      backward's dispatch rule as the CPU tests restate it
      (``small_bwd_route``) against the library's own at every Nq, Nk <= 255;
+     the forward's C launcher called directly with an output view 4 bytes
+     off 16-byte alignment: it must take the CUDA-core kernel (the gate
+     the library exports, ``flash_attention.small_fwd_kernel_route``),
+     match the twin, and leave the context usable (the aligned launch after
+     it is gated to the live kernel and matches);
  22. a 2-user fp32 Amazon step with the switch on, GPU against CPU;
  23. the switch off / on / on / off in turns: the Amazon train step
      (batch 256) and beam search (256 users, k = 32); one traced step; the
@@ -152,8 +167,10 @@ weights made from a seed and seeded synthetic data:
      65,536), each on the card against the same call on the CPU (values
      and gradients to 1e-5 of their max-abs; ids equal off near-ties; the
      training loss to 1e-5 relative and gradient leaves to 1e-4 of their
-     max-abs): shapes wider than the kernels take go the dense and plain
-     routes, and no kernel wrapper launches.
+     max-abs), and a Gumbel-softmax training forward at embed_dim = 32
+     (a finite loss): shapes wider than the kernels take and the Gumbel
+     estimator go the dense and plain routes, and no kernel wrapper
+     launches.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 work runs in fp32.
 ``RQVAE_TPU_SHORT_FLASH`` is unset for phases 1-19, so they take
@@ -397,20 +414,15 @@ def main() -> int:
     rq_check = dict(rows=N_ITEMS, id_rows_differ=n_diff, near_tie_rows_terms=n_ties,
                     near_tie_rows_d0=n_ties_d0, max_abs_err=rq_err)
     z0 = chunks[0]
-    b0, d0 = z0.shape
-    n_lv, n_code = cbs.shape[:2]
-    rq_bytes = 4 * (b0 * d0 + n_lv * n_code * d0 + b0 * n_lv + 2 * b0 * d0 + b0)
-    rq_flops = 2 * b0 * n_lv * n_code * d0
-    rq_bound = max(rq_bytes / HBM_BYTES_PER_S, rq_flops / FP32_FLOP_PER_S) * 1e3
+    tok_main = _rq_timed("rq_tokenize", lambda: rq_tokenize(z0, cbs),
+                         lambda: rq_tokenize_plain(z0, cbs), z0, cbs)
     kernels.append(dict(
         name="rq_tokenize", route="cuda", source="rqvae_tpu_torch/csrc/rq_tokenize.cu",
         replaces="rqvae_tpu/ops/quantize_pallas.py:48",
         launches=launches["rq_tokenize"], max_abs_err=rq_err,
-        ms=cuda_ms(lambda: rq_tokenize(z0, cbs), 50),
-        plain_ms=cuda_ms(lambda: rq_tokenize_plain(z0, cbs), 50),
-        bound_ms=rq_bound,
-        bound_by="operations" if rq_flops / FP32_FLOP_PER_S > rq_bytes / HBM_BYTES_PER_S else "bytes",
-        library_ms=None,
+        ms=tok_main["ms"], device_ms=tok_main["device_ms"], plain_ms=tok_main["plain_ms"],
+        bound_ms=tok_main["bound_ms"], bound_by=tok_main["bound_by"], library_ms=None,
+        at_shapes={"amazon_4096x3x256x32": tok_main},
     ))
 
     # the beam search's own children_window operands: rerun it (same weights
@@ -484,6 +496,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         # ---- stage-1 RQ-VAE training, flagship and stretch ----
         train_rqvae, stage1_kernels, rq_ckpt = _stage1(dev, work)
+        kernels[0]["at_shapes"].update(train_rqvae["rq_tokenize_at_shapes"])
         kernels += stage1_kernels
         torch.cuda.empty_cache()
 
@@ -507,9 +520,10 @@ def main() -> int:
 def _wide(dev):
     """Phase 24: shapes wider than the kernels take go the plain routes.
     ``attend`` at Dh = 256 on a span, a short (switch on) and a flat shape,
-    and the RQ-VAE's two quantizer routes at embed_dim = 256 (volume 65,536:
-    the fused training route but for the width rule), each on the card
-    against the same call on the CPU; no kernel wrapper may launch."""
+    and the RQ-VAE's two quantizer routes at embed_dim = 256 (the fused
+    training route but for the width rule), each on the card against the
+    same call on the CPU, and a Gumbel-softmax training forward at
+    embed_dim = 32 (the plain loop); no kernel wrapper may launch."""
     import numpy as np
     import torch
 
@@ -587,8 +601,19 @@ def _wide(dev):
     leaf_rel = max(rel_err(a, b_) for a, b_ in zip(gg, gc) if b_ is not None)
     check(loss_rel <= 1e-5 and leaf_rel <= 1e-4,
           f"training forward at D = 256: GPU vs CPU loss {loss_rel}, worst leaf {leaf_rel}")
+    # Gumbel-softmax training at the Amazon widths keeps the plain per-level
+    # loop too (its noise comes from the card's generator, so it is not held
+    # against the CPU)
+    gcfg = dataclasses.replace(cfg, embed_dim=32,
+                               codebook_mode=quantize.QuantizeForwardMode.GUMBEL_SOFTMAX)
+    gparams = rqvae.init(torch.Generator().manual_seed(SEED + 25), gcfg, device=dev)
+    gloss = rqvae.forward(gparams, gcfg, clean.to(dev), gumbel_t=0.2, training=True,
+                          generator=torch.Generator(device=dev).manual_seed(SEED + 25)).loss
+    check(bool(torch.isfinite(gloss)), f"Gumbel training forward at D = 32: loss {float(gloss)}")
+    out["gumbel_d32"] = dict(rows=int(clean.shape[0]), loss=float(gloss))
     launches = {w.__name__: w.launches for w in wrappers}
-    check(not any(launches.values()), f"a kernel launched on a shape wider than it takes: {launches}")
+    check(not any(launches.values()),
+          f"a kernel launched on a shape wider than it takes, or under Gumbel: {launches}")
     out["quantizer_d256"] = dict(rows=int(x.shape[0]), differing_rows=int(differ.sum()),
                                  near_tie_rows=int(ties.sum()), train_rows=int(clean.shape[0]),
                                  loss_rel_err=loss_rel, worst_leaf_rel_err=leaf_rel)
@@ -1315,9 +1340,10 @@ def _stage1(dev, work):
     check(losses[-1] < losses[0], f"flagship loss did not fall: {losses}")
     check(len(evals) == 1 and evals[0]["step"] == RQ_ITERS, f"flagship evals {evals}")
     check(all(math.isfinite(v) for v in evals[0].values()), f"non-finite eval {evals}")
-    check(flag_launches == {"rq_tokenize": n_chunks, "rq_quantize_train": 0},
-          f"flagship launches {flag_launches}: the eval tokenizes through rq_tokenize, the "
-          f"plain route (volume {acfg.codebook_size * acfg.embed_dim}) skips rq_quantize_train")
+    check(flag_launches == {"rq_tokenize": n_chunks, "rq_quantize_train": RQ_ITERS},
+          f"flagship launches {flag_launches}: the eval tokenizes through rq_tokenize, and every "
+          f"step takes the fused route (volume {acfg.codebook_size * acfg.embed_dim}) through "
+          "one rq_quantize_train launch")
     check(saved == RQ_ITERS - 1, f"flagship checkpoint step {saved}")
     step_ms = (logs[-1]["t"] - logs[0]["t"]) * 1e3 / (logs[-1]["step"] - logs[0]["step"])
     flagship = dict(kmeans_prime_ms=prime_ms[0], train_step_ms=step_ms,
@@ -1389,80 +1415,97 @@ def _stage1(dev, work):
                    diversity={k: float(v) for k, v in div.items()},
                    rq_tokenize_launches=div_launches, chunk_profile=stretch_profile)
 
-    # ---- phase 13: the kernels against their twins on the stretch step's operands ----
-    rec = {}
-    real_fused = rqvae.rq_quantize_train
+    # ---- phase 13: the kernels against their twins ----
+    w_read = torch.randn((128, 16), generator=gen, device=dev) / 8.0
 
-    def record(x, cbs, mode, beta):
-        rec.setdefault("x", x.detach().clone())
-        rec.setdefault("cbs", cbs.detach().clone())
-        return real_fused(x, cbs, mode, beta)
+    def record_fused(model_cfg, p, data, batch, dtype):
+        """One device-chunk step of ``model_cfg`` on ``p`` (left as it was),
+        with rq_quantize_train's operands recorded."""
+        rec = {}
+        real_fused = rqvae.rq_quantize_train
 
-    rqvae.rq_quantize_train = record
-    try:
-        one = tr.make_device_chunk(mcfg, opt, 1, torch.bfloat16, STRETCH_BATCH, 1)
-        params, opt_state, _ = one(params, opt_state, corpus, gen, 0.2)
-    finally:
-        rqvae.rq_quantize_train = real_fused
-    torch.cuda.synchronize()
-    check(rec["x"].dtype == torch.bfloat16
-          and tuple(rec["x"].shape) == (STRETCH_BATCH, STRETCH_EMBED),
-          f"recorded encoder output {rec['x'].dtype} {tuple(rec['x'].shape)}")
-    xs = rec["x"].float().contiguous()
-    cbs = rec["cbs"].float().contiguous()
-    with torch.no_grad():
-        k_out = qk.rq_quantize_train(xs, cbs, "ROTATION_TRICK", 0.25)
-        p_out = qk.rq_quantize_train_plain(xs, cbs, commitment_weight=0.25)
-    near = _near_ties(xs, cbs, p_out.sem_ids)
-    differ = (k_out.sem_ids != p_out.sem_ids).any(-1)
-    check(not bool((differ & ~near).any()), "rq_quantize_train ids differ off near-ties")
-    same = ~differ
-    train_err = 0.0
-    for name in ("embeddings", "residuals", "quantize_loss"):
-        a, b = getattr(k_out, name)[same], getattr(p_out, name)[same]
-        check(torch.allclose(a, b, rtol=1e-5, atol=1e-5),
-              f"rq_quantize_train {name} differs from the plain twin")
-        train_err = max(train_err, float((a - b).abs().max()))
-    log(f"rq_quantize_train vs plain: {int(differ.sum())} rows with other ids, "
-        f"{int(near.sum())} near-tie rows, max |err| {train_err:.2e}")
+        def record(x, cbs, mode, beta):
+            rec.setdefault("x", x.detach().clone())
+            rec.setdefault("cbs", cbs.detach().clone())
+            return real_fused(x, cbs, mode, beta)
 
-    # gradients: the Function on the card against the plain per-level chain,
-    # on the rows without a near-tie (there the two may pick other codes)
-    keep = ~near
-    w = torch.randn((STRETCH_EMBED, 16), generator=gen, device=dev) / 8.0
+        o = optim.adamw(5e-4, 0.01)
+        p = tree_map(lambda t: t.detach().clone(), p)
+        rqvae.rq_quantize_train = record
+        try:
+            one = tr.make_device_chunk(model_cfg, o, 1, dtype, batch, 1)
+            one(p, o.init(p), data, gen, 0.2)
+        finally:
+            rqvae.rq_quantize_train = real_fused
+        torch.cuda.synchronize()
+        check(rec["x"].dtype == dtype and tuple(rec["x"].shape) == (batch, model_cfg.embed_dim),
+              f"recorded encoder output {rec['x'].dtype} {tuple(rec['x'].shape)}")
+        return rec["x"].float().contiguous(), rec["cbs"].float().contiguous()
 
-    def readout(embs, q_loss):
-        z = torch.sum(embs, dim=-1) @ w
-        return torch.mean(torch.sum(z * z, dim=-1)) + torch.mean(q_loss)
+    def hold_train(xs, cbs, label):
+        """rq_quantize_train on the card against its twin (ids equal off
+        near-ties, values to 1e-5) and its gradients (STE and rotation
+        trick) against the plain per-level quantize.apply chain (1e-4 of
+        each leaf's max-abs), on the rows without a near-tie."""
+        with torch.no_grad():
+            k_out = qk.rq_quantize_train(xs, cbs, "ROTATION_TRICK", 0.25)
+            p_out = qk.rq_quantize_train_plain(xs, cbs, commitment_weight=0.25)
+        near = _near_ties(xs, cbs, p_out.sem_ids)
+        differ = (k_out.sem_ids != p_out.sem_ids).any(-1)
+        check(not bool((differ & ~near).any()), f"rq_quantize_train ids differ off near-ties ({label})")
+        same = ~differ
+        err = 0.0
+        for name in ("embeddings", "residuals", "quantize_loss"):
+            a, b = getattr(k_out, name)[same], getattr(p_out, name)[same]
+            check(torch.allclose(a, b, rtol=1e-5, atol=1e-5),
+                  f"rq_quantize_train {name} differs from the plain twin ({label})")
+            err = max(err, float((a - b).abs().max()))
+        keep = ~near
+        w = w_read[:xs.shape[1]]
 
-    grad_checks = {}
-    for mode in ("STE", "ROTATION_TRICK"):
-        xa, ca = xs[keep].clone().requires_grad_(True), cbs.clone().requires_grad_(True)
-        o = qk.rq_quantize_train(xa, ca, mode, 0.25)
-        got = torch.autograd.grad(readout(o.embeddings, o.quantize_loss), (xa, ca))
-        xb, cb_ = xs[keep].clone().requires_grad_(True), cbs.clone().requires_grad_(True)
-        res, embs, q_loss = xb, [], 0.0
-        for level in range(cbs.shape[0]):
-            q = quantize.apply({"codebook": cb_[level]}, res,
-                               mode=quantize.QuantizeForwardMode[mode], commitment_weight=0.25,
-                               training=True)
-            q_loss = q_loss + q.loss
-            res = res - q.embeddings
-            embs.append(q.embeddings)
-        want = torch.autograd.grad(readout(torch.stack(embs, dim=-1), q_loss), (xb, cb_))
-        row = {}
-        for name, a, b in (("x", got[0], want[0]), ("codebooks", got[1], want[1])):
-            err, scale = float((a - b).abs().max()), float(b.abs().max())
-            check(err <= 1e-4 * scale, f"rq_quantize_train {mode} d{name}: {err} of {scale}")
-            row[name] = err / scale
-        grad_checks[mode] = row
-    log(f"rq_quantize_train gradients vs the plain chain ({int(keep.sum())} rows), "
-        f"error / max-abs: {grad_checks}")
+        def readout(embs, q_loss):
+            z = torch.sum(embs, dim=-1) @ w
+            return torch.mean(torch.sum(z * z, dim=-1)) + torch.mean(q_loss)
+
+        grads = {}
+        for mode in ("STE", "ROTATION_TRICK"):
+            xa, ca = xs[keep].clone().requires_grad_(True), cbs.clone().requires_grad_(True)
+            o = qk.rq_quantize_train(xa, ca, mode, 0.25)
+            got = torch.autograd.grad(readout(o.embeddings, o.quantize_loss), (xa, ca))
+            xb, cb_ = xs[keep].clone().requires_grad_(True), cbs.clone().requires_grad_(True)
+            res, embs, q_loss = xb, [], 0.0
+            for level in range(cbs.shape[0]):
+                q = quantize.apply({"codebook": cb_[level]}, res,
+                                   mode=quantize.QuantizeForwardMode[mode], commitment_weight=0.25,
+                                   training=True)
+                q_loss = q_loss + q.loss
+                res = res - q.embeddings
+                embs.append(q.embeddings)
+            want = torch.autograd.grad(readout(torch.stack(embs, dim=-1), q_loss), (xb, cb_))
+            row = {}
+            for name, a, b in (("x", got[0], want[0]), ("codebooks", got[1], want[1])):
+                e, scale = float((a - b).abs().max()), float(b.abs().max())
+                check(e <= 1e-4 * scale, f"rq_quantize_train {mode} d{name} ({label}): {e} of {scale}")
+                row[name] = e / scale
+            grads[mode] = row
+        held = dict(rows=int(xs.shape[0]), id_rows_differ=int(differ.sum()),
+                    near_tie_rows=int(near.sum()), max_abs_err=err, grad_err_over_max_abs=grads)
+        log(f"rq_quantize_train vs plain ({label}): {held}")
+        return held
+
+    # the stretch step's own operands, and the flagship step's (the fused
+    # route at the Amazon widths, batch 64, fp32)
+    xs, cbs = record_fused(mcfg, params, corpus, STRETCH_BATCH, torch.bfloat16)
+    train_checks = {"stretch_1024x4x2048x64": hold_train(xs, cbs, "stretch step")}
+    train_err = train_checks["stretch_1024x4x2048x64"]["max_abs_err"]
+    amazon_data = torch.from_numpy(synthetic_items(N_ITEMS, INPUT_DIM, seed=SEED).x).to(dev)
+    xf, cbf = record_fused(acfg, flag_params, amazon_data, cfg.batch_size, torch.float32)
+    train_checks["flagship_64x3x256x32"] = hold_train(xf, cbf, "flagship step")
+    flag_err = train_checks["flagship_64x3x256x32"]["max_abs_err"]
 
     # the K-tiled rq_tokenize at 4 x 2048 x 64: the ids that the diversity
     # metrics got on each corpus chunk (4,096 rows twice, then the 3,909-row
-    # tail: 512 blocks of 8 rows, the last one part-filled), and the step's
-    # own 1,024 rows
+    # tail), and the stretch step's own 1,024 rows
     with torch.no_grad():
         tok_cases = [(f"diversity chunk {i}", z, c, beta, out)
                      for i, (z, c, beta, out) in enumerate(div_calls)]
@@ -1475,15 +1518,19 @@ def _stage1(dev, work):
     chunk_rows = [z.shape[0] for _, z, *_ in tok_cases[:-1]]
     check(chunk_rows == [min(4096, N_ITEMS - i) for i in range(0, N_ITEMS, 4096)],
           f"diversity chunks {chunk_rows}")
-    log(f"K-tiled rq_tokenize vs plain at 4x2048x64: {tok_checks}")
+    log(f"rq_tokenize vs plain at 4x2048x64: {tok_checks}")
 
-    # odd shapes the main paths do not give: a part-filled last code tile
-    # (K = 7, 300, 1000 against 512-code tiles), D padded to a multiple of 4
-    # (D = 3), D = 128, and row counts that leave the last block part-filled
+    # odd shapes the main paths do not give: B = 1; B not a multiple of a
+    # CTA's rows with K not a multiple of a lane block or a slice; L = 1; D =
+    # 3 (padded to 4), 16 and 128; D = 128 just under and just over the
+    # resident kernel's budget, and through the cluster kernel's ring; a
+    # part-filled last cluster
+    odd_shapes = ((37, 2, 32, 16), (100, 3, 300, 128), (513, 2, 1000, 64), (5, 1, 7, 3),
+                  (1, 3, 256, 32), (37, 2, 301, 16), (70, 1, 200, 4), (40, 3, 128, 128),
+                  (40, 3, 192, 128), (40, 3, 520, 128))
     odd_checks = {}
     with torch.no_grad():
-        for b_odd, n_lv, k_odd, d_odd in ((37, 2, 32, 16), (100, 3, 300, 128), (513, 2, 1000, 64),
-                                          (5, 1, 7, 3)):
+        for b_odd, n_lv, k_odd, d_odd in odd_shapes:
             x_odd = torch.randn((b_odd, d_odd), generator=gen, device=dev)
             cb_odd = torch.randn((n_lv, k_odd, d_odd), generator=gen, device=dev) * 0.7
             shape = f"{b_odd}x{n_lv}x{k_odd}x{d_odd}"
@@ -1504,11 +1551,47 @@ def _stage1(dev, work):
                 err_o = max(err_o, float((a - b).abs().max()))
             odd_checks[f"rq_quantize_train {shape}"] = dict(id_rows_differ=int(differ_o.sum()),
                                                             max_abs_err=err_o)
+        # equal codewords in several CTAs' slices: the lowest index, in both
+        # kernels; a row of NaN: code 0 at every level
+        for k_tie, copies in ((256, (5, 130, 200)), (2048, (17, 700, 1500, 2040))):
+            cb_tie = torch.randn((2, k_tie, 32), generator=gen, device=dev) * 0.7
+            cb_tie[0, list(copies[1:])] = cb_tie[0, copies[0]].clone()
+            x_tie = cb_tie[0, copies[0]][None].repeat(64, 1) + 1e-3 * torch.randn(
+                (64, 32), generator=gen, device=dev)
+            x_tie[7] = float("nan")
+            tie_plan = qk.kernel_plan("rq_tokenize", 64, 2, k_tie, 32)
+            # resident: copies in several lanes of a warp; cluster: in several CTAs
+            slices = {c % 32 if tie_plan["resident"] else c // tie_plan["slice"] for c in copies}
+            check(len(slices) > 1, f"tie copies {copies} all with one owner under {tie_plan}")
+            for label, ids in (("rq_tokenize", qk.rq_tokenize(x_tie, cb_tie).sem_ids),
+                               ("rq_quantize_train",
+                                qk.rq_quantize_train(x_tie, cb_tie, "STE", 0.25).sem_ids)):
+                live = torch.ones(64, dtype=torch.bool, device=dev)
+                live[7] = False
+                check(bool((ids[live, 0] == copies[0]).all()),
+                      f"{label}: equal codewords at {copies} do not give the lowest index")
+                check(bool((ids[7] == 0).all()), f"{label}: a row of NaN does not take code 0")
+            odd_checks[f"ties K={k_tie}"] = dict(copies=list(copies), owners=sorted(slices),
+                                                resident=tie_plan["resident"])
     log(f"quantizer kernels vs plain at odd shapes: {odd_checks}")
-    kernel_checks = dict(
-        rq_quantize_train=dict(id_rows_differ=int(differ.sum()), near_tie_rows=int(near.sum()),
-                               max_abs_err=train_err, grad_err_over_max_abs=grad_checks),
-        rq_tokenize_4x2048x64=tok_checks, odd_shapes=odd_checks)
+
+    # the launch plan: the library's against the restatement the CPU tests
+    # emulate, at every shape above and the timed ones; each plan resident
+    plans = {}
+    for shape in odd_shapes + ((64, 3, 256, 32), (4096, 3, 256, 32), (1024, 4, 2048, 64),
+                               (4096, 4, 2048, 64), (100, 3, 300, 4)):
+        d4 = shape[3] + (-shape[3] % 4)
+        props = torch.cuda.get_device_properties(dev)
+        want = qk.plan(*shape[:3], d4, sms=props.multi_processor_count,
+                       optin=getattr(props, "shared_memory_per_block_optin", qk.H100_OPTIN))
+        for name in ("rq_tokenize", "rq_quantize_train"):
+            got = qk.kernel_plan(name, *shape[:3], d4)
+            check({f: got[f] for f in qk.PLAN_FIELDS} == want and got["clusters"] > 0,
+                  f"{name} plan at {shape}: the library's {got}, the restatement's {want}")
+        plans["x".join(map(str, shape))] = got
+    log(f"quantizer launch plans: {plans}")
+    kernel_checks = dict(rq_quantize_train=train_checks, rq_tokenize_4x2048x64=tok_checks,
+                         odd_shapes=odd_checks, plans=plans)
 
     # ---- phase 14: two fp32 steps at the Amazon widths, GPU against CPU ----
     cpu = torch.device("cpu")
@@ -1536,7 +1619,7 @@ def _stage1(dev, work):
 
     gpu_cpu = {}
     default_volume = rqvae.FUSED_TRAIN_MIN_CODEBOOK_VOLUME
-    for route, volume in (("plain", default_volume), ("fused", 0)):
+    for route, volume in (("plain", float("inf")), ("fused", 0)):
         rqvae.FUSED_TRAIN_MIN_CODEBOOK_VOLUME = volume
         try:
             runs, batches = [], []
@@ -1567,27 +1650,28 @@ def _stage1(dev, work):
                               worst_leaf_rel_err=leaf_rel)
     log(f"stage-1 fp32 steps, GPU vs CPU: {gpu_cpu}")
 
-    # ---- phase 15: kernel times and the two routes at both shapes ----
-    b, d = xs.shape
-    n_lv, n_code = cbs.shape[:2]
-    t_bytes = 4 * (b * d + n_lv * n_code * d + 2 * n_lv * b * d + b * n_lv + b)
-    t_flops = 2 * b * n_lv * n_code * d
-    t_ops, t_mem = t_flops / FP32_FLOP_PER_S, t_bytes / HBM_BYTES_PER_S
+    # ---- phase 15: both kernels timed at both shapes, and the two routes ----
     with torch.no_grad():
-        train_ms = cuda_ms(lambda: qk.rq_quantize_train(xs, cbs, "ROTATION_TRICK", 0.25), 50)
-        train_plain_ms = cuda_ms(lambda: qk.rq_quantize_train_plain(xs, cbs), 50)
         z_big = rqvae.encode(params, mcfg, corpus[:4096]).float().contiguous()
-        tok_big_ms = cuda_ms(lambda: qk.rq_tokenize(z_big, cbs), 50)
-        tok_big_plain_ms = cuda_ms(lambda: qk.rq_tokenize_plain(z_big, cbs), 20)
-    tok_bytes = 4 * (4096 * d + n_lv * n_code * d + 2 * 4096 * d + 4096 * n_lv + 4096)
-    tok_flops = 2 * 4096 * n_lv * n_code * d
+        train_at = {
+            "flagship_64x3x256x32": _rq_timed(
+                "rq_quantize_train", lambda: qk.rq_quantize_train(xf, cbf, "ROTATION_TRICK", 0.25),
+                lambda: qk.rq_quantize_train_plain(xf, cbf), xf, cbf),
+            "stretch_1024x4x2048x64": _rq_timed(
+                "rq_quantize_train", lambda: qk.rq_quantize_train(xs, cbs, "ROTATION_TRICK", 0.25),
+                lambda: qk.rq_quantize_train_plain(xs, cbs), xs, cbs)}
+        tok_at = {"stretch_4096x4x2048x64": _rq_timed(
+            "rq_tokenize", lambda: qk.rq_tokenize(z_big, cbs), lambda: qk.rq_tokenize_plain(z_big, cbs),
+            z_big, cbs)}
+    main_at = train_at["flagship_64x3x256x32"]
     stage1_kernels = [dict(
         name="rq_quantize_train", route="cuda", source="rqvae_tpu_torch/csrc/rq_quantize_train.cu",
-        replaces="rqvae_tpu/ops/quantize_pallas.py:179", launches=stretch_launches,
-        max_abs_err=train_err, ms=train_ms, plain_ms=train_plain_ms,
-        bound_ms=max(t_ops, t_mem) * 1e3, bound_by="operations" if t_ops > t_mem else "bytes",
-        library_ms=None)]
-    log(f"rq_quantize_train at B={b}, {n_lv}x{n_code}x{d}: {stage1_kernels[0]}")
+        replaces="rqvae_tpu/ops/quantize_pallas.py:179",
+        launches=flag_launches["rq_quantize_train"], max_abs_err=max(flag_err, train_err),
+        ms=main_at["ms"], device_ms=main_at["device_ms"], plain_ms=main_at["plain_ms"],
+        bound_ms=main_at["bound_ms"], bound_by=main_at["bound_by"], library_ms=None,
+        at_shapes=train_at)]
+    log(f"rq_quantize_train: {stage1_kernels[0]}; rq_tokenize at 4096x4x2048x64: {tok_at}")
 
     def route_ms(model_cfg, p0, data, batch, dtype, steps, reps, fused):
         rqvae.FUSED_TRAIN_MIN_CODEBOOK_VOLUME = 0 if fused else float("inf")
@@ -1606,7 +1690,6 @@ def _stage1(dev, work):
         finally:
             rqvae.FUSED_TRAIN_MIN_CODEBOOK_VOLUME = default_volume
 
-    amazon_data = torch.from_numpy(synthetic_items(N_ITEMS, INPUT_DIM, seed=SEED).x).to(dev)
     routes = {}
     for shape, args in (
             ("amazon_3x256x32_bs64_fp32", (acfg, flag_params, amazon_data, 64, torch.float32, 8, 10)),
@@ -1621,9 +1704,7 @@ def _stage1(dev, work):
     train_rqvae = dict(
         flagship=flagship, stretch=stretch, kernel_checks=kernel_checks, gpu_vs_cpu=gpu_cpu,
         route_ms_per_step=routes, fused_train_min_codebook_volume=default_volume,
-        rq_tokenize_4x2048x64=dict(rows=4096, ms=tok_big_ms, plain_ms=tok_big_plain_ms,
-                                   bound_ms=max(tok_flops / FP32_FLOP_PER_S,
-                                                tok_bytes / HBM_BYTES_PER_S) * 1e3))
+        rq_quantize_train_stretch_launches=stretch_launches, rq_tokenize_at_shapes=tok_at)
     return train_rqvae, stage1_kernels, rq_ckpt
 
 
@@ -1849,6 +1930,43 @@ def _amazon_decoder(dev, rq_ckpt, work):
                 check(False, f"small_bwd_route({nq}, {nk}) = {got_route}, the library's {want_route}")
             routes[want_route] = routes.get(want_route, 0) + 1
     log(f"short backward routes over every (Nq, Nk) <= {fa.SMALL_MAX_LEN}: {routes}")
+
+    # the forward's C gate: an output whose rows are not 16-byte aligned (a
+    # view 4 bytes into its storage), handed to the library directly, must
+    # take the CUDA-core kernel (the live kernel stores 16-byte rows) and
+    # leave the context usable for the launches after it
+    q, k, v = (enc[t][:16] for t in ("q", "k", "v"))
+    b16, _, nq, _ = q.shape
+    store = torch.empty(b16 * nq * h * dh + 2, dtype=torch.bfloat16, device=dev)
+    o_off = store[2:].view(b16, nq, h, dh).transpose(1, 2)
+    check(o_off.data_ptr() % 16 == 4, f"offset output at {o_off.data_ptr() % 16} bytes")
+    km16 = enc["k_mask"][:16]
+    m16 = torch.empty((b16, h, nq), dtype=torch.float32, device=dev)
+    inv16 = torch.empty_like(m16)
+    bias16 = fa.mask_bias(km16, b16, nq, dev)
+    off_route = fa.small_fwd_kernel_route(q, k, v, o_off)
+    check(off_route == "cuda_cores",
+          f"short forward into an output 4 bytes off 16 gated to the {off_route} kernel")
+    fa._launch(fa.flash_attention_small_fwd, fa._DTYPE_CODES[torch.bfloat16], q.data_ptr(),
+               k.data_ptr(), v.data_ptr(), bias16.data_ptr(), o_off.data_ptr(), m16.data_ptr(),
+               inv16.data_ptr(), fa._strides(q, k, v, o_off), b16, h, nq, nq, dh, 0,
+               1.0 / math.sqrt(dh), fa._device_index(q), torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    ref16 = fa.flash_attention_small_plain(q, k, v, k_mask=km16)
+    off_err = float((o_off.float() - ref16.float()).abs().max())
+    check(off_err <= 2e-2 and bool(torch.isfinite(o_off.float()).all()),
+          f"short forward into an output 4 bytes off 16: {off_err} from the twin")
+    after = fa.flash_attention_small_fwd(q, k, v, k_mask=km16)[0]
+    torch.cuda.synchronize()
+    after_route = fa.small_fwd_kernel_route(q, k, v, after)
+    check(after_route == "live", f"the aligned launch after it gated to the {after_route} kernel")
+    after_err = float((after.float() - ref16.float()).abs().max())
+    check(after_err <= 2e-2, f"the launch after the offset output: {after_err} from the twin")
+    checks.append({"case": "output_4_bytes_off_16", "shape": list(q.shape), "out": off_err,
+                   "route": off_route, "launch_after": after_err, "route_after": after_route})
+    log(f"short forward, output 4 bytes off 16: max |err| {off_err:.2e}; the next launch "
+        f"{after_err:.2e}")
+    del store, o_off, after, ref16
 
     # ---- phase 22: a 2-user fp32 Amazon step, GPU against CPU, switch on ----
     cpu = torch.device("cpu")
@@ -2256,6 +2374,31 @@ def _hold_rq_tokenize(z, cbs, beta, k_out):
               f"rq_tokenize sums / residual / loss differ from the plain version at {tuple(z.shape)}")
         err = max(err, float((a[same] - b[same]).abs().max()))
     return int(differ.sum()), int(near.sum()), int(near_d0.sum()), err
+
+
+def _rq_bound(b, n_levels, k, d, train: bool):
+    """The least time for one quantizer call: each input read once (x, the
+    stack), each output written once ((L, B, D) twice for training, (B, D)
+    twice for tokenizing; ids, loss), against 2 B L K D fp32 FMA flops.
+    Returns (ms, "bytes" or "operations")."""
+    out_floats = 2 * n_levels * b * d if train else 2 * b * d
+    n_bytes = 4 * (b * d + n_levels * k * d + out_floats + b * n_levels + b)
+    ops, mem = 2 * b * n_levels * k * d / FP32_FLOP_PER_S, n_bytes / HBM_BYTES_PER_S
+    return max(ops, mem) * 1e3, "operations" if ops > mem else "bytes"
+
+
+def _rq_timed(name, fn, plain, x, cbs) -> dict:
+    """A quantizer kernel's times on (x, cbs): CUDA events over 50
+    back-to-back calls (the host's enqueue included), profiler device time
+    of its kernel over 20, the plain twin's events, the bound and the plan."""
+    from rqvae_tpu_torch.ops import quantize_kernels as qk
+
+    b, d = x.shape
+    n_levels, k = cbs.shape[:2]
+    bound, by = _rq_bound(b, n_levels, k, d, name == "rq_quantize_train")
+    return dict(shape=[b, n_levels, k, d], ms=cuda_ms(fn, 50),
+                device_ms=_device_ms(fn, 20, "rq::"), plain_ms=cuda_ms(plain, 20),
+                bound_ms=bound, bound_by=by, plan=qk.kernel_plan(name, b, n_levels, k, d))
 
 
 if __name__ == "__main__":

@@ -67,6 +67,7 @@
 //     pair at Dh = 128 would exceed 227 KB), then the same one-pass softmax
 //     and p v on the CUDA cores.
 #include "flash_attention_small.cuh"
+#include "mbarrier.cuh"
 
 #include <cuda.h>   // CUtensorMap and its enums (cuTensorMapEncodeTiled is looked up at run time)
 
@@ -75,33 +76,12 @@ namespace small {
 
 // ---- the tensor-copy (TMA) and mbarrier instructions the bf16 kernel uses ----
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-// the initialised barriers made visible to the async proxy (the copies)
-__device__ __forceinline__ void fence_mbar_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-// one arrival on bar, which also expects ``bytes`` more to land on it
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// one arrival on bar
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-// wait for the phase of bar with this parity to complete (on a barrier that
-// has not completed a phase yet, parity 1 passes at once)
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
+using hopper::fence_mbar_init;
+using hopper::mbar_arrive;
+using hopper::mbar_expect;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+
 // The box of ``map`` (a (64, N, H, B) bf16 view) at rows n.. of head h of
 // batch row b into dst (1024-byte aligned) in the 128-byte swizzle, by the
 // TMA unit; rows past N land as zeros, and every byte of the box counts on bar.
@@ -616,6 +596,17 @@ int launch_fwd_dp(int DP, const void* q, const void* k, const void* v, const flo
   return (int)cudaErrorInvalidValue;
 }
 
+// The bf16 kernel that takes operands at these addresses and strides: the
+// live kernel at Dh = 64 when q, k, v and o are each 16-byte aligned with
+// 16-byte aligned rows (its epilogue stores whole 16-byte output rows), else
+// the CUDA-core kernel. The one place this gate lives: the launcher takes it
+// and flash_small_fwd_route exports it.
+inline bool fwd_live(const void* q, const void* k, const void* v, const void* o,
+                     const long long* strides, int Dh) {
+  return Dh == kMD && mma_aligned(q, strides) && mma_aligned(k, strides + 3) &&
+         mma_aligned(v, strides + 6) && mma_aligned(o, strides + 9);
+}
+
 }  // namespace small
 }  // namespace flash
 
@@ -644,9 +635,7 @@ int flash_small_fwd_launch(int dtype, const void* q, const void* k, const void* 
   if (dtype == 0)
     return small::launch_fwd_dp<float>(DP, q, k, v, bias, o, m, inv, st, B, H, Nq, Nk, Dh, causal, scale, device, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (Dh == kMD && mma_aligned(q, strides) && mma_aligned(k, strides + 3) &&
-      mma_aligned(v, strides + 6) && strides[9] % 2 == 0 && strides[10] % 2 == 0 &&
-      strides[11] % 2 == 0 && (uintptr_t)o % 4 == 0)
+  if (small::fwd_live(q, k, v, o, strides, Dh))
     return small::launch_fwd_mma(q, k, v, bias, o, m, inv, st, B, H, Nq, Nk, causal, scale, device, s);
   return small::launch_fwd_dp<__nv_bfloat16>(DP, q, k, v, bias, o, m, inv, st, B, H, Nq, Nk, Dh, causal, scale, device, s);
 }
@@ -675,6 +664,13 @@ void flash_small_fwd_plan(int BH, int Nq, int Nk, int device, long long* out) {
   }
   const long long vals[5] = {pl.G, small::kStages, warps, pl.smem, per_sm};
   for (int i = 0; i < 5; ++i) out[i] = vals[i];
+}
+
+// 1 when bf16 operands at these addresses and strides (12, as the launch
+// takes them) take small_fwd_live_kernel, 0 when the CUDA-core kernel.
+int flash_small_fwd_route(const void* q, const void* k, const void* v, const void* o,
+                          const long long* strides, int Dh) {
+  return flash::small::fwd_live(q, k, v, o, strides, Dh) ? 1 : 0;
 }
 
 const char* flash_small_fwd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

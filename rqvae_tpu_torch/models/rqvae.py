@@ -4,9 +4,10 @@
 * ``encode`` / ``decode``: MLPs; the decoder ends in an l2-norm layer;
 * ``get_semantic_ids``: n_layers sequential quantize levels, residual
   update res <- res - emb; in training, the hard estimators (STE, rotation
-  trick) go through the fused ``rq_quantize_train`` kernel at large
-  codebooks (``FUSED_TRAIN_MIN_CODEBOOK_VOLUME``), the rest through the
-  plain per-level loop of ``quantize.apply``;
+  trick) go through the fused ``rq_quantize_train`` kernel at every
+  codebook volume (``FUSED_TRAIN_MIN_CODEBOOK_VOLUME`` is 0 in the port)
+  where ``kernel_width`` holds, Gumbel-softmax and wider embeddings through
+  the plain per-level loop of ``quantize.apply``;
 * ``forward``: loss = mean(recon + sum of the levels' quantize losses), with
   the per-level embedding norms and the fraction of unique id tuples;
 * ``kmeans_prime``: per-level k-means codebook init on a priming batch, where
@@ -101,20 +102,23 @@ def _level_kwargs(cfg: RqVaeConfig, level: int):
 
 
 # codebook_size * embed_dim from which the hard estimators take the fused
-# training kernel. The value is the JAX package's, measured on a TPU v5e;
-# chip_smoke.py times both routes at the Amazon and the stretch shape on the
-# H100 (PERF.md, ROADMAP.md B4), and the threshold stays until that says
-# otherwise.
-FUSED_TRAIN_MIN_CODEBOOK_VOLUME = 65536
+# training kernel. The JAX package's 65,536 was measured on a TPU v5e. On an
+# H100 (NVIDIA H100 80GB HBM3, 700.00 W) chip_smoke.py timed both routes
+# through make_device_chunk, in ms a step, plain against fused: at the
+# Amazon shape (3 x 256 x 32, batch 64, fp32) 11.35 / 9.37 against
+# 8.53 / 7.97, at the stretch shape (4 x 2048 x 64, batch 1024, bf16)
+# 13.50 / 13.40 against 11.85 / 10.79 (PERF.md, two runs). The fused route
+# won at both, so every volume takes it. The name stays: tests and
+# chip_smoke.py force each route through it.
+FUSED_TRAIN_MIN_CODEBOOK_VOLUME = 0
 
 
 def kernel_width(cfg: RqVaeConfig) -> bool:
     """Whether ``embed_dim`` fits the quantizer kernels (the port's route
-    rule; JAX's Pallas kernels take any width). Both kernels stage tiles of
-    D-wide fp32 codewords in a 144 KB budget of the 227 KB of shared memory
-    an H100 block may use, and keep each row's residual in registers, D / 32
-    values a lane (``csrc/rq_common.cuh``), so they take D <= ``MAX_D`` (128)
-    and raise above it. A wider embedding takes the plain per-level loop on
+    rule; JAX's Pallas kernels take any width). Both kernels apply a level's
+    winner with a warp a row, D / 32 values a lane held in registers across
+    the level loop (``csrc/rq_common.cuh``), so they take D <= ``MAX_D``
+    (128) and raise above it. A wider embedding takes the plain per-level loop on
     both quantizer routes (training and ``encode_and_tokenize``): the same
     function, so the ids and values are JAX's up to near-ties and fp32
     rounding. It is a route, not a fallback: the kernels are never tried on

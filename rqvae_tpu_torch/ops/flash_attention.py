@@ -475,6 +475,20 @@ def small_bwd_kernel_route(nq: int, nk: int) -> str:
     return SMALL_BWD_ROUTES[fn(nq, nk)]
 
 
+def small_fwd_kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           o: torch.Tensor) -> str:
+    """The bf16 kernel of ``csrc/flash_attention_small_fwd.cu`` that takes
+    (B, H, N, Dh) operands at these addresses and strides, as the library's
+    launcher gates it: ``"live"`` (``small_fwd_live_kernel``) or
+    ``"cuda_cores"`` (built at first use)."""
+    fn = _c_function(flash_attention_small_fwd, "route")
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [_P, _P, _P, _P, _P, _I], ctypes.c_int
+    live = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _strides(q, k, v, o),
+              q.shape[-1])
+    return "live" if live else "cuda_cores"
+
+
 def small_fwd_plan(bh: int, nq: int, nk: int, device: int = 0) -> dict:
     """The bf16 Dh = 64 forward kernel's launch for (B H, Nq, Nk), as the
     kernel library plans it (built at first use): pairs a unit, stages,

@@ -9,11 +9,15 @@ rqvae_tpu/ops/quantize_pallas.py).
   package's ``_rq_train_bwd`` in torch ops (plain jnp there too): the
   estimator-exact STE / rotation-trick gradients, levels in reverse.
 
-There is no fallback from a kernel to its twin. Both kernels share the
-K-tiled loop of ``csrc/rq_common.cuh``, so any (L, K, D) stack with D <= 128
-runs; its note says what bounds the kernels on an H100 and how they are laid
-out. ``rq_tokenize.launches`` and ``rq_quantize_train.launches`` count
-kernel launches.
+There is no fallback from a kernel to its twin. Each call is one launch of
+one of ``csrc/rq_common.cuh``'s two kernels (every level's codes resident in
+each CTA, or split across a thread-block cluster), so any (L, K, D) stack
+with D <= 128 runs; its note says what bounds them on an H100 and how they
+are laid out. ``kernel_plan`` asks the library for the launch plan it
+takes, on the card; ``plan`` restates that rule for the CPU tests' emulation
+of the kernels (``chip_smoke.py`` holds the two equal).
+``rq_tokenize.launches`` and ``rq_quantize_train.launches`` count kernel
+launches.
 """
 from __future__ import annotations
 
@@ -23,6 +27,82 @@ from typing import NamedTuple
 import torch
 
 MAX_D = 128  # rq::kMaxD in csrc/rq_common.cuh
+# the launch plan's constants (csrc/rq_common.cuh)
+WARPS = 8
+MAX_CLUSTER = 4
+MAX_STAGES = 8
+SLACK = 1024
+H100_SMS = 132
+H100_OPTIN = 232448   # opt-in shared memory a block, bytes
+PLAN_FIELDS = ("resident", "rows", "cluster", "slice", "tile", "tiles", "stages", "swizzled",
+               "smem", "grid")
+
+
+def unit_codes(rows: int) -> int:
+    """Codes of a warp's unit of ``rows`` rows (8 x 8 a lane)."""
+    return 8 * (256 // rows)
+
+
+def _fixed_smem(d: int, rows: int) -> int:
+    return SLACK + 4 * (rows * d + rows + 2 * WARPS * rows + 4 * rows + rows
+                        + WARPS * unit_codes(rows)) + 12 * MAX_STAGES
+
+
+def _resident_smem(n_levels: int, k: int, d: int, rows: int) -> int:
+    kp = -(-k // 64) * 64 if d % 32 == 0 else k
+    return SLACK + 4 * (n_levels * kp * d + -(-(n_levels * kp) // 4) * 4 + rows * d) \
+        + 8 * MAX_STAGES
+
+
+def plan(b: int, n_levels: int, k: int, d: int, *, rows: int = 0, cluster: int = 0,
+         sms: int = H100_SMS, optin: int = H100_OPTIN) -> dict:
+    """The kernels' launch plan (``rq::plan_for`` / ``rq::plan_with``).
+    ``resident``: every level's codes staged in each CTA (when they fit, at
+    most 8 levels), ``rows`` (32 where that gives three quarters of the SMs
+    a CTA, else 8) a CTA, no cluster. Else a cluster of ``cluster`` CTAs
+    owns ``rows`` rows, each CTA a ``slice`` of every level's codes, staged
+    ``tile`` codes a stage through ``stages`` stages (all of them at once
+    when they fit); the largest grid in one wave (clusters of 4 on at most
+    7/8 of the SMs), at least one unit of codes a CTA. Codes are copied in
+    the 128-byte swizzle when D is a multiple of 32. The automatic plan on
+    a device of ``sms`` SMs; ``rows`` and ``cluster`` set the cluster
+    kernel's plan as a build with ``-DRQ_FORCE_ROWS`` / ``-DRQ_FORCE_CLUSTER``
+    takes it, so that the emulation covers plans the rule picks only at
+    large shapes."""
+    if not rows and not cluster and n_levels <= MAX_STAGES \
+            and _resident_smem(n_levels, k, d, 32) <= optin:
+        r = 32 if -(-b // 32) >= (3 * sms) // 4 else 8
+        return dict(resident=1, rows=r, cluster=1, slice=k,
+                    tile=-(-k // 64) * 64 if d % 32 == 0 else k, tiles=1, stages=n_levels,
+                    swizzled=int(d % 32 == 0), smem=_resident_smem(n_levels, k, d, r),
+                    grid=-(-b // r))
+    if not rows and not cluster:
+        rows, cluster, best = 32, 1, 0
+        for r in (32, 16):
+            for c in (1, 2, 4):
+                grid = -(-b // r) * c
+                cap = (7 * sms) // 8 if c == 4 else sms
+                if c > 1 and -(-k // c) < unit_codes(r):
+                    continue
+                if grid > cap or grid <= best:
+                    continue
+                rows, cluster, best = r, c, grid
+    unit = unit_codes(rows)
+    fixed = _fixed_smem(d, rows)
+    budget, code_bytes = optin - fixed, 4 * d
+    sl = -(-k // cluster)
+    whole = -(-sl // unit) * unit
+    if n_levels * whole * code_bytes <= budget:
+        tile, tiles = whole, 1
+    else:
+        tmax = budget // (3 * code_bytes) // unit * unit
+        tiles = -(-sl // tmax)
+        tile = -(-(-(-sl // tiles)) // unit) * unit
+    stages = min(n_levels * tiles, budget // (tile * code_bytes), MAX_STAGES)
+    return dict(resident=0, rows=rows, cluster=cluster, slice=sl, tile=tile, tiles=tiles,
+                stages=stages,
+                swizzled=int(d % 32 == 0), smem=fixed + stages * tile * code_bytes,
+                grid=-(-b // rows) * cluster)
 
 
 class RqTokenizeOutput(NamedTuple):
@@ -87,8 +167,11 @@ def _lib(name: str) -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         launch = getattr(lib, f"{name}_launch")
-        launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
+        launch.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
         launch.restype = i
+        describe = getattr(lib, f"{name}_plan")
+        describe.argtypes = [i, i, i, i, i, p]
+        describe.restype = i
         error_string = getattr(lib, f"{name}_error_string")
         error_string.argtypes = [i]
         error_string.restype = ctypes.c_char_p
@@ -106,6 +189,22 @@ def _check(name: str, x: torch.Tensor, codebooks: torch.Tensor) -> None:
         raise ValueError(f"{name} runs on cuda (kernel) or cpu (plain), got {x.device}")
 
 
+def kernel_plan(name: str, b: int, n_levels: int, k: int, d: int, *, device=None) -> dict:
+    """The plan that ``csrc/<name>.cu`` launches for these shapes on a CUDA
+    ``device``, as the library computes it, with ``clusters``: how many of
+    its clusters (the resident kernel's CTAs) the device holds at once (0:
+    it cannot launch)."""
+    lib = _lib(name)
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    out = (ctypes.c_longlong * 11)()
+    err = getattr(lib, f"{name}_plan")(b, n_levels, k, d, index, ctypes.addressof(out))
+    got = dict(zip(PLAN_FIELDS + ("clusters",), list(out)))
+    if err != 0 and got["rows"] == 0:  # no plan: it was refused
+        raise RuntimeError(f"{name} plan failed: {getattr(lib, f'{name}_error_string')(err).decode()}")
+    return got
+
+
 def _launch(name: str, x: torch.Tensor, codebooks: torch.Tensor, out_a: torch.Tensor,
             out_b: torch.Tensor, ids: torch.Tensor, loss: torch.Tensor,
             commitment_weight: float) -> None:
@@ -119,17 +218,20 @@ def _launch(name: str, x: torch.Tensor, codebooks: torch.Tensor, out_a: torch.Te
     if d > MAX_D or d % 4:
         raise ValueError(f"{name} takes D a multiple of 4, at most {MAX_D}; got {d}")
     lib = _lib(name)
-    norms = torch.empty((n_levels * k,), dtype=torch.float32, device=x.device)
     dev_index = x.device.index if x.device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = getattr(lib, f"{name}_launch")(
-        x.data_ptr(), codebooks.data_ptr(), norms.data_ptr(), ids.data_ptr(), out_a.data_ptr(),
-        out_b.data_ptr(), loss.data_ptr(), b, n_levels, k, d, float(commitment_weight),
-        dev_index, stream,
+        x.data_ptr(), codebooks.data_ptr(), ids.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
+        loss.data_ptr(), b, n_levels, k, d, float(commitment_weight), dev_index, stream,
     )
     if err != 0:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg}")
+        try:
+            taken = kernel_plan(name, b, n_levels, k, d, device=x.device)
+        except RuntimeError as e:
+            taken = str(e)
+        raise RuntimeError(f"{name} launch failed: {msg} "
+                           f"(plan {taken} for B {b}, {n_levels} x {k} x {d})")
 
 
 def _pad4(t: torch.Tensor) -> torch.Tensor:

@@ -252,8 +252,8 @@ def test_forward_training_matches_jax_plain_route(params, route, mode, monkeypat
     jp, np_tree = params
     x = inputs(48, 5)
     want, jgrads = _jax_forward_and_grads(jp, jcfg, x)
-    if route == "fused":
-        monkeypatch.setattr(trq, "FUSED_TRAIN_MIN_CODEBOOK_VOLUME", 0)
+    monkeypatch.setattr(trq, "FUSED_TRAIN_MIN_CODEBOOK_VOLUME",
+                        0 if route == "fused" else float("inf"))
     calls = []
     real = trq._fused_train_quantize
     monkeypatch.setattr(trq, "_fused_train_quantize", lambda *a: calls.append(1) or real(*a))

@@ -71,8 +71,8 @@ def test_make_train_step_matches_jax(params, accum, route, monkeypatch):
     x = np.stack([inputs(32, 20 + i) for i in range(accum)])
     jstep = jax.jit(jtr.make_train_step(jcfg, JCAPTURE, accum, jnp.float32))
     _, jgrads, jm = jstep(jp, None, jnp.asarray(x), jax.random.PRNGKey(0), jnp.float32(0.2))
-    if route == "fused":
-        monkeypatch.setattr(trq, "FUSED_TRAIN_MIN_CODEBOOK_VOLUME", 0)
+    monkeypatch.setattr(trq, "FUSED_TRAIN_MIN_CODEBOOK_VOLUME",
+                        0 if route == "fused" else float("inf"))
     tstep = ttr.make_train_step(tcfg, _CaptureGrads(), accum, torch.float32)
     tp = _tp(np_tree)
     _, tgrads, tm = tstep(tp, None, torch.from_numpy(x), torch.Generator().manual_seed(0), 0.2)
@@ -136,7 +136,8 @@ def test_bf16_step_runs_both_routes_close_to_fp32(params, monkeypatch):
     x = torch.from_numpy(inputs(32, 41)[None])
     losses = {}
     for route in ("plain", "fused"):
-        monkeypatch.setattr(trq, "FUSED_TRAIN_MIN_CODEBOOK_VOLUME", 0 if route == "fused" else 65536)
+        monkeypatch.setattr(trq, "FUSED_TRAIN_MIN_CODEBOOK_VOLUME",
+                            0 if route == "fused" else float("inf"))
         for dt in (torch.float32, torch.bfloat16):
             _, grads, m = ttr.make_train_step(tcfg, _CaptureGrads(), 1, dt)(
                 _tp(np_tree), None, x, None, 0.2)
