@@ -15,10 +15,16 @@ weights made from a seed and seeded synthetic data:
      4,096-row chunks), tokenize 256 users x 20 history items, run
      constrained beam search (``generate_next_sem_ids``: k = 32, exhaustive
      candidates, bf16 decoder weights: 4 + 4 layers, width 512, 8 heads) and
-     count h@k / NDCG; check that rq_tokenize and children_window were
-     launched (counts zeroed just before, read just after);
-  4. compare those two kernels with their plain PyTorch twins on the main
-     path's own inputs; check the beams (corpus members, finite, sorted) and
+     count h@k / NDCG; check that rq_tokenize was launched and that
+     children_window's Mask epilogue was launched 4 times (once a level of
+     the beam search) and its Tokens epilogue never (counts zeroed just
+     before, read just after);
+  4. compare those kernels with their plain PyTorch twins on the main
+     path's own inputs (both children_window epilogues bit-identical at
+     every level of a rerun of the beam search whose beams equal the main
+     path's; their events and device times beside the route the Mask
+     epilogue replaces: the Tokens kernel, ``.long()``, ``zeros`` and
+     ``scatter_``); check the beams (corpus members, finite, sorted) and
      a 4-user fp32 GPU run against the same run on the CPU;
   5. ML-32M train step, the ``bench.py --profile ml32m`` shape: batch 256,
      200-item histories cut by the crop-length distribution (801 encoder
@@ -47,7 +53,9 @@ weights made from a seed and seeded synthetic data:
   8. a 2-user fp32 train step (dropout 0) on the GPU against the CPU: loss
      to 1e-4 relative, every gradient leaf to 1e-3 of its max-abs;
   9. ML-32M serving: 64 users x 801 tokens against the 84,432-item index,
-     k = 32, 256 candidates, through the flash forward kernel;
+     k = 32, 256 candidates, through the flash forward kernel and 4 Mask
+     launches; both children_window epilogues against their twins at every
+     level of a rerun, and timed as in phase 4;
  10. time every kernel, its twin and the library call beside it (the flash
      bound counts the (q, k) pairs with a valid key and the K / V bytes of
      the valid keys, the dense count and the exp floor beside it); dense
@@ -187,6 +195,7 @@ a GPU. Run from the repository root: ``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -273,11 +282,10 @@ def main() -> int:
         log("chip_smoke: no CUDA device visible")
         return 1
 
-    from rqvae_tpu_torch.data.schemas import SeqBatch
     from rqvae_tpu_torch.evaluate import metrics
-    from rqvae_tpu_torch.models import generation, quantize, retrieval, rqvae
+    from rqvae_tpu_torch.models import generation, rqvae
     from rqvae_tpu_torch.ops import _cuda_build
-    from rqvae_tpu_torch.ops.children_window import children_window, children_window_plain
+    from rqvae_tpu_torch.ops.children_window import children_window, children_window_mask
     from rqvae_tpu_torch.ops.quantize_kernels import rq_tokenize, rq_tokenize_plain
     from rqvae_tpu_torch.tokenizer import semids
     from rqvae_tpu_torch.utils import amp
@@ -308,44 +316,12 @@ def main() -> int:
     log(f"kernel build: {build_s:.1f} s")
 
     # ---- seeded weights and data (set-up, not the main path) ----
-    gen = torch.Generator().manual_seed(SEED)
-    gdev = torch.Generator(device=dev).manual_seed(SEED)
-    rq_cfg = rqvae.RqVaeConfig(input_dim=INPUT_DIM, embed_dim=32, hidden_dims=(512, 256, 128),
-                               codebook_size=256, n_layers=3, n_cat_feats=0,
-                               commitment_weight=0.25, codebook_mode="ROTATION_TRICK")
-    rq_params = rqvae.init(gen, rq_cfg, device=dev)
-    corpus = torch.randn((N_ITEMS, INPUT_DIM), generator=gdev, device=dev)
-    # the encoder's last layer is scaled to give unit-RMS codes, and each
-    # level's codebook is drawn N(0, 1) at its residual's RMS: U(0,1)
-    # codebooks against an untrained encoder would put every item on one
-    # code, and its raw ~1e-2 outputs leave distance gaps at fp32 rounding
-    with torch.no_grad():
-        res = rqvae.encode(rq_params, rq_cfg, corpus)
-        scale = res.pow(2).mean().rsqrt()
-        rq_params["encoder"][-1] *= scale
-        res = res * scale
-        for level in rq_params["layers"]:
-            cb = torch.randn(level["codebook"].shape, generator=gdev, device=dev)
-            level["codebook"] = cb * res.pow(2).mean().sqrt()
-            res = res - level["codebook"][quantize.distances(res, level["codebook"]).argmin(-1)]
-    dec_cfg = retrieval.RetrievalConfig(embedding_dim=128, attn_dim=512, dropout=0.3, num_heads=8,
-                                        n_layers=8, num_embeddings=256, sem_id_dim=4,
-                                        max_pos=N_HIST * 4, user_hash_buckets=2000,
-                                        mlp_hidden_dim=1024)
-    dec_params = amp.cast_floating(retrieval.init(gen, dec_cfg, device=dev), torch.bfloat16)
-    hist = torch.randint(0, N_ITEMS, (BATCH, N_HIST), generator=gdev, device=dev, dtype=torch.int32)
-    seq_batch = SeqBatch(
-        user_ids=torch.arange(BATCH, device=dev, dtype=torch.int32) * 7919,
-        ids=hist,
-        ids_fut=torch.randint(0, N_ITEMS, (BATCH, 1), generator=gdev, device=dev, dtype=torch.int32),
-        x=torch.zeros((BATCH, N_HIST, 1), device=dev),
-        x_fut=torch.zeros((BATCH, 1, 1), device=dev),
-        seq_mask=torch.ones((BATCH, N_HIST), dtype=torch.bool, device=dev),
-    )
+    rq_params, rq_cfg, corpus, dec_params, dec_cfg, seq_batch = _amazon_serving_setup(dev)
     torch.cuda.synchronize()
 
     # ---- the main path, counted ----
     rq_tokenize.launches = 0
+    children_window_mask.launches = 0
     children_window.launches = 0
     t0 = time.perf_counter()
     index = semids.precompute_corpus_ids(rq_params, rq_cfg, corpus)
@@ -355,10 +331,14 @@ def main() -> int:
     counts = metrics.batch_hit_counts(tok.sem_ids_fut, out.sem_ids, ks=(1, 5, 10))
     torch.cuda.synchronize()
     first_run_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"rq_tokenize": rq_tokenize.launches, "children_window": children_window.launches}
+    launches = {"rq_tokenize": rq_tokenize.launches,
+                "children_window_mask": children_window_mask.launches,
+                "children_window": children_window.launches}
     log(f"main path launches: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    check(launches["rq_tokenize"] > 0, "rq_tokenize was not launched on the main path")
+    # one beam search: the Mask epilogue once a level (4), the Tokens epilogue never
+    check(launches["children_window_mask"] == 4 and launches["children_window"] == 0,
+          f"children_window launches on the main path: {launches}")
     log(f"index: n_distinct {index.n_distinct}, bases {index.bases}, "
         f"max duplicates {semids.max_duplicates(index)}")
 
@@ -426,43 +406,28 @@ def main() -> int:
     ))
 
     # the beam search's own children_window operands: rerun it (same weights
-    # and inputs) with the call recorded
+    # and inputs) with the Mask wrapper's calls recorded
     k_tok = index.codebook_size
-    cw_inputs = []
-
-    def record(*args, **kwargs):
-        cw_inputs.append(args)
-        return children_window(*args, **kwargs)
-
-    semids.children_window = record
-    try:
+    with _record_children_window(semids) as cw_inputs:
         again = generation.generate_next_sem_ids(dec_params, dec_cfg, index, tok, k=BEAMS,
                                                  n_candidates=256)
-    finally:
-        semids.children_window = children_window
-    log(f"rerun beams equal to the main path's: {bool((again.sem_ids == out.sem_ids).all())}")
+    check(bool((again.sem_ids == out.sem_ids).all()), "rerun beams differ from the main path's")
+    log("rerun beams equal to the main path's")
     check([a[1].shape[0] for a in cw_inputs] == [1] + [BATCH * BEAMS] * 3,
           f"children_window rows per step {[a[1].shape[0] for a in cw_inputs]}")
-    cw_err = 0
-    for args in cw_inputs:
-        k_out = children_window(*args, window=k_tok, k_tokens=k_tok)
-        p_out = children_window_plain(*args, window=k_tok, k_tokens=k_tok)
-        cw_err = max(cw_err, int((k_out - p_out).abs().max()))
-    check(cw_err == 0, f"children_window differs from the plain version by {cw_err}")
-    log("children_window vs plain: identical at levels 0..3")
-    big = cw_inputs[1:]
-    n_table = index.n_items
-    rows = big[0][1].shape[0]
-    cw_bytes = 8 * n_table + rows * (4 + 4 + 8) + 4 * rows * k_tok
+    cw_err = _hold_children_window(cw_inputs, k_tok)
+    log("children_window Tokens and Mask vs plain: identical at levels 0..3")
+    log(f"children_window Mask vs plain at wide K (bits set): {_hold_children_window_wide_k(dev)}")
+    cw_amazon = _cw_timed(cw_inputs[1:], k_tok)
+    log(f"children_window at {BATCH * BEAMS} rows: {cw_amazon}")
     kernels.append(dict(
         name="children_window", route="cuda", source="rqvae_tpu_torch/csrc/children_window.cu",
         replaces="rqvae_tpu/ops/children_window.py:33",
-        launches=launches["children_window"], max_abs_err=float(cw_err),
-        ms=sum(cuda_ms(lambda a=a: children_window(*a, window=k_tok, k_tokens=k_tok), 100)
-               for a in big) / len(big),
-        plain_ms=sum(cuda_ms(lambda a=a: children_window_plain(*a, window=k_tok, k_tokens=k_tok),
-                             100) for a in big) / len(big),
-        bound_ms=cw_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+        launches=launches["children_window_mask"], max_abs_err=float(cw_err),
+        ms=cw_amazon["mask"]["ms"], device_ms=cw_amazon["mask"]["device_ms"],
+        plain_ms=cw_amazon["mask"]["plain_ms"], bound_ms=cw_amazon["mask"]["bound_ms"],
+        bound_by="bytes", library_ms=None,
+        at_shapes={f"amazon_{BATCH * BEAMS}": cw_amazon},
     ))
 
     # ---- serving path times ----
@@ -477,13 +442,14 @@ def main() -> int:
                        rq_params, rq_cfg, corpus)),
                    generate_profile=_profile(lambda: generation.generate_next_sem_ids(
                        dec_params, dec_cfg, index, tok, k=BEAMS, n_candidates=256)))
-    del rq_params, corpus, index, dec_params, params32, chunks, cw_inputs, big, out, again
+    del rq_params, corpus, index, dec_params, params32, chunks, cw_inputs, out, again
 
     # ---- phase 24: the width rule of the kernel routes ----
     wide = _wide(dev)
 
     # ---- ML-32M: decoder training, then long-context serving ----
     train, ml_serving, flash_kernels = _ml32m(dev)
+    kernels[1]["at_shapes"][f"ml32m_{ML_GEN_BATCH * BEAMS}"] = ml_serving.pop("children_window")
     kernels += flash_kernels
     serving["ml32m"] = ml_serving
     torch.cuda.empty_cache()
@@ -515,6 +481,53 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _amazon_serving_setup(dev):
+    """Phase 3's seeded set-up: the RQ-VAE (weights and the 12,101 x 768
+    corpus), the bf16 decoder and 256 users' 20-item histories. Returns
+    (rq_params, rq_cfg, corpus, dec_params, dec_cfg, seq_batch)."""
+    import torch
+
+    from rqvae_tpu_torch.data.schemas import SeqBatch
+    from rqvae_tpu_torch.models import quantize, retrieval, rqvae
+    from rqvae_tpu_torch.utils import amp
+
+    gen = torch.Generator().manual_seed(SEED)
+    gdev = torch.Generator(device=dev).manual_seed(SEED)
+    rq_cfg = rqvae.RqVaeConfig(input_dim=INPUT_DIM, embed_dim=32, hidden_dims=(512, 256, 128),
+                               codebook_size=256, n_layers=3, n_cat_feats=0,
+                               commitment_weight=0.25, codebook_mode="ROTATION_TRICK")
+    rq_params = rqvae.init(gen, rq_cfg, device=dev)
+    corpus = torch.randn((N_ITEMS, INPUT_DIM), generator=gdev, device=dev)
+    # the encoder's last layer is scaled to give unit-RMS codes, and each
+    # level's codebook is drawn N(0, 1) at its residual's RMS: U(0,1)
+    # codebooks against an untrained encoder would put every item on one
+    # code, and its raw ~1e-2 outputs leave distance gaps at fp32 rounding
+    with torch.no_grad():
+        res = rqvae.encode(rq_params, rq_cfg, corpus)
+        scale = res.pow(2).mean().rsqrt()
+        rq_params["encoder"][-1] *= scale
+        res = res * scale
+        for level in rq_params["layers"]:
+            cb = torch.randn(level["codebook"].shape, generator=gdev, device=dev)
+            level["codebook"] = cb * res.pow(2).mean().sqrt()
+            res = res - level["codebook"][quantize.distances(res, level["codebook"]).argmin(-1)]
+    dec_cfg = retrieval.RetrievalConfig(embedding_dim=128, attn_dim=512, dropout=0.3, num_heads=8,
+                                        n_layers=8, num_embeddings=256, sem_id_dim=4,
+                                        max_pos=N_HIST * 4, user_hash_buckets=2000,
+                                        mlp_hidden_dim=1024)
+    dec_params = amp.cast_floating(retrieval.init(gen, dec_cfg, device=dev), torch.bfloat16)
+    hist = torch.randint(0, N_ITEMS, (BATCH, N_HIST), generator=gdev, device=dev, dtype=torch.int32)
+    seq_batch = SeqBatch(
+        user_ids=torch.arange(BATCH, device=dev, dtype=torch.int32) * 7919,
+        ids=hist,
+        ids_fut=torch.randint(0, N_ITEMS, (BATCH, 1), generator=gdev, device=dev, dtype=torch.int32),
+        x=torch.zeros((BATCH, N_HIST, 1), device=dev),
+        x_fut=torch.zeros((BATCH, 1, 1), device=dev),
+        seq_mask=torch.ones((BATCH, N_HIST), dtype=torch.bool, device=dev),
+    )
+    return rq_params, rq_cfg, corpus, dec_params, dec_cfg, seq_batch
 
 
 def _wide(dev):
@@ -683,7 +696,7 @@ def _ml32m(dev):
     from rqvae_tpu_torch.models import generation, retrieval
     from rqvae_tpu_torch.ops import attention as attn_ops
     from rqvae_tpu_torch.ops import flash_attention as fa
-    from rqvae_tpu_torch.ops.children_window import children_window
+    from rqvae_tpu_torch.ops.children_window import children_window, children_window_mask
     from rqvae_tpu_torch.tokenizer import semids
     from rqvae_tpu_torch.train import optim
     from rqvae_tpu_torch.train import train_decoder as td
@@ -895,23 +908,37 @@ def _ml32m(dev):
                                                 n_candidates=256)
 
     fa.flash_attention_fwd.launches = 0
+    children_window_mask.launches = 0
     children_window.launches = 0
     out = serve()
     torch.cuda.synchronize()
     serve_launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                      "children_window_mask": children_window_mask.launches,
                       "children_window": children_window.launches}
     check(serve_launches["flash_attention_fwd"] == 4,
           f"ML-32M serving: {serve_launches} (the encoder's 4 layers take the flash kernel)")
+    check(serve_launches["children_window_mask"] == 4 and serve_launches["children_window"] == 0,
+          f"ML-32M serving: {serve_launches} (one Mask launch a level, no Tokens launch)")
     check(bool(torch.isfinite(out.log_probas).all()), "ML-32M serving: non-finite log-probas")
     live = out.log_probas > generation.INVALID_PENALTY / 2
     check(bool(semids.exists_prefix(index, out.sem_ids)[live].all()),
           "ML-32M serving: an unpenalised beam is not a corpus item")
+    with _record_children_window(semids) as cw_inputs:
+        again = serve()
+    check(bool((again.sem_ids == out.sem_ids).all()), "ML-32M serving: rerun beams differ")
+    check([a[1].shape[0] for a in cw_inputs] == [1] + [ML_GEN_BATCH * BEAMS] * 3,
+          f"ML-32M children_window rows per step {[a[1].shape[0] for a in cw_inputs]}")
+    _hold_children_window(cw_inputs, index.codebook_size)
+    log("ML-32M children_window Tokens and Mask vs plain: identical at levels 0..3")
     ml_gen_ms = wall_ms(serve, 5)
     ml_serving = dict(generate_ms=ml_gen_ms, queries_per_s=ML_GEN_BATCH / (ml_gen_ms / 1e3),
                       batch=ML_GEN_BATCH, encoder_tokens=n_tok + 1, beams=BEAMS,
                       corpus_items=ML_ITEMS, launches=serve_launches,
                       live_beams=int(live.sum()))
     log(f"ML-32M serving: {ml_serving}")
+    ml_serving["children_window"] = _cw_timed(cw_inputs[1:], index.codebook_size)
+    log(f"children_window at {ML_GEN_BATCH * BEAMS} rows: {ml_serving['children_window']}")
+    del cw_inputs, again
     del gen_params, out
 
     # ---- phase 10: timings at the full training shape ----
@@ -2269,6 +2296,132 @@ def _hold_stats(what, dtype, m, inv, ref_m, ref_inv) -> dict:
     return row
 
 
+@contextlib.contextmanager
+def _record_children_window(semids, name: str = "children_window_mask"):
+    """Record the operands of every call the beam search makes through
+    ``semids.children_mask`` to ``semids.<name>`` (the real wrapper runs)."""
+    real = getattr(semids, name)
+    calls = []
+
+    def record(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+
+    setattr(semids, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(semids, name, real)
+
+
+def _hold_children_window(calls, k_tok: int) -> int:
+    """Both epilogues against their twins on each recorded call's operands:
+    bit-identical, or fail. Returns the largest token difference (0)."""
+    import torch
+
+    from rqvae_tpu_torch.ops import children_window as cw
+
+    err = 0
+    for args in calls:
+        tokens = cw.children_window(*args, window=k_tok, k_tokens=k_tok)
+        err = max(err, int((tokens - cw.children_window_plain(*args, window=k_tok,
+                                                              k_tokens=k_tok)).abs().max()))
+        mask = cw.children_window_mask(*args, window=k_tok, k_tokens=k_tok)
+        check(torch.equal(mask, cw.children_window_mask_plain(*args, window=k_tok, k_tokens=k_tok)),
+              f"children_window Mask differs from its twin at {args[1].shape[0]} rows")
+    check(err == 0, f"children_window Tokens differs from its twin by {err}")
+    return err
+
+
+def _covered_keys(table, lo, cnt, window: int) -> int:
+    """Keys the kernel reads: the union over rows of the slots
+    [max(lo, 0), min(lo + min(cnt, window), n)) of the table."""
+    import torch
+
+    n = table.shape[0]
+    start = lo.long().clamp(0, n)
+    end = (lo.long() + cnt.long().clamp(max=window)).clamp(0, n)
+    keep = end > start
+    edges = torch.zeros(n + 1, dtype=torch.int64, device=table.device)
+    edges.index_add_(0, start[keep], torch.ones_like(start[keep]))
+    edges.index_add_(0, end[keep], -torch.ones_like(end[keep]))
+    return int((edges.cumsum(0)[:n] > 0).sum())
+
+
+def _cw_timed(calls, k_tok: int) -> dict:
+    """Both epilogues' times on the recorded calls of a beam search's
+    levels 1-3 (means over the levels, and each level's): profiler device
+    time of the kernel over 20 launches, CUDA events over 100 back-to-back
+    launches (the host's enqueue included), the plain twin's events and the
+    bytes bound (lo / cnt / key0, the keys the rows' runs cover, the output
+    once). For Mask, beside them, the route it replaces: the Tokens kernel
+    then ``.long()``, ``zeros`` and ``scatter_`` on the same CUDA tensors
+    (every device op of it)."""
+    from rqvae_tpu_torch.ops import children_window as cw
+
+    def fold(*args):
+        return cw.fold_tokens(cw.children_window(*args, window=k_tok, k_tokens=k_tok), k_tok)
+
+    def mean(fn):
+        return sum(fn(args) for args in calls) / len(calls)
+
+    rows = calls[0][1].shape[0]
+    keys = [_covered_keys(a[0], a[1], a[2], k_tok) for a in calls]
+    out = {}
+    for name, wrapper, plain, out_bytes in (
+            ("tokens", cw.children_window, cw.children_window_plain, 4 * rows * k_tok),
+            ("mask", cw.children_window_mask, cw.children_window_mask_plain, rows * k_tok)):
+        call = lambda args, f=wrapper: f(*args, window=k_tok, k_tokens=k_tok)  # noqa: E731
+        twin = lambda args, f=plain: f(*args, window=k_tok, k_tokens=k_tok)  # noqa: E731
+        by_level = [_device_ms_measured(lambda a=a: call(a), 20, "window_kernel") for a in calls]
+        bytes_by_level = [8 * n_keys + 16 * rows + out_bytes for n_keys in keys]
+        bound_by_level = [b / HBM_BYTES_PER_S * 1e3 for b in bytes_by_level]
+        out[name] = dict(
+            rows=rows, ms=mean(lambda a: cuda_ms(lambda: call(a), 100)),
+            device_ms=sum(by_level) / len(by_level), device_ms_by_level=by_level,
+            plain_ms=mean(lambda a: cuda_ms(lambda: twin(a), 20)),
+            bound_ms=sum(bound_by_level) / len(calls), bound_ms_by_level=bound_by_level,
+            bound_by="bytes", bound_bytes_by_level=bytes_by_level, covered_keys_by_level=keys,
+            table_keys=calls[0][0].shape[0], library_ms=None)
+    out["mask"]["fold_route_ms"] = mean(lambda a: cuda_ms(lambda: fold(*a), 100))
+    out["mask"]["fold_route_device_ms"] = mean(lambda a: _device_ms_measured(lambda: fold(*a), 20))
+    return out
+
+
+def _hold_children_window_wide_k(dev) -> dict:
+    """The Mask epilogue at codebook sizes past one word a lane (2,048, the
+    stage-1 stretch's), past 48 KB of bitmaps (65,536: the kernel's shared
+    memory opt-in) and at ``MASK_MAX_K``, against its twin on random
+    operands: bit-identical, or fail. Returns {K: mask bits set}."""
+    import numpy as np
+    import torch
+
+    from rqvae_tpu_torch.ops import children_window as cw
+
+    rng = np.random.RandomState(SEED)
+    set_bits = {}
+    for k in (2048, 65536, cw.MASK_MAX_K):
+        n, rows, window = 20_000, 96, 1024
+        table = np.sort(rng.choice(max(4 * k, 4 * n), n, replace=False)).astype(np.int64)
+        lo = rng.randint(0, n, rows).astype(np.int32)
+        cnt = np.minimum(rng.randint(0, window + 64, rows), n - lo).astype(np.int32)
+        key0 = table[lo] - rng.randint(-5, k, rows)   # children across [0, K) and past it
+        args = [torch.from_numpy(a).to(dev) for a in (table, lo, cnt, key0.astype(np.int64))]
+        got = cw.children_window_mask(*args, window=window, k_tokens=k)
+        want = cw.children_window_mask_plain(*args, window=window, k_tokens=k)
+        check(torch.equal(got, want), f"children_window Mask differs from its twin at K = {k}")
+        set_bits[k] = int(want.sum())
+        check(bool(want[:, : k // 2].any() and want[:, k // 2:].any()),
+              f"children_window Mask at K = {k}: no child in one half of the bitmap")
+    try:
+        cw.children_window_mask(*args, window=window, k_tokens=cw.MASK_MAX_K + 1)
+    except ValueError:
+        pass
+    else:
+        check(False, "children_window_mask took k_tokens above MASK_MAX_K on CUDA")
+    return set_bits
+
+
 def _profile(fn, top: int = 8) -> dict:
     """One traced call of ``fn``: wall time, summed device time (the device's
     busy share of the wall time), the ops with the most device time, and
@@ -2318,6 +2471,17 @@ def _device_ms(fn, iters: int, key: str = "") -> float:
         torch.cuda.synchronize()
     return sum(_dev_us(e) for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key) / iters / 1e3
+
+
+def _device_ms_measured(fn, iters: int, key: str = "") -> float:
+    """``_device_ms``, traced again once if a trace held no device event of
+    ``key`` (torch.profiler can drop a trace's device events); fails if the
+    second reads none either."""
+    ms = _device_ms(fn, iters, key)
+    if ms <= 0:
+        ms = _device_ms(fn, iters, key)
+    check(ms > 0, f"no device event {key!r} in two traces")
+    return ms
 
 
 def _to_device(tree, device):

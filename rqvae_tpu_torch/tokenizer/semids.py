@@ -24,7 +24,7 @@ import torch
 
 from rqvae_tpu_torch.data.schemas import SeqBatch, TokenizedSeqBatch
 from rqvae_tpu_torch.models import rqvae as rqvae_lib
-from rqvae_tpu_torch.ops.children_window import children_window
+from rqvae_tpu_torch.ops.children_window import children_window_mask
 
 KEY_DTYPE = torch.int64
 SENTINEL = torch.iinfo(KEY_DTYPE).max
@@ -168,18 +168,17 @@ def children_mask(index: CorpusIndex, prefix: torch.Tensor) -> torch.Tensor:
 
     Beam prefixes are valid and the level's table holds distinct sorted keys,
     so a prefix's children form one contiguous run: binary-search the run
-    bounds, read one K-wide window of child tokens per row (the
-    ``children_window`` kernel), and scatter a (rows, K) mask. For L = 0 pass
+    bounds, then read one K-wide window of child tokens per row and fold it
+    into the (rows, K) mask, both in one launch (``children_window_mask``,
+    the kernel's ``Mask`` epilogue; its twin on the CPU). For L = 0 pass
     shape (..., 0); the run is the whole level-1 table."""
     k = index.codebook_size
     batch_shape = prefix.shape[:-1]
     n_rows = math.prod(batch_shape)
     flat = prefix.reshape(n_rows, prefix.shape[-1])
     table, lo, cnt, key0 = children_window_inputs(index, flat)
-    child = children_window(table, lo, cnt, key0, window=k, k_tokens=k)
-    hits = torch.zeros((flat.shape[0], k + 1), dtype=torch.bool, device=prefix.device)
-    hits.scatter_(1, child.long(), True)
-    return hits[:, :k].reshape(*batch_shape, k)
+    hits = children_window_mask(table, lo, cnt, key0, window=k, k_tokens=k)
+    return hits.reshape(*batch_shape, k)
 
 
 def max_duplicates(index: CorpusIndex) -> int:
