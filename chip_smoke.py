@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: Amazon serving, ML-32M
 decoder training and ML-32M serving, packed long-context decoder training,
-stage-1 RQ-VAE training, then Amazon decoder training through
-``train_decoder.train`` over the stage-1 checkpoint.
+stage-1 RQ-VAE training, Amazon decoder training through
+``train_decoder.train`` over the stage-1 checkpoint, then the offline path
+around training (raw files, preprocessing, export, test-split eval).
 
 Drives ``rqvae_tpu_torch`` end to end at the shipped widths, with random
 weights made from a seed and seeded synthetic data:
@@ -178,7 +179,26 @@ weights made from a seed and seeded synthetic data:
      max-abs), and a Gumbel-softmax training forward at embed_dim = 32
      (a finite loss): shapes wider than the kernels take and the Gumbel
      estimator go the dense and plain routes, and no kernel wrapper
-     launches.
+     launches;
+ 25. the offline path (run after phase 23, ``RQVAE_TPU_SHORT_FLASH``
+     unset): a raw Amazon Beauty split of the real one's shape written from
+     the seed (``datamaps.json``, ``meta.json.gz`` for 12,101 items,
+     ``sequential_data.txt`` for 22,363 users, 5-core histories, ~198,500
+     interactions), ``amazon.process`` with the hashed stub encoder,
+     ``train_decoder.train`` on ``configs/decoder_amazon.json`` with
+     ``dataset=AMAZON`` over those artifacts and phase 11's checkpoint (100
+     steps), both models exported and reloaded through ``models/io`` (equal
+     corpus IDs, equal beams on one batch), then
+     ``run_eval.evaluate_checkpoint(split="test")`` over all 22,363 users,
+     counted: rq_tokenize 3 launches (one a 4,096-row chunk), the
+     children_window Mask epilogue 4 a batch (352) and Tokens none;
+     rq_tokenize against its twin on the stub corpus (ids equal off
+     near-ties, the index's IDs the kernel's), both children_window
+     epilogues bit-identical to their twins at every level of one batch, a
+     64-user fp32 eval (exhaustive candidates) on the card against the CPU
+     (metrics equal), h@k and NDCG in [0, 1]; the preprocessing, corpus
+     tokenization, export / reload and eval times and one traced 256-user
+     eval.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 work runs in fp32.
 ``RQVAE_TPU_SHORT_FLASH`` is unset for phases 1-19, so they take
@@ -187,9 +207,10 @@ TF32 is switched off for matmuls and cuDNN, so fp32 work runs in fp32.
 Prints the nvidia-smi line, a ``{"serving": {...}}`` line, a
 ``{"train": {...}}`` line (the packed step under its ``packed`` key, the
 Amazon decoder under ``amazon``), a ``{"train_rqvae": {...}}`` line, a
-``{"wide": {...}}`` line (phase 24), the nvidia-smi line again, a
-``{"kernels": [...]}`` line (nine entries) and, last, ``{"ok": true,
-"device": {...}}``.
+``{"wide": {...}}`` line (phase 24), an ``{"offline": {...}}`` line (phase
+25), the nvidia-smi line again, a ``{"kernels": [...]}`` line (nine
+entries; rq_tokenize's and children_window's also carry phase 25's launches
+as ``offline_launches``) and, last, ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before the last line; so does a machine without
 a GPU. Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -234,6 +255,9 @@ AMAZON_ITERS = 300      # decoder steps through train_decoder.train (the config:
 AMAZON_RESUME_ITERS = 20
 AMAZON_EVAL_BATCHES = 2
 SHORT_FLASH_ENV = "RQVAE_TPU_SHORT_FLASH"   # attend's short-route switch
+BEAUTY_ACTIONS_PER_USER = 198502 / 22363    # Amazon Beauty (TIGER, Table 1)
+OFFLINE_ITERS = 100     # phase 25's decoder steps before its eval
+OFFLINE_CPU_USERS = 64  # phase 25's fp32 eval on the card and on the CPU
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32, outside the tensor cores
@@ -469,10 +493,18 @@ def main() -> int:
         # ---- the Amazon decoder through train(), over the flagship's checkpoint ----
         train["amazon"], small_kernels = _amazon_decoder(dev, rq_ckpt, work)
         kernels += small_kernels
+        torch.cuda.empty_cache()
+
+        # ---- phase 25: the offline path around training, over the same checkpoint ----
+        offline = _offline(dev, rq_ckpt, work)
+        for entry in kernels[:2]:
+            entry["offline_launches"] = offline["eval"]["launches"][
+                "rq_tokenize" if entry["name"] == "rq_tokenize" else "children_window_mask"]
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"train_rqvae": train_rqvae}), flush=True)
     print(json.dumps({"wide": wide}), flush=True)
+    print(json.dumps({"offline": offline}), flush=True)
     # the card and the kernels once more, last, where a capture of the
     # output's tail keeps them
     print(smi, flush=True)
@@ -2241,6 +2273,236 @@ def _amazon_decoder(dev, rq_ckpt, work):
                           serving_fwd=serving_fwd),
         attribute_calls=attribute_calls)
     return amazon, kernels
+
+
+def _write_beauty_raw(root: str, seed: int) -> int:
+    """A raw Amazon Beauty split of the real one's shape (TIGER, Table 1):
+    ``N_ITEMS`` items with metadata, ``AMAZON_USERS`` users with 5-core
+    histories (at least 5 items, 8.88 on average: ~198,500 interactions),
+    items drawn by a log-normal popularity; the three files
+    ``amazon.process`` reads, under ``<root>/raw/beauty``. Returns the
+    interaction count."""
+    import gzip
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    raw = os.path.join(root, "raw", "beauty")
+    os.makedirs(raw)
+    lengths = 4 + rng.geometric(1.0 / (BEAUTY_ACTIONS_PER_USER - 4), AMAZON_USERS)
+    pop = rng.lognormal(0.0, 1.0, N_ITEMS)
+    flat = rng.choice(N_ITEMS, int(lengths.sum()), p=pop / pop.sum()) + 1   # 1-based ids
+    ends = np.cumsum(lengths)
+    with open(os.path.join(raw, "sequential_data.txt"), "w") as f:
+        for user, (end, n) in enumerate(zip(ends, lengths), start=1):
+            f.write(f"{user} {' '.join(map(str, flat[end - n:end]))}\n")
+    asins = [f"B{i:09d}" for i in range(1, N_ITEMS + 1)]
+    with open(os.path.join(raw, "datamaps.json"), "w") as f:
+        json.dump({"item2id": {a: str(i) for i, a in enumerate(asins, start=1)}}, f)
+    cats = ["Makeup", "Skin Care", "Hair Care", "Fragrance", "Tools & Accessories", "Bath & Body"]
+    with gzip.open(os.path.join(raw, "meta.json.gz"), "wt") as f:
+        for i, asin in enumerate(asins):
+            meta = {"asin": asin, "title": f"Beauty product {i} {rng.randint(10**6)}",
+                    "categories": [["Beauty", cats[i % len(cats)]]],
+                    "price": round(float(rng.lognormal(2.5, 0.8)), 2)}
+            if i % 7:
+                meta["brand"] = f"brand {rng.randint(2000)}"
+            f.write(repr(meta) + "\n")
+    return int(lengths.sum())
+
+
+def _offline(dev, rq_ckpt, work) -> dict:
+    """Phase 25: the offline path users run around training, at the Amazon
+    Beauty width, with attend's default routes (the short switch unset):
+    raw files -> ``amazon.process`` (the stub encoder) -> decoder
+    ``train()`` over phase 11's RQ-VAE -> export and reload of both models
+    (``models/io``) -> ``evaluate_checkpoint`` on the whole test split,
+    counted. Returns the ``offline`` dict."""
+    import numpy as np
+    import torch
+
+    from rqvae_tpu_torch.data import amazon, registry
+    from rqvae_tpu_torch.data import dataset as dataset_lib
+    from rqvae_tpu_torch.data.text import hashed_stub_encoder
+    from rqvae_tpu_torch.evaluate import run_eval
+    from rqvae_tpu_torch.models import generation, rqvae
+    from rqvae_tpu_torch.models import io as model_io
+    from rqvae_tpu_torch.ops.children_window import children_window, children_window_mask
+    from rqvae_tpu_torch.ops.quantize_kernels import rq_tokenize
+    from rqvae_tpu_torch.tokenizer import semids
+    from rqvae_tpu_torch.train import checkpoint
+    from rqvae_tpu_torch.train import train_decoder as td
+    from rqvae_tpu_torch.utils import config as config_lib
+    from rqvae_tpu_torch.utils.logging import MetricsLogger
+
+    check(SHORT_FLASH_ENV not in os.environ, f"{SHORT_FLASH_ENV} is set for the offline path")
+    metric_keys = lambda m: {k: v for k, v in m.items() if k.startswith(("h@", "ndcg"))}  # noqa: E731
+
+    # ---- raw files -> artifacts ----
+    root = os.path.join(work, "amazon")
+    t0 = time.perf_counter()
+    n_actions = _write_beauty_raw(root, SEED)
+    fixture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_dir = amazon.process(root, "beauty", encode_fn=hashed_stub_encoder())
+    preprocess_s = time.perf_counter() - t0
+    bundle = registry.load(registry.RecDataset.AMAZON, root, split="beauty")
+    check(bundle.items.x.shape == (N_ITEMS, INPUT_DIM)
+          and len(bundle.train_seqs) == len(bundle.test_seqs) == AMAZON_USERS,
+          f"artifacts: items {bundle.items.x.shape}, test users {len(bundle.test_seqs)}")
+    artifact_bytes = sum(os.path.getsize(os.path.join(out_dir, n)) for n in os.listdir(out_dir))
+    log(f"offline: fixture {n_actions} interactions in {fixture_s:.2f} s, amazon.process "
+        f"{preprocess_s:.2f} s, {artifact_bytes} artifact bytes")
+
+    # ---- the decoder through train() on the artifacts ----
+    class Capture(MetricsLogger):
+        def __init__(self):
+            super().__init__(every=1)
+            self.records = []
+
+        def log(self, step, metrics, force=False):
+            self.records.append({"step": step, **{k: float(np.asarray(v))
+                                                  for k, v in metrics.items()}})
+
+    config = pathlib.Path(__file__).resolve().parent / "configs" / "decoder_amazon.json"
+    cfg = config_lib.load_config(td.DecoderTrainConfig, str(config), [
+        f"data_path={root}", f"pretrained_rqvae_path={rq_ckpt}",
+        f"save_dir_root={work}/offline_decoder", f"iterations={OFFLINE_ITERS}", "amp=true",
+        "log_every=50", f"partial_eval_every={OFFLINE_ITERS}", f"full_eval_every={OFFLINE_ITERS}",
+        f"save_model_every={OFFLINE_ITERS}", f"eval_batches={AMAZON_EVAL_BATCHES}", f"seed={SEED}"])
+    check(cfg.dataset == registry.RecDataset.AMAZON and cfg.vae_input_dim == INPUT_DIM,
+          f"offline config {cfg}")
+    cap = Capture()
+    t0 = time.perf_counter()
+    td.train(cfg, logger=cap, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = [r["total_loss"] for r in cap.records if "total_loss" in r]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"offline decoder losses {losses}")
+    check(checkpoint.latest_step(cfg.save_dir_root) == OFFLINE_ITERS - 1,
+          f"offline decoder checkpoint {checkpoint.latest_step(cfg.save_dir_root)}")
+    log(f"offline train(): {OFFLINE_ITERS} steps in {train_s:.1f} s, losses {losses}")
+
+    # ---- export and reload both models ----
+    model_cfg = cfg.retrieval_config(bundle.max_seq_len)
+    vae_params, vae_cfg = td.load_frozen_rqvae(cfg, device=dev)
+    dec_params = checkpoint.restore(cfg.save_dir_root, device=dev)[0]["params"]
+    exports = {"rqvae": os.path.join(work, "export", "rqvae"),
+               "decoder": os.path.join(work, "export", "decoder")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model_io.save_pretrained(exports["rqvae"], vae_params, vae_cfg)
+    model_io.save_pretrained(exports["decoder"], dec_params, model_cfg)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vae2, vae_cfg2 = model_io.load_pretrained(exports["rqvae"], device=dev)
+    dec2, model_cfg2 = model_io.load_pretrained(exports["decoder"], device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(vae_cfg2 == vae_cfg and model_cfg2 == model_cfg, "reloaded configs differ")
+    corpus = torch.from_numpy(
+        dataset_lib.features_for_model(bundle.items.x, vae_cfg.input_dim)).to(dev)
+    index = semids.precompute_corpus_ids(vae_params, vae_cfg, corpus)
+    check(torch.equal(index.cached_ids,
+                      semids.precompute_corpus_ids(vae2, vae_cfg2, corpus).cached_ids),
+          "the reloaded RQ-VAE gives other corpus IDs")
+    raw = bundle.test_seqs.batch_at(np.arange(cfg.batch_size))
+    tok = semids.tokenize_sequences(index, dataset_lib.to_device(
+        dataset_lib.make_seq_batch(raw, bundle.items.x, with_features=False), dev))
+    tok = tok._replace(sem_ids_fut=None, token_type_ids_fut=None)
+    beams = [generation.generate_next_sem_ids(p, c, index, tok, k=cfg.generation_top_k,
+                                              n_candidates=cfg.vae_codebook_size)
+             for p, c in ((dec_params, model_cfg), (dec2, model_cfg2))]
+    check(torch.equal(beams[0].sem_ids, beams[1].sem_ids)
+          and torch.equal(beams[0].log_probas, beams[1].log_probas),
+          "the reloaded decoder gives other beams")
+    log(f"offline export: save {save_s:.3f} s, load {load_s:.3f} s; corpus IDs and "
+        f"{cfg.batch_size} users' beams equal after the reload")
+    del vae2, dec2, beams, dec_params
+
+    # ---- the main path of this phase: the whole test split, counted ----
+    rq_tokenize.launches = 0
+    children_window_mask.launches = 0
+    children_window.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = run_eval.evaluate_checkpoint(cfg, split="test", device=dev)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = {"rq_tokenize": rq_tokenize.launches,
+                "children_window_mask": children_window_mask.launches,
+                "children_window": children_window.launches}
+    n_batches = math.ceil(AMAZON_USERS / cfg.batch_size)
+    log(f"offline eval: {eval_s:.2f} s for {AMAZON_USERS} users, launches {launches}, {metrics}")
+    check(launches == {"rq_tokenize": math.ceil(N_ITEMS / 4096),
+                       "children_window_mask": 4 * n_batches, "children_window": 0},
+          f"offline eval launches {launches}: expected rq_tokenize once a 4,096-row chunk, "
+          f"the Mask epilogue 4 times in each of {n_batches} batches and Tokens never")
+    check(metrics["split"] == "test" and metrics["n_users"] == AMAZON_USERS
+          and metrics["checkpoint_step"] == OFFLINE_ITERS - 1, f"offline eval {metrics}")
+    check(all(0.0 <= v <= 1.0 for v in metric_keys(metrics).values()),
+          f"offline metrics out of [0, 1]: {metrics}")
+
+    # ---- the kernels against their twins on this path's operands ----
+    cbs = rqvae.effective_codebooks(vae_params, vae_cfg).float().contiguous()
+    n_diff = n_ties = n_ties_d0 = 0
+    rq_err = 0.0
+    ids = []
+    for i in range(0, N_ITEMS, 4096):
+        z = rqvae.encode(vae_params, vae_cfg, corpus[i:i + 4096]).float().contiguous()
+        k_out = rq_tokenize(z, cbs, commitment_weight=vae_cfg.commitment_weight)
+        held = _hold_rq_tokenize(z, cbs, vae_cfg.commitment_weight, k_out)
+        n_diff, n_ties, n_ties_d0 = n_diff + held[0], n_ties + held[1], n_ties_d0 + held[2]
+        rq_err = max(rq_err, held[3])
+        ids.append(k_out.sem_ids)
+    check(torch.equal(torch.cat(ids).to(index.cached_ids.dtype), index.cached_ids[:, :-1]),
+          "the corpus index's IDs are not rq_tokenize's")
+    rq_check = dict(rows=N_ITEMS, id_rows_differ=n_diff, near_tie_rows_terms=n_ties,
+                    near_tie_rows_d0=n_ties_d0, max_abs_err=rq_err,
+                    max_duplicates=semids.max_duplicates(index), n_distinct=index.n_distinct)
+    log(f"offline rq_tokenize vs plain on the stub corpus: {rq_check}")
+    with _record_children_window(semids) as cw_calls:
+        run_eval.evaluate_checkpoint(cfg, split="test", max_users=cfg.batch_size, device=dev)
+    cw_rows = [int(a[1].shape[0]) for a in cw_calls]
+    check(cw_rows == [1] + [cfg.batch_size * cfg.generation_top_k] * 3,
+          f"children_window rows per level {cw_rows}")
+    _hold_children_window(cw_calls, cfg.vae_codebook_size)
+    log("offline children_window Tokens and Mask vs plain: identical at levels 0..3")
+    tok_ms = wall_ms(lambda: semids.precompute_corpus_ids(vae_params, vae_cfg, corpus), 5)
+    profile = _profile(lambda: run_eval.evaluate_checkpoint(
+        cfg, split="test", max_users=cfg.batch_size, device=dev))
+    del cw_calls, vae_params, corpus, index
+
+    # ---- 64 users in fp32, exhaustive candidates: the card against the CPU ----
+    small = dataclasses.replace(cfg, batch_size=OFFLINE_CPU_USERS,
+                                generation_candidates=cfg.vae_codebook_size)
+    m_gpu = run_eval.evaluate_checkpoint(small, split="test", max_users=OFFLINE_CPU_USERS,
+                                         device=dev)
+    m_cpu = run_eval.evaluate_checkpoint(small, split="test", max_users=OFFLINE_CPU_USERS,
+                                         device="cpu")
+    diff = max(abs(m_gpu[k] - m_cpu[k]) for k in metric_keys(m_cpu))
+    log(f"offline {OFFLINE_CPU_USERS}-user fp32 eval: GPU {metric_keys(m_gpu)}, "
+        f"CPU {metric_keys(m_cpu)}")
+    check(set(m_gpu) == set(m_cpu) and diff <= 1e-6,
+          f"offline GPU and CPU metrics differ by {diff}")
+
+    train_evals = [r for r in cap.records if "ndcg@10" in r or "eval_loss" in r]
+    return dict(
+        fixture=dict(items=N_ITEMS, users=AMAZON_USERS, interactions=n_actions, write_s=fixture_s),
+        preprocess_s=preprocess_s, artifact_bytes=artifact_bytes,
+        train=dict(iterations=OFFLINE_ITERS, wall_s=train_s, losses=losses, evals=train_evals),
+        export=dict(save_s=save_s, load_s=load_s, corpus_ids_equal=True,
+                    beams_equal_users=cfg.batch_size),
+        corpus_tokenize_ms=tok_ms, rq_tokenize_check=rq_check,
+        eval=dict(split="test", users=AMAZON_USERS, batch=cfg.batch_size, batches=n_batches,
+                  candidates=cfg.generation_candidates, beams=cfg.generation_top_k,
+                  wall_s=eval_s, users_per_s=AMAZON_USERS / eval_s,
+                  ms_per_batch=eval_s * 1e3 / n_batches, launches=launches,
+                  metrics=metric_keys(metrics), profile_256_users=profile),
+        children_window_check=dict(rows_per_level=cw_rows, identical=True),
+        gpu_vs_cpu=dict(users=OFFLINE_CPU_USERS, dtype="float32", max_abs_diff=diff,
+                        metrics=metric_keys(m_cpu)))
 
 
 def _short_bound(q, k, k_mask, causal: bool, direction: str) -> dict:

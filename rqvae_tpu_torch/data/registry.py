@@ -5,9 +5,8 @@ keeps its own copy): dataset names, their history lengths, and ``load``.
 (``data/synthetic.py``; the eval split doubles as the test split, as in
 JAX). The other datasets read the preprocessed ``.npz`` artifacts under
 ``<root>/processed[_<split>]/`` (``items.npz``, ``seqs_{train,eval,test}.npz``)
-and raise ``FileNotFoundError`` when they are missing; the raw-file
-preprocessors that write them are not ported (the JAX package's
-``rqvae_tpu.data.amazon`` / ``movielens`` write the same files).
+and raise ``FileNotFoundError`` when they are missing: the raw-file
+preprocessors ``rqvae_tpu_torch.data.amazon`` / ``movielens`` write them.
 """
 from __future__ import annotations
 
@@ -76,9 +75,9 @@ def load(dataset: RecDataset | str, root: str, *, split: Optional[str] = None,
     if not os.path.exists(items_path):
         raise FileNotFoundError(
             f"Missing preprocessed artifacts at {d}. Run the offline "
-            "preprocessing first: python -m rqvae_tpu.data.amazon --root "
+            "preprocessing first: python -m rqvae_tpu_torch.data.amazon --root "
             f"{root} --split {split or 'beauty'}  (or python -m "
-            f"rqvae_tpu.data.movielens --root {root} --variant ml1m|ml32m)"
+            f"rqvae_tpu_torch.data.movielens --root {root} --variant ml1m|ml32m)"
         )
     items = load_item_dataset(items_path)
     if not need_seqs:

@@ -33,14 +33,17 @@ bucketed or packed step, logs eval loss every ``partial_eval_every`` steps
 and constrained-beam-search hit rates (``run_generative_eval``) every
 ``full_eval_every`` steps and at the end, checkpoints, and resumes from
 ``save_dir_root`` with JAX's semantics: ``iterations`` counts from the
-resume point. On one device; the config fields that ask for a mesh,
-tensor parallelism, TensorBoard, the profiler hook, NaN debugging or a hub
-upload raise (``_check_supported``).
+resume point. With ``push_vae_to_hf`` it exports the frozen RQ-VAE to
+``<save_dir_root>/rqvae_export`` (``models/io.save_pretrained``) and pushes
+it to the hub before the first step. On one device; the config fields that
+ask for a mesh, tensor parallelism, TensorBoard, the profiler hook or NaN
+debugging raise (``_check_supported``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import sys
 import time
 from typing import Optional, Tuple
@@ -64,7 +67,7 @@ from rqvae_tpu_torch.utils import amp
 from rqvae_tpu_torch.utils import config as config_lib
 from rqvae_tpu_torch.utils.device import resolve_device
 from rqvae_tpu_torch.utils.logging import MetricsLogger
-from rqvae_tpu_torch.utils.tree import tree_leaves, tree_leaves_with_path, tree_map, tree_unflatten
+from rqvae_tpu_torch.utils.tree import tree_leaves, tree_map, tree_shapes, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,7 +107,7 @@ class DecoderTrainConfig:
     attn_layers: int = 4
     dataset_split: str = "beauty"
     train_data_subsample: bool = True
-    push_vae_to_hf: bool = False                 # not ported (no hub): raises
+    push_vae_to_hf: bool = False                 # export + hub push of the frozen RQ-VAE
     vae_hf_model_name: Optional[str] = None
     # length-bucketed gradient accumulation (1 = off); see bucket_slices
     length_buckets: int = 1
@@ -183,8 +186,7 @@ def load_frozen_rqvae(cfg: DecoderTrainConfig, *, device=None):
     params = rqvae_lib.init(torch.Generator().manual_seed(0), vae_cfg, device=dev)
     if cfg.pretrained_rqvae_path is not None:
         state, meta = ckpt_lib.restore(cfg.pretrained_rqvae_path, device=dev)
-        shapes = lambda tree: [(p, tuple(t.shape)) for p, t in tree_leaves_with_path(tree)]  # noqa: E731
-        if shapes(state["params"]) != shapes(params):
+        if tree_shapes(state["params"]) != tree_shapes(params):
             raise ValueError(f"the RQ-VAE checkpoint at {cfg.pretrained_rqvae_path} does not fit "
                              f"the config's RQ-VAE ({vae_cfg})")
         params = state["params"]
@@ -358,7 +360,6 @@ def _check_supported(cfg: DecoderTrainConfig) -> None:
         "tensorboard_dir": cfg.tensorboard_dir is not None,
         "profile_dir": cfg.profile_dir is not None,
         "debug_nans": cfg.debug_nans,
-        "push_vae_to_hf": cfg.push_vae_to_hf,   # a hub upload: no network, no hub client
     }
     bad = sorted(k for k, v in unported.items() if v)
     if bad:
@@ -388,6 +389,13 @@ def train(cfg: DecoderTrainConfig, *, logger: Optional[MetricsLogger] = None, de
     index = semids.precompute_corpus_ids(
         vae_params, vae_cfg,
         torch.from_numpy(dataset_lib.features_for_model(items_x, vae_cfg.input_dim)).to(dev))
+    if cfg.push_vae_to_hf:
+        from rqvae_tpu_torch.models import io as model_io
+
+        export_dir = os.path.join(cfg.save_dir_root, "rqvae_export")
+        model_io.save_pretrained(export_dir, vae_params, vae_cfg)
+        url = model_io.push_to_hub(export_dir, cfg.vae_hf_model_name or "rqvae-tpu-tokenizer")
+        print(f"pushed frozen RQ-VAE to {url}", file=sys.stderr)
     del vae_params
     max_dup = semids.max_duplicates(index)
     if max_dup >= cfg.vae_codebook_size:

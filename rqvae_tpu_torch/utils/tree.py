@@ -52,3 +52,9 @@ def tree_leaves_with_path(tree, prefix=()):
             yield from tree_leaves_with_path(v, prefix + (i,))
     else:
         yield prefix, tree
+
+
+def tree_shapes(tree) -> list:
+    """(path, shape) of every leaf in ``tree_leaves_with_path`` order: two
+    trees of one structure and shapes give equal lists."""
+    return [(p, tuple(t.shape)) for p, t in tree_leaves_with_path(tree)]

@@ -235,8 +235,7 @@ def test_train_runs_evals_saves_and_resumes_on_the_short_route(stage1_ckpt, tmp_
 
 
 UNPORTED = {"mesh_shape": (2, 1), "tensor_parallel": True, "metrics_sink": "tensorboard",
-            "tensorboard_dir": "tb", "profile_dir": "prof", "debug_nans": True,
-            "push_vae_to_hf": True}
+            "tensorboard_dir": "tb", "profile_dir": "prof", "debug_nans": True}
 
 
 @pytest.mark.parametrize("field", sorted(UNPORTED))
