@@ -302,6 +302,9 @@ def check(cond: bool, what: str) -> None:
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--dp-worker"]:   # a rank of phase 27, started by _dp_launch
+        globals().update(json.loads(sys.argv[5]))   # the launching run's sizes
+        return _dp_worker(*sys.argv[2:5], sys.argv[6])
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device visible")
         return 1
@@ -500,11 +503,22 @@ def main() -> int:
         for entry in kernels[:2]:
             entry["offline_launches"] = offline["eval"]["launches"][
                 "rq_tokenize" if entry["name"] == "rq_tokenize" else "children_window_mask"]
+        torch.cuda.empty_cache()
+
+        # ---- phases 26-28: the kernel switch, data parallelism, observability ----
+        dispatch_ab = _switch_ab(dev, rq_ckpt, work)
+        torch.cuda.empty_cache()
+        distributed = _distributed(dev, rq_ckpt, work)
+        torch.cuda.empty_cache()
+        observability = _observability(dev, rq_ckpt, work)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"train_rqvae": train_rqvae}), flush=True)
     print(json.dumps({"wide": wide}), flush=True)
     print(json.dumps({"offline": offline}), flush=True)
+    print(json.dumps({"dispatch": dispatch_ab}), flush=True)
+    print(json.dumps({"distributed": distributed}), flush=True)
+    print(json.dumps({"observability": observability}), flush=True)
     # the card and the kernels once more, last, where a capture of the
     # output's tail keeps them
     print(smi, flush=True)
@@ -2825,6 +2839,660 @@ def _rq_timed(name, fn, plain, x, cbs) -> dict:
     return dict(shape=[b, n_levels, k, d], ms=cuda_ms(fn, 50),
                 device_ms=_device_ms(fn, 20, "rq::"), plain_ms=cuda_ms(plain, 20),
                 bound_ms=bound, bound_by=by, plan=qk.kernel_plan(name, b, n_levels, k, d))
+
+
+# ---- phases 26-28: the kernel switch, data parallelism, observability ----
+
+def _launch_counters() -> dict:
+    """Every kernel wrapper's launch counter, by name."""
+    from rqvae_tpu_torch.ops import children_window as cw
+    from rqvae_tpu_torch.ops import flash_attention as fa
+    from rqvae_tpu_torch.ops import quantize_kernels as qk
+
+    return {"rq_tokenize": qk.rq_tokenize, "rq_quantize_train": qk.rq_quantize_train,
+            "children_window": cw.children_window,
+            "children_window_mask": cw.children_window_mask,
+            "flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "flash_attention_spans_fwd": fa.flash_attention_spans_fwd,
+            "flash_attention_spans_bwd": fa.flash_attention_spans_bwd,
+            "flash_attention_small_fwd": fa.flash_attention_small_fwd,
+            "flash_attention_small_bwd": fa.flash_attention_small_bwd}
+
+
+def _counted(fn):
+    """(fn(), every kernel's launches during it), counts zeroed just before."""
+    import torch
+
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, {name: c.launches for name, c in counters.items() if c.launches}
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set (a string) or unset (None) environment variables for the block."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _leaves_close(got, want, rel: float, what: str) -> float:
+    """Every leaf of ``got`` within ``rel`` of the matching leaf's max-abs in
+    ``want``; returns the worst ratio."""
+    from rqvae_tpu_torch.utils.tree import tree_leaves
+
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        err, scale = float((a.float().cpu() - b.float().cpu()).abs().max()), float(b.abs().max())
+        check(err <= rel * scale + 1e-12, f"{what}: a leaf differs by {err} of {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst
+
+
+class _Grads:
+    """An optimizer that leaves the params alone and returns the gradients."""
+
+    def update(self, params, state, grads):
+        return grads
+
+
+def _amazon_inputs(dev, rq_ckpt, work):
+    """The flagship's RQ-VAE and the Amazon decoder's last checkpoint (phase
+    20's), the 12,101-item corpus, 256 users' cropped 20-item histories and
+    the flagship config's 64-row stage-1 batch, all from the seed."""
+    import numpy as np
+    import torch
+
+    from rqvae_tpu_torch.data import dataset as dataset_lib
+    from rqvae_tpu_torch.data.synthetic import synthetic_items, synthetic_sequences
+    from rqvae_tpu_torch.train import checkpoint
+    from rqvae_tpu_torch.train import train_decoder as td
+    from rqvae_tpu_torch.train import train_rqvae as tr
+    from rqvae_tpu_torch.utils import config as config_lib
+
+    root = pathlib.Path(__file__).resolve().parent / "configs"
+    dcfg = config_lib.load_config(td.DecoderTrainConfig, str(root / "decoder_amazon.json"), [
+        "dataset=SYNTHETIC", f"vae_input_dim={INPUT_DIM}", f"pretrained_rqvae_path={rq_ckpt}"])
+    rcfg = config_lib.load_config(tr.RqVaeTrainConfig, str(root / "rqvae_amazon.json"), [])
+    rq_params = checkpoint.restore(rq_ckpt, device=dev)[0]["params"]
+    dec_params = checkpoint.restore(f"{work}/decoder", device=dev)[0]["params"]
+    items = synthetic_items(N_ITEMS, INPUT_DIM, seed=SEED)
+    users, _ = synthetic_sequences(N_ITEMS, n_users=BATCH, seed=SEED + 7)
+    batch = dataset_lib.make_seq_batch(users.sample_batch(np.random.default_rng(SEED + 7), BATCH,
+                                                          subsample=True),
+                                       items.x, with_features=False)
+    x = torch.from_numpy(items.x[np.random.RandomState(SEED + 7).randint(0, N_ITEMS, 64)]).to(dev)
+    return dict(dcfg=dcfg, model_cfg=dcfg.retrieval_config(N_HIST), rcfg=rcfg,
+                vae_cfg=dcfg.vae_config(), rq_params=rq_params, dec_params=dec_params,
+                corpus=torch.from_numpy(items.x).to(dev), batch=batch, x=x)
+
+
+def _switch_ab(dev, rq_ckpt, work) -> dict:
+    """Phase 26: ``RQVAE_TPU_DISABLE_PALLAS`` unset / set / set / unset over
+    the Amazon beam search (256 users, the short route on), the Amazon flat
+    step (the short route on), the flagship stage-1 step and corpus
+    tokenization: with the variable set no kernel launches, and each path's
+    result on the plain route is held against the kernel route's (fp32:
+    beams and ids equal off near-ties, losses and leaves within PERF.md
+    section 2's bounds); each path timed on both routes. Returns the
+    ``dispatch`` dict."""
+    import torch
+
+    from rqvae_tpu_torch.data import dataset as dataset_lib
+    from rqvae_tpu_torch.models import generation, rqvae
+    from rqvae_tpu_torch.ops import dispatch
+    from rqvae_tpu_torch.tokenizer import semids
+    from rqvae_tpu_torch.train import optim
+    from rqvae_tpu_torch.train import train_decoder as td
+    from rqvae_tpu_torch.train import train_rqvae as tr
+    from rqvae_tpu_torch.utils import amp
+    from rqvae_tpu_torch.utils.tree import tree_map
+
+    inp = _amazon_inputs(dev, rq_ckpt, work)
+    model_cfg, vae_cfg, rcfg = inp["model_cfg"], inp["vae_cfg"], inp["rcfg"]
+    acfg = rcfg.model_config()
+    index = semids.precompute_corpus_ids(inp["rq_params"], vae_cfg, inp["corpus"])
+    flat = dataset_lib.to_device(type(inp["batch"])(*(a[None] for a in inp["batch"])), dev)
+    tok = semids.tokenize_sequences(index, dataset_lib.to_device(inp["batch"], dev))
+    tok = tok._replace(sem_ids_fut=None, token_type_ids_fut=None)
+    bf16_dec = amp.cast_floating(inp["dec_params"], torch.bfloat16)
+    cfg0 = dataclasses.replace(model_cfg, dropout=0.0, input_dropout=0.0)
+    opt = optim.adamw(3e-4, 0.035)
+    dec_step = td.make_train_step(model_cfg, opt, index, 1, torch.bfloat16, 4)
+    rq_step = tr.make_train_step(acfg, optim.adamw(rcfg.learning_rate, rcfg.weight_decay), 1,
+                                 torch.float32)
+    p_dec = tree_map(lambda t: t.detach().clone(), inp["dec_params"])
+    s_dec = opt.init(p_dec)
+    p_rq = tree_map(lambda t: t.detach().clone(), inp["rq_params"])
+    s_rq = optim.adamw(rcfg.learning_rate, rcfg.weight_decay).init(p_rq)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    x = inp["x"][None]
+
+    paths = {
+        "generate": lambda: generation.generate_next_sem_ids(bf16_dec, model_cfg, index, tok,
+                                                             k=BEAMS, n_candidates=256),
+        "decoder_step": lambda: dec_step(p_dec, s_dec, flat, gen),
+        "stage1_step": lambda: rq_step(p_rq, s_rq, x, None, rcfg.gumbel_temperature),
+        "corpus_tokenize": lambda: semids.precompute_corpus_ids(inp["rq_params"], vae_cfg,
+                                                                inp["corpus"]),
+    }
+    iters = {"generate": 10, "decoder_step": 10, "stage1_step": 20, "corpus_tokenize": 10}
+    times = {name: {"kernels": [], "plain": []} for name in paths}
+    launches = {name: {} for name in paths}
+    for route in ("kernels", "plain", "plain", "kernels"):
+        with _env(RQVAE_TPU_DISABLE_PALLAS="1" if route == "plain" else None,
+                  RQVAE_TPU_SHORT_FLASH="1"):
+            check(dispatch.kernels_enabled() == (route == "kernels"), "the switch reads wrong")
+            for name, fn in paths.items():
+                for _ in range(3):
+                    fn()
+                _, launches[name][route] = _counted(fn)
+                times[name][route].append(wall_ms(fn, iters[name]))
+    for name in paths:
+        check(launches[name]["plain"] == {},
+              f"{name}: kernels launched with RQVAE_TPU_DISABLE_PALLAS=1: {launches[name]['plain']}")
+    check(launches["generate"]["kernels"].get("flash_attention_small_fwd", 0) > 0
+          and launches["generate"]["kernels"].get("children_window_mask") == 4,
+          f"beam search launches on the kernel route {launches['generate']['kernels']}")
+    check(launches["decoder_step"]["kernels"] == {"flash_attention_small_fwd": 12,
+                                                  "flash_attention_small_bwd": 12},
+          f"Amazon step launches on the kernel route {launches['decoder_step']['kernels']}")
+    check(launches["stage1_step"]["kernels"] == {"rq_quantize_train": 1},
+          f"stage-1 step launches on the kernel route {launches['stage1_step']['kernels']}")
+    check(launches["corpus_tokenize"]["kernels"] == {"rq_tokenize": math.ceil(N_ITEMS / 4096)},
+          f"tokenization launches on the kernel route {launches['corpus_tokenize']['kernels']}")
+
+    # the results on both routes, fp32, from the same inputs
+    held = {}
+    runs = {}
+    for route in ("kernels", "plain"):
+        with _env(RQVAE_TPU_DISABLE_PALLAS="1" if route == "plain" else None,
+                  RQVAE_TPU_SHORT_FLASH="1"):
+            idx = semids.precompute_corpus_ids(inp["rq_params"], vae_cfg, inp["corpus"])
+            out = generation.generate_next_sem_ids(inp["dec_params"], model_cfg, index, tok,
+                                                   k=BEAMS, n_candidates=256)
+            dl, _, dg = td.value_and_grad(td._make_microbatch_loss(cfg0, index, torch.float32),
+                                          inp["dec_params"], type(flat)(*(t[0] for t in flat)),
+                                          None)
+            _, rg, rm = tr.make_train_step(acfg, _Grads(), 1, torch.float32)(
+                inp["rq_params"], None, x, None, rcfg.gumbel_temperature)
+            ids = rqvae.get_semantic_ids(inp["rq_params"], acfg, inp["x"], training=True).sem_ids
+            runs[route] = dict(cached=idx.cached_ids, lp=out.log_probas, beams=out.sem_ids,
+                               dec_loss=dl, dec_grads=dg, rq_loss=rm["total_loss"], rq_grads=rg,
+                               ids=ids)
+    k_run, p_run = runs["kernels"], runs["plain"]
+    z = rqvae.encode(inp["rq_params"], vae_cfg, inp["corpus"]).float()
+    cbs = rqvae.effective_codebooks(inp["rq_params"], vae_cfg).float()
+    differ = (k_run["cached"][:, :-1] != p_run["cached"][:, :-1]).any(-1)
+    near = _near_ties(z, cbs, p_run["cached"][:, :-1])
+    check(not bool((differ & ~near).any()), "corpus ids differ off near-ties between the routes")
+    held["corpus_ids_differ"], held["corpus_near_ties"] = int(differ.sum()), int(near.sum())
+    lp_k, lp_p = k_run["lp"].float().cpu(), p_run["lp"].float().cpu()
+    held["beam_logp_max_abs"] = float((lp_k - lp_p).abs().max())
+    gap = torch.full_like(lp_p, float("inf"))
+    gap[:, 1:] = lp_p[:, :-1] - lp_p[:, 1:]
+    gap[:, :-1] = torch.minimum(gap[:, :-1], lp_p[:, :-1] - lp_p[:, 1:])
+    clear = gap > 1e-3   # beams whose order cannot flip within the tolerance
+    check(held["beam_logp_max_abs"] < 1e-3, f"beam log-probas differ: {held}")
+    check(bool((k_run["beams"].cpu() == p_run["beams"].cpu()).all(-1)[clear].all()),
+          "beams differ off near-ties between the routes")
+    held["beams_compared"] = int(clear.sum())
+    held["decoder_loss_rel"] = abs(float(k_run["dec_loss"]) - float(p_run["dec_loss"])) / abs(
+        float(p_run["dec_loss"]))
+    check(held["decoder_loss_rel"] <= 1e-4, f"Amazon fp32 loss between the routes: {held}")
+    held["decoder_leaf_rel"] = _leaves_close(k_run["dec_grads"], p_run["dec_grads"], 1e-3,
+                                             "Amazon fp32 step between the routes")
+    xz = rqvae.encode(inp["rq_params"], acfg, inp["x"]).float()
+    ids_differ = (k_run["ids"] != p_run["ids"]).any(-1)
+    check(not bool((ids_differ & ~_near_ties(xz, rqvae.effective_codebooks(
+        inp["rq_params"], acfg).float(), p_run["ids"])).any()),
+        "stage-1 ids differ off near-ties between the routes")
+    held["stage1_ids_differ"] = int(ids_differ.sum())
+    if not bool(ids_differ.any()):
+        # the decoder's bounds: the plain loop's rotation-trick forward scales
+        # the codeword by |res| / (|res| + 1e-6), 1e-4 off at the flagship's
+        # residual norms, where the fused kernel returns the codeword
+        held["stage1_loss_rel"] = abs(float(k_run["rq_loss"]) - float(p_run["rq_loss"])) / abs(
+            float(p_run["rq_loss"]))
+        check(held["stage1_loss_rel"] <= 1e-4, f"stage-1 fp32 loss between the routes: {held}")
+        held["stage1_leaf_rel"] = _leaves_close(k_run["rq_grads"], p_run["rq_grads"], 1e-3,
+                                                "stage-1 fp32 step between the routes")
+    means = {name: {r: sum(v) / len(v) for r, v in t.items()} for name, t in times.items()}
+    result = dict(ms=times, mean_ms=means, launches=launches, held=held)
+    log(f"phase 26, the kernel switch: {result}")
+    return result
+
+
+class _Records:
+    """A metrics sink keeping every record with the host time it came."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, step, metrics, force=False):
+        import numpy as np
+
+        self.records.append({"step": step, "t": time.perf_counter(),
+                             **{k: float(np.asarray(v)) for k, v in metrics.items()}})
+
+
+def _step_ms(records) -> float:
+    """Host ms a step between the second and the last training log."""
+    logs = [r for r in records if "total_loss" in r]
+    return (logs[-1]["t"] - logs[1]["t"]) * 1e3 / (logs[-1]["step"] - logs[1]["step"])
+
+
+def _dp_configs(rq_ckpt, out, mesh_shape, **dec_kw):
+    """Stage 1 (16 steps of the flagship config) and the Amazon decoder (20
+    fp32 steps over ``rq_ckpt``) for phase 27, writing under ``out``."""
+    from rqvae_tpu_torch.train import train_decoder as td
+    from rqvae_tpu_torch.train import train_rqvae as tr
+    from rqvae_tpu_torch.utils import config as config_lib
+
+    root = pathlib.Path(__file__).resolve().parent / "configs"
+    shape = [] if mesh_shape is None else [f"mesh_shape=[{mesh_shape[0]},{mesh_shape[1]}]"]
+    rcfg = config_lib.load_config(tr.RqVaeTrainConfig, str(root / "rqvae_amazon.json"), [
+        "dataset=SYNTHETIC", f"synthetic_n_items={N_ITEMS}", f"seed={SEED}", "iterations=16",
+        "steps_per_call=8", "log_every=4", "eval_every=16", "save_model_every=16",
+        f"save_dir_root={out}/rq"] + shape)
+    dcfg = config_lib.load_config(td.DecoderTrainConfig, str(root / "decoder_amazon.json"), [
+        "dataset=SYNTHETIC", f"synthetic_n_items={N_ITEMS}", f"synthetic_n_users={AMAZON_USERS}",
+        f"vae_input_dim={INPUT_DIM}", f"seed={SEED}", f"pretrained_rqvae_path={rq_ckpt}",
+        f"save_dir_root={out}/decoder", f"batch_size={BATCH}", "iterations=20", "log_every=5",
+        "amp=false",
+        "partial_eval_every=20", "full_eval_every=20", "save_model_every=20",
+        "eval_batches=2"] + shape + [f"{k}={v}" for k, v in dec_kw.items()])
+    return rcfg, dcfg
+
+
+def _dp_worker(kind: str, work: str, device: str, rq_ckpt: str) -> int:
+    """A rank of phase 27 on ``device``, started by ``_dp_launch`` with
+    torchrun's variables: ``world1`` (one rank, NCCL on the card) or
+    ``world2`` (two ranks sharing the one card over gloo); the decoders read
+    the flagship's RQ-VAE at ``rq_ckpt``. Writes ``<work>/<kind>_r<rank>.json``."""
+    import torch
+
+    from rqvae_tpu_torch.evaluate import run_eval
+    from rqvae_tpu_torch.parallel import mesh
+    from rqvae_tpu_torch.train import train_decoder as td
+    from rqvae_tpu_torch.train import train_rqvae as tr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ[SHORT_FLASH_ENV] = "1"
+    if kind == "profile":   # one process, no group: the trace as users take it
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(k)
+        res, rank = _profiled_run(work, rq_ckpt, torch.device(device)), 0
+    elif kind == "world1":
+        # the same calls without a group, then in a group of one (NCCL)
+        torchrun = {k: os.environ.pop(k) for k in
+                    ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        res = {}
+        for label in ("no_group", "group"):
+            if label == "group":
+                os.environ.update(torchrun)
+            out = f"{work}/world1_{label}"
+            rcfg, dcfg = _dp_configs(rq_ckpt, out, (1, 1))
+            mesh.collective_calls = 0
+            logs = {}
+            for name, fn, cfg in (("rq", tr.train, rcfg), ("decoder", td.train, dcfg)):
+                rec = _Records()
+                fn(cfg, logger=rec, device=device)
+                logs[name] = rec.records
+            # both evals read the group-less run's checkpoint: the same weights
+            ev = run_eval.evaluate_checkpoint(
+                dataclasses.replace(dcfg, generation_candidates=256),
+                checkpoint=f"{work}/world1_no_group/decoder", split="eval", max_users=512,
+                device=device)
+            res[label] = dict(logs=logs, eval=ev, collectives=mesh.collective_calls,
+                              world=mesh.world_size(),
+                              backend=(torch.distributed.get_backend()
+                                       if torch.distributed.is_initialized() else None),
+                              rq_step_ms=_step_ms(logs["rq"]),
+                              decoder_step_ms=_step_ms(logs["decoder"]))
+        rank = 0
+    else:
+        from rqvae_tpu_torch.data.schemas import SeqBatch
+        from rqvae_tpu_torch.tokenizer import semids
+        from rqvae_tpu_torch.train import optim
+        from rqvae_tpu_torch.utils import amp
+
+        dev = torch.device(device)   # both ranks on the one card
+        inp = torch.load(f"{work}/dp_inputs.pt", map_location=dev, weights_only=False)
+        res = {"world": mesh.maybe_init_distributed(dev, backend="gloo")}
+        res["backend"] = torch.distributed.get_backend()
+        mesh.make_mesh((2, 1))
+        rank = mesh.rank()
+        index = semids.build_index(inp["cached"], inp["k"])
+        half = inp["x"].shape[1] // 2
+        rows = BATCH // 2
+        batch = SeqBatch(*(t[:, rank * rows:(rank + 1) * rows] for t in inp["batch"]))
+        x = inp["x"][:, rank * half:(rank + 1) * half]
+        dec_loss, dec_grads, rq_loss, rq_grads, launches = _dp_steps(
+            inp["model_cfg"], inp["acfg"], index, inp["dec_params"], inp["rq_params"], batch, x,
+            inp["gumbel_t"])
+        res.update(dec_loss=dec_loss, rq_loss=rq_loss, launches=launches)
+        torch.save({"dec_grads": dec_grads, "rq_grads": rq_grads},
+                   f"{work}/world2_grads_r{rank}.pt")
+        # the two-rank steps' times: bf16 decoder and fp32 stage 1, real AdamW
+        opt = optim.adamw(3e-4, 0.035)
+        p = amp.cast_floating(inp["dec_params"], torch.float32)
+        st = opt.init(p)
+        step = td.make_train_step(inp["model_cfg"], opt, index, 1, torch.bfloat16, 4)
+        gen = torch.Generator(device=dev).manual_seed(SEED + rank)
+        res["decoder_step_ms"] = _wall_ms_on(dev, lambda: step(p, st, batch, gen), 10)
+        ropt = optim.adamw(1e-4, 0.01)
+        rp = dict(inp["rq_params"])
+        rst = ropt.init(rp)
+        rstep = tr.make_train_step(inp["acfg"], ropt, 1, torch.float32)
+        res["rq_step_ms"] = _wall_ms_on(dev, lambda: rstep(rp, rst, x, None, inp["gumbel_t"]), 20)
+    with open(f"{work}/{kind}_r{rank}.json", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _profiled_run(work: str, rq_ckpt: str, dev) -> dict:
+    """Phase 28's profiled call: the Amazon ``train_decoder.train`` (8 steps,
+    the short route on) with a ``StepProfiler`` window of steps 3-5, its
+    trace read back; then the back-to-back session probe."""
+    from rqvae_tpu_torch.train import train_decoder as td
+
+    trace_dir = f"{work}/trace"
+    _, dcfg = _dp_configs(rq_ckpt, f"{work}/profiled", None, amp="true", iterations=8,
+                          profile_dir=trace_dir, profile_start=3, profile_steps=3,
+                          eval_batches=1)
+    td.train(dcfg, logger=_Records(), device=dev)
+    files = sorted(pathlib.Path(trace_dir).glob("*.pt.trace.json"))
+    events = json.loads(files[0].read_text())["traceEvents"] if files else []
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    short = [e["name"] for e in kernels if "small::" in e.get("name", "")]
+    return dict(files=[f.name for f in files], bytes=sum(f.stat().st_size for f in files),
+                kernel_events=len(kernels), short_kernel_events=len(short),
+                short_kernel_names=sorted({n[:60] for n in short}),
+                kernel_busy_ms=sum(e.get("dur", 0) for e in kernels) / 1e3,
+                steps=dcfg.profile_steps, probe=_trace_probe(dev))
+
+
+def _wall_ms_on(dev, fn, iters: int) -> float:
+    """``wall_ms`` on ``dev`` (synchronised when it is the card)."""
+    if dev.type == "cuda":
+        return wall_ms(fn, iters)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _dp_steps(model_cfg, acfg, index, dec_params, rq_params, batch, x, gumbel_t):
+    """Phase 27 (b)'s fp32 steps (the Amazon flat step, dropout 0, and the
+    flagship stage-1 step): (decoder loss, grads, stage-1 loss, grads,
+    launches), reduced over the data replicas when a mesh is registered."""
+    import torch
+
+    from rqvae_tpu_torch.train import train_decoder as td
+    from rqvae_tpu_torch.train import train_rqvae as tr
+    from rqvae_tpu_torch.utils.tree import tree_map
+
+    cfg0 = dataclasses.replace(model_cfg, dropout=0.0, input_dropout=0.0)
+    with _env(RQVAE_TPU_SHORT_FLASH="1"):
+        (_, dg, dm), dl = _counted(lambda: td.make_train_step(
+            cfg0, _Grads(), index, 1, torch.float32, 4)(dec_params, None, batch, None))
+        (_, rg, rm), rl = _counted(lambda: tr.make_train_step(acfg, _Grads(), 1, torch.float32)(
+            rq_params, None, x, None, gumbel_t))
+    dm = td._replicated(dm, "mean")
+    rm = tr._replicated({"total_loss": rm["total_loss"]}, "mean")
+    cpu = lambda tree: tree_map(lambda t: t.detach().cpu(), tree)  # noqa: E731
+    return float(dm["total_loss"]), cpu(dg), float(rm["total_loss"]), cpu(rg), {**dl, **rl}
+
+
+def _dp_launch(kind: str, work: str, world: int, device, rq_ckpt: str,
+               timeout: int = 420) -> list:
+    """Start ``world`` ranks of this script (``--dp-worker kind``) on
+    ``device`` with torchrun's variables and a free port; wait, stop them
+    all, and return each rank's result."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), "--dp-worker", kind, work,
+         str(device), json.dumps({"N_ITEMS": N_ITEMS, "AMAZON_USERS": AMAZON_USERS,
+                                  "BATCH": BATCH}), rq_ckpt],
+        env=dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
+                 MASTER_ADDR="localhost", MASTER_PORT=str(port)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            log(out[-6000:])
+        check(p.returncode == 0, f"phase 27 {kind} rank {r} exited {p.returncode}")
+    return [json.load(open(f"{work}/{kind}_r{r}.json")) for r in range(world)]
+
+
+def _distributed(dev, rq_ckpt, work) -> dict:
+    """Phase 27: (a) one rank in an NCCL group of one runs stage 1 (16
+    steps), the Amazon decoder (20 fp32 steps over the flagship's RQ-VAE)
+    and ``run_eval`` with
+    ``mesh_shape=(1, 1)``; their losses and metrics equal the same calls
+    without a group within PERF.md section 2's bounds, with no collective;
+    (b) two ranks sharing the one card over gloo run the Amazon flat step and
+    the flagship stage-1 step, fp32, on a global batch split in two; each
+    equals one process over the whole batch (loss 1e-4 relative, leaves 1e-3
+    of max-abs), each rank's kernels launched. Returns the ``distributed``
+    dict."""
+    import torch
+
+    from rqvae_tpu_torch.tokenizer import semids
+
+    # ---- (a) NCCL, world size 1 ----
+    w1 = _dp_launch("world1", work, 1, dev, rq_ckpt)[0]
+    a, b = w1["no_group"], w1["group"]
+    nccl = "nccl" if dev.type == "cuda" else "gloo"
+    check(a["world"] == b["world"] == 1 and a["backend"] is None and b["backend"] == nccl,
+          f"world-1 run: {a['world']} / {b['world']}, backends {a['backend']} / {b['backend']}")
+    check(a["collectives"] == b["collectives"] == 0,
+          f"collectives at world size 1: {a['collectives']} / {b['collectives']}")
+    worst = {}
+    for stage, bound in (("rq", 1e-5), ("decoder", 1e-4)):
+        ra = [r for r in a["logs"][stage] if "total_loss" in r or "eval_total_loss" in r
+              or "eval_loss" in r]
+        rb = [r for r in b["logs"][stage] if "total_loss" in r or "eval_total_loss" in r
+              or "eval_loss" in r]
+        check([r["step"] for r in ra] == [r["step"] for r in rb], f"{stage} log steps differ")
+        worst[stage] = 0.0
+        for x, y in zip(ra, rb):
+            for key in ("total_loss", "eval_total_loss", "eval_loss"):
+                if key in x:
+                    rel = abs(x[key] - y[key]) / abs(x[key])
+                    worst[stage] = max(worst[stage], rel)
+                    check(rel <= bound, f"{stage} {key} at step {x['step']}: {x[key]} vs {y[key]}")
+    for key, v in a["eval"].items():
+        if isinstance(v, float):
+            check(v == b["eval"][key], f"eval {key}: {v} without a group, {b['eval'][key]} in one")
+    world1 = dict(loss_rel_worst=worst, eval=b["eval"], collectives=b["collectives"],
+                  rq_step_ms={"no_group": a["rq_step_ms"], "group": b["rq_step_ms"]},
+                  decoder_step_ms={"no_group": a["decoder_step_ms"],
+                                   "group": b["decoder_step_ms"]})
+    log(f"phase 27 (a), one rank in an NCCL group: {world1}")
+
+    # ---- (b) two ranks on the one card, gloo over CUDA tensors ----
+    inp = _amazon_inputs(dev, rq_ckpt, work)
+    index = semids.precompute_corpus_ids(inp["rq_params"], inp["vae_cfg"], inp["corpus"])
+    from rqvae_tpu_torch.data import dataset as dataset_lib
+
+    flat = dataset_lib.to_device(type(inp["batch"])(*(a_[None] for a_ in inp["batch"])), dev)
+    acfg = inp["rcfg"].model_config()
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    from rqvae_tpu_torch.utils.tree import tree_map
+
+    torch.save(dict(cached=cpu(index.cached_ids), k=index.codebook_size,
+                    batch=type(flat)(*(cpu(t) for t in flat)), x=cpu(inp["x"][None]),
+                    dec_params=tree_map(cpu, inp["dec_params"]),
+                    rq_params=tree_map(cpu, inp["rq_params"]), model_cfg=inp["model_cfg"],
+                    acfg=acfg, gumbel_t=inp["rcfg"].gumbel_temperature),
+               f"{work}/dp_inputs.pt")
+    ranks = _dp_launch("world2", work, 2, dev, rq_ckpt)
+    want = _dp_steps(inp["model_cfg"], acfg, index, inp["dec_params"], inp["rq_params"], flat,
+                     inp["x"][None], inp["rcfg"].gumbel_temperature)
+    world2 = dict(ranks=[], one_process={"decoder_loss": want[0], "rq_loss": want[2],
+                                         "launches": want[4]})
+    for r, res in enumerate(ranks):
+        check(res["world"] == 2 and res["backend"] == "gloo", f"rank {r}: {res}")
+        grads = torch.load(f"{work}/world2_grads_r{r}.pt", weights_only=False)
+        dec_rel = abs(res["dec_loss"] - want[0]) / abs(want[0])
+        rq_rel = abs(res["rq_loss"] - want[2]) / abs(want[2])
+        check(dec_rel <= 1e-4 and rq_rel <= 1e-4, f"rank {r} losses: {dec_rel}, {rq_rel}")
+        leaf = {"decoder": _leaves_close(grads["dec_grads"], want[1], 1e-3, f"rank {r} decoder"),
+                "rq": _leaves_close(grads["rq_grads"], want[3], 1e-3, f"rank {r} stage 1")}
+        check(res["launches"].get("flash_attention_small_fwd") == 12
+              and res["launches"].get("flash_attention_small_bwd") == 12
+              and res["launches"].get("rq_quantize_train") == 1,
+              f"rank {r} launches {res['launches']}")
+        world2["ranks"].append(dict(decoder_loss_rel=dec_rel, rq_loss_rel=rq_rel,
+                                    leaf_rel=leaf, launches=res["launches"],
+                                    decoder_step_ms=res["decoder_step_ms"],
+                                    rq_step_ms=res["rq_step_ms"]))
+    result = {"world1_nccl": world1, "world2_gloo_one_card": world2}
+    log(f"phase 27 (b), two ranks over gloo on one card: {world2}")
+    return result
+
+
+def _trace_probe(dev) -> dict:
+    """Twenty torch.profiler sessions in a row over 5 short-forward launches
+    each, alternately with and without a device synchronise before the
+    session stops: the CUDA events each session holds (the same in every
+    session, were the sessions kept apart)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rqvae_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn(BATCH, 8, 81, 64, device=dev, generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    mask = torch.ones(BATCH, 81, dtype=torch.bool, device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    events = {"sync": [], "no_sync": [], "sync_kernel": [], "no_sync_kernel": []}
+    for i in range(20):
+        mode = "sync" if i % 2 == 0 else "no_sync"
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fa.flash_attention_small_fwd(q, k, v, k_mask=mask, causal=False)
+            if mode == "sync":
+                sync()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        events[mode].append(sum(e.count for e in device))
+        events[f"{mode}_kernel"].append(sum(e.count for e in device if "small::" in e.key))
+        sync()
+    return events
+
+
+def _observability(dev, rq_ckpt, work) -> dict:
+    """Phase 28: a ``StepProfiler`` window of 3 steps inside the Amazon
+    ``train_decoder.train`` call, in a process of its own as users run it
+    (the trace file exists and holds CUDA kernel events, the short kernels'
+    among them), a probe of back-to-back profiler sessions in that process
+    and in this one (recorded, not held: torch.profiler's multi-session
+    behaviour, not the port's), a finite ``debug_nans=True`` run and its cost a step,
+    and the native batcher built from source, its crop invariants and
+    ``batch_at`` at batch 256 against the Python path. Returns the
+    ``observability`` dict."""
+    import numpy as np
+    import torch
+
+    from rqvae_tpu_torch import native
+    from rqvae_tpu_torch.data.synthetic import synthetic_sequences
+    from rqvae_tpu_torch.train import train_decoder as td
+
+    out = {}
+    # ---- the profiler window, through the entry point, in a fresh process ----
+    prof = _dp_launch("profile", work, 1, dev, rq_ckpt)[0]
+    check(len(prof["files"]) == 1, f"profiler trace files: {prof['files']}")
+    check(prof["kernel_events"] > 0, "the profiler window holds no CUDA kernel event")
+    short = prof["short_kernel_names"]
+    check(any("fwd" in n for n in short) and any("bwd" in n for n in short),
+          f"the short kernels are not in the trace: {short[:4]}")
+    out["profiler"] = prof
+    # the same probe here, after phases 1-27's profiler sessions: recorded
+    out["profiler_sessions_probe"] = {"fresh_process": prof.pop("probe"),
+                                      "after_phases_1_27": _trace_probe(dev)}
+
+    # ---- debug_nans: a finite run passes; its cost a step ----
+    steps = {}
+    for flag in ("false", "true"):
+        _, dcfg = _dp_configs(rq_ckpt, f"{work}/nans_{flag}", None, amp="true", iterations=15,
+                              debug_nans=flag, eval_batches=1)
+        with _env(RQVAE_TPU_SHORT_FLASH="1"):
+            rec = _Records()
+            td.train(dcfg, logger=rec, device=dev)
+        losses = [r["total_loss"] for r in rec.records if "total_loss" in r]
+        check(all(math.isfinite(x) for x in losses), f"debug_nans={flag}: losses {losses}")
+        steps[flag] = _step_ms(rec.records)
+    out["debug_nans"] = dict(step_ms_off=steps["false"], step_ms_on=steps["true"],
+                             cost_ms_per_step=steps["true"] - steps["false"])
+
+    # ---- the native batcher: built here from the checkout's source ----
+    saved_dir = native.BUILD_DIR
+    native.BUILD_DIR = pathlib.Path(work) / "native"   # empty: a build from source
+    native._load.cache_clear()
+    try:
+        t0 = time.perf_counter()
+        native._load()
+        build_s = time.perf_counter() - t0
+    finally:
+        native.BUILD_DIR = saved_dir
+    users, _ = synthetic_sequences(N_ITEMS, n_users=AMAZON_USERS, seed=SEED + 9)
+    idx = np.random.default_rng(SEED).integers(0, len(users), BATCH)
+    ids, fut = native.subsample_batch(users.item_ids, users.item_ids_fut, idx, users.max_seq_len,
+                                      SEED)
+    for b, i in enumerate(idx):
+        row = users.item_ids[i]
+        seq = row[row >= 0].tolist() + [int(users.item_ids_fut[i, 0])]
+        crop = ids[b][ids[b] >= 0].tolist() + [int(fut[b])]
+        check(min(3, len(seq)) <= len(crop) <= users.max_seq_len + 1
+              and any(seq[s:s + len(crop)] == crop for s in range(len(seq) - len(crop) + 1)),
+              f"native crop {b} is not a window of its row")
+    times = {"native": [], "python": []}
+    for mode in ("native", "python", "python", "native"):
+        with _env(RQVAE_TPU_DISABLE_NATIVE="1" if mode == "python" else None):
+            rng = np.random.default_rng(SEED)
+            t0 = time.perf_counter()
+            for _ in range(50):
+                users.batch_at(idx, rng)
+            times[mode].append((time.perf_counter() - t0) * 1e3 / 50)
+    out["native_batcher"] = dict(build_s=build_s, batch=BATCH, crops_held=len(idx),
+                                 batch_at_ms=times,
+                                 batch_at_mean_ms={k: sum(v) / len(v) for k, v in times.items()})
+    log(f"phase 28, observability: {out}")
+    return out
 
 
 if __name__ == "__main__":

@@ -7,11 +7,12 @@ train-time random crop (the flat and packed samplers' source),
 ``to_device`` moves to tensors) and the npz loaders of the preprocessed
 artifacts.
 
-``SeqDataset.batch_at`` crops on the Python path, row by row. The JAX
-package's ``batch_at`` takes its native C batcher when that is built, which
-draws other crops from the same generator; the port has no native batcher
-yet, so its crops equal JAX's Python path (``_subsample_row``), not the C
-one.
+``SeqDataset.batch_at`` crops through the native C batcher
+(``rqvae_tpu_torch/native``, the port's copy of JAX's ``batcher.c``) where
+JAX's does, with the seed drawn from the caller's generator as JAX draws it,
+so one generator state gives JAX's native crops. ``RQVAE_TPU_DISABLE_NATIVE=1``
+takes the Python path, row by row (``_subsample_row``, equal to JAX's
+Python path); a failed native build raises.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from rqvae_tpu_torch import native
 from rqvae_tpu_torch.data.schemas import SeqBatch
 
 
@@ -96,8 +98,15 @@ class SeqDataset:
     def batch_at(self, idx: np.ndarray, rng: Optional[np.random.Generator] = None) -> dict:
         """A fixed-shape batch of the rows ``idx``: ``user_ids`` (B,),
         ``ids`` (B, max_seq_len) and ``ids_fut`` (B, 1), int32. With ``rng``
-        each row is a random crop; without, the last max_seq_len items."""
+        each row is a random crop (the native batcher's, or the Python
+        path's under ``RQVAE_TPU_DISABLE_NATIVE=1``); without, the last
+        max_seq_len items."""
         user_ids = self.user_ids[idx]
+        if rng is not None and native.enabled():
+            ids, fut = native.subsample_batch(self.item_ids, self.item_ids_fut, np.asarray(idx),
+                                              self.max_seq_len, int(rng.integers(0, 2**63 - 1)))
+            return {"user_ids": user_ids.astype(np.int32).reshape(-1), "ids": ids,
+                    "ids_fut": fut[:, None]}
         if rng is not None:
             rows, futs = [], []
             for i in idx:

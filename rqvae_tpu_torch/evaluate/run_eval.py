@@ -12,12 +12,15 @@ config's ``pretrained_rqvae_path``, tokenizes the corpus (``rq_tokenize`` on
 the GPU), and runs the padded-tail beam-search eval of the train loop
 (``train_decoder.run_generative_eval``, ``children_window``'s ``Mask``
 epilogue once a level), printing one JSON line of h@{1,5,10} / NDCG
-metrics. On the GPU unless ``device="cpu"`` is passed, on one device.
+metrics. On the GPU unless ``device="cpu"`` is passed; under ``torchrun``
+(``torchrun --nproc_per_node=N -m rqvae_tpu_torch.evaluate.run_eval ...``)
+each rank scores its block of every batch of users and the metrics are
+summed over the ranks, so every rank prints the same line, equal to one
+process's. ``mesh_shape`` may ask for data parallelism only.
 """
 from __future__ import annotations
 
 import json
-import math
 import sys
 from typing import Optional
 
@@ -25,6 +28,7 @@ import torch
 
 from rqvae_tpu_torch.data import dataset as dataset_lib
 from rqvae_tpu_torch.data import registry
+from rqvae_tpu_torch.parallel import mesh as mesh_lib
 from rqvae_tpu_torch.tokenizer import semids
 from rqvae_tpu_torch.train import checkpoint as ckpt_lib
 from rqvae_tpu_torch.train import train_decoder
@@ -46,9 +50,9 @@ def evaluate_checkpoint(
     of ``split``, plus ``split``, ``n_users`` and ``checkpoint_step``. The
     candidate noise (when ``generation_candidates`` is below the codebook
     size) draws from a device generator seeded with ``seed``."""
-    if cfg.mesh_shape is not None and math.prod(cfg.mesh_shape) > 1:
-        raise NotImplementedError("not ported yet: ['mesh_shape']")
+    mesh_lib.refuse_tensor_parallel(cfg.mesh_shape, cfg.tensor_parallel)
     dev = resolve_device(device)
+    mesh_lib.maybe_init_distributed(dev)
     bundle = registry.load(
         cfg.dataset,
         cfg.data_path or cfg.dataset_folder,
@@ -73,6 +77,7 @@ def evaluate_checkpoint(
     del state
     print(f"---Loaded decoder iter {meta['step']}---", file=sys.stderr)
 
+    mesh_lib.make_mesh(cfg.mesh_shape)
     n_users = len(seqs) if max_users is None else min(max_users, len(seqs))
     gen = torch.Generator(device=dev).manual_seed(seed)
     metrics = train_decoder.run_generative_eval(params, model_cfg, index, seqs, bundle.items,

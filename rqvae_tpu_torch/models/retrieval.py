@@ -226,13 +226,15 @@ def embed_packed_future(params, cfg: RetrievalConfig, tok):
 
 
 def forward_packed(params, cfg: RetrievalConfig, tok, *, training: bool = False,
-                   generator: Optional[torch.Generator] = None) -> ModelOutput:
+                   generator: Optional[torch.Generator] = None,
+                   n_valid: Optional[torch.Tensor] = None) -> ModelOutput:
     """Training / eval-loss forward over a packed batch
     (``semids.PackedTokenizedBatch``): the CE summed over each slot's sem-ID
     tuple, meaned over the valid slots (the flat forward's loss over the
-    examples the batch packed). ``training`` draws the input dropout, then
-    the encoder's and the decoder's dropout, from ``generator`` in that
-    order."""
+    examples the batch packed). ``n_valid`` is the count the loss is meaned
+    over (default: this batch's valid slots; data parallelism passes the
+    replicas' sum). ``training`` draws the input dropout, then the encoder's
+    and the decoder's dropout, from ``generator`` in that order."""
     ctx_emb = embed_packed_context(params, cfg, tok)
     fut_emb = embed_packed_future(params, cfg, tok)
     h_ctx = _dropout(rms_norm(ctx_emb, params["norm"]), cfg.input_dropout, training, generator)
@@ -251,7 +253,9 @@ def forward_packed(params, cfg: RetrievalConfig, tok, *, training: bool = False,
     logits = logits.reshape(r, s, d + 1, -1)[:, :, :d]             # predict 0..D-1
     targets = torch.where(tok.slot_valid[:, :, None], tok.sem_ids_fut, -1)
     unred = cross_entropy_ignore(logits, targets)                  # (R, S, D)
-    n_valid = torch.clamp(torch.sum(tok.slot_valid), min=1).float()
+    if n_valid is None:
+        n_valid = torch.sum(tok.slot_valid)
+    n_valid = torch.clamp(n_valid, min=1).float()
     return ModelOutput(loss=torch.sum(unred) / n_valid, logits=logits,
                        loss_d=torch.sum(unred, dim=(0, 1)) / n_valid)
 

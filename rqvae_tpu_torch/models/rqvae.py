@@ -16,6 +16,8 @@
 
 The kernel wrappers run their CUDA kernels on the GPU and their plain twins
 on the CPU, so a GPU run and a CPU run of one config take the same route.
+With ``RQVAE_TPU_DISABLE_PALLAS=1`` (``ops/dispatch``) both quantizer routes
+take the plain per-level loop, as JAX's do.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from rqvae_tpu_torch.models import mlp, quantize
 from rqvae_tpu_torch.models.losses import categorical_reconstruction_loss
 from rqvae_tpu_torch.models.normalize import l2norm
 from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
+from rqvae_tpu_torch.ops import dispatch
 from rqvae_tpu_torch.ops.quantize_kernels import MAX_D, rq_quantize_train, rq_tokenize
 from rqvae_tpu_torch.utils.device import resolve_device
 
@@ -149,7 +152,8 @@ def get_semantic_ids(params, cfg: RqVaeConfig, x: torch.Tensor, *, gumbel_t: flo
     if (training
             and cfg.codebook_mode in (QuantizeForwardMode.STE, QuantizeForwardMode.ROTATION_TRICK)
             and cfg.codebook_size * cfg.embed_dim >= FUSED_TRAIN_MIN_CODEBOOK_VOLUME
-            and kernel_width(cfg)):
+            and kernel_width(cfg)
+            and dispatch.kernels_enabled()):
         return _fused_train_quantize(params, cfg, res)
     embs, residuals, sem_ids = [], [], []
     q_loss = torch.zeros(res.shape[:-1], dtype=res.dtype, device=res.device)
@@ -220,8 +224,9 @@ def encode_and_tokenize(params, cfg: RqVaeConfig, x: torch.Tensor) -> torch.Tens
     Same ids as ``get_semantic_ids(...).sem_ids`` up to near-ties (the kernel
     orders the distance terms as the TPU kernel does). An embedding wider
     than the kernel takes (``kernel_width``) is tokenized by
-    ``get_semantic_ids``, as JAX does with Pallas disabled."""
-    if not kernel_width(cfg):
+    ``get_semantic_ids``, as JAX does with Pallas disabled; so does every
+    width when the kernel switch is off (``ops/dispatch``)."""
+    if not kernel_width(cfg) or not dispatch.kernels_enabled():
         return get_semantic_ids(params, cfg, x).sem_ids
     z = encode(params, cfg, x).float().contiguous()
     cbs = effective_codebooks(params, cfg).float().contiguous()

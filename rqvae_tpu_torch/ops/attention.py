@@ -21,6 +21,10 @@ tensors and their plain twin on the CPU:
   801-token ML-32M encoder);
 * everything else: the dense ``sdpa``.
 
+With ``RQVAE_TPU_DISABLE_PALLAS=1`` (``ops/dispatch.kernels_enabled``,
+read at each call) every shape takes the dense ``sdpa`` under the mask
+``build_mask`` builds, as JAX does with the same variable set.
+
 One rule is the port's own (JAX's Pallas kernels take any width): every
 kernel route also needs Dh <= ``FLASH_MAX_DH`` (128). The CUDA kernels stage
 Dh-wide q / k / v / g tiles of 64 rows in shared memory, at most 227 KB a
@@ -51,6 +55,7 @@ from typing import Optional
 
 import torch
 
+from rqvae_tpu_torch.ops import dispatch
 from rqvae_tpu_torch.ops.flash_attention import (
     MAX_DH,
     flash_attention,
@@ -107,8 +112,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = 
     """Structured-mask attention entry point used by the transformer.
     ``k_mask`` (B, Nk) bool, True = attend; ``q_spans`` (lo, hi, extra),
     each (B, Nq) int. Routes as the module docstring says; a head wider than
-    ``FLASH_MAX_DH`` always takes the dense ``sdpa``."""
-    kernel_dh = FLASH_MIN_DH <= q.shape[-1] <= FLASH_MAX_DH
+    ``FLASH_MAX_DH``, or any head with the kernel switch off, takes the dense
+    ``sdpa``."""
+    kernel_dh = FLASH_MIN_DH <= q.shape[-1] <= FLASH_MAX_DH and dispatch.kernels_enabled()
     big = q.shape[1] >= FLASH_MIN_LEN and k.shape[1] >= FLASH_MIN_LEN and kernel_dh
     on_card = q.device.type == "cuda"
     if q_spans is not None:

@@ -24,7 +24,8 @@ import torch
 
 from rqvae_tpu_torch.data.schemas import SeqBatch, TokenizedSeqBatch
 from rqvae_tpu_torch.models import rqvae as rqvae_lib
-from rqvae_tpu_torch.ops.children_window import children_window_mask
+from rqvae_tpu_torch.ops import dispatch
+from rqvae_tpu_torch.ops.children_window import children_window_mask, fold_tokens
 
 KEY_DTYPE = torch.int64
 SENTINEL = torch.iinfo(KEY_DTYPE).max
@@ -170,14 +171,23 @@ def children_mask(index: CorpusIndex, prefix: torch.Tensor) -> torch.Tensor:
     so a prefix's children form one contiguous run: binary-search the run
     bounds, then read one K-wide window of child tokens per row and fold it
     into the (rows, K) mask, both in one launch (``children_window_mask``,
-    the kernel's ``Mask`` epilogue; its twin on the CPU). For L = 0 pass
-    shape (..., 0); the run is the whole level-1 table."""
+    the kernel's ``Mask`` epilogue; its twin on the CPU). With the kernel
+    switch off (``ops/dispatch``) the window is gathered and folded in torch
+    ops, JAX's route with Pallas disabled. For L = 0 pass shape (..., 0);
+    the run is the whole level-1 table."""
     k = index.codebook_size
     batch_shape = prefix.shape[:-1]
     n_rows = math.prod(batch_shape)
     flat = prefix.reshape(n_rows, prefix.shape[-1])
     table, lo, cnt, key0 = children_window_inputs(index, flat)
-    hits = children_window_mask(table, lo, cnt, key0, window=k, k_tokens=k)
+    if dispatch.kernels_enabled():
+        hits = children_window_mask(table, lo, cnt, key0, window=k, k_tokens=k)
+    else:
+        win_pos = lo.long()[:, None] + torch.arange(k, device=lo.device)
+        in_run = win_pos < (lo + cnt).long()[:, None]
+        child = table[win_pos.clamp(max=table.shape[0] - 1)] - key0[:, None]
+        # JAX sums a one-hot of the tokens; fold_tokens scatters the same set
+        hits = fold_tokens(torch.where(in_run & (child >= 0) & (child < k), child, k), k)
     return hits.reshape(*batch_shape, k)
 
 

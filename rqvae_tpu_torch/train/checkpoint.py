@@ -6,6 +6,10 @@ Layout: ``<root>/step_<N>/`` holds ``state.pt`` (``torch.save`` of
 (``{"step", **meta}``, e.g. the config) and ``DONE``. Each file is written
 to a temporary name and moved into place with ``os.replace``, and ``DONE``
 comes last, so ``latest_step`` never picks a half-written step.
+
+Under data parallelism (``parallel/mesh``) only rank 0 writes; every rank
+waits at a barrier before ``save`` returns and before ``restore`` reads, and
+every rank restores. With no data mesh the barriers are identities.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from rqvae_tpu_torch.parallel import mesh as mesh_lib
 from rqvae_tpu_torch.train.optim import AdamWState
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -59,13 +64,16 @@ def _write_text(path: str, text: str) -> None:
 
 
 def save(root: str, step: int, state: Any, meta: Optional[dict] = None) -> str:
-    """``state``: e.g. ``{"params": ..., "opt_state": AdamWState}``."""
+    """``state``: e.g. ``{"params": ..., "opt_state": AdamWState}``; written
+    by rank 0, every rank returns after it is on disk."""
     path = _step_dir(root, step)
-    os.makedirs(path, exist_ok=True)
-    _write_atomic(os.path.join(path, "state.pt"),
-                  lambda p: torch.save(_to_plain(state), p))
-    _write_text(os.path.join(path, "meta.json"), json.dumps({"step": step, **(meta or {})}))
-    _write_text(os.path.join(path, "DONE"), "ok")
+    if mesh_lib.rank() == 0:
+        os.makedirs(path, exist_ok=True)
+        _write_atomic(os.path.join(path, "state.pt"),
+                      lambda p: torch.save(_to_plain(state), p))
+        _write_text(os.path.join(path, "meta.json"), json.dumps({"step": step, **(meta or {})}))
+        _write_text(os.path.join(path, "DONE"), "ok")
+    mesh_lib.barrier()
     return path
 
 
@@ -73,6 +81,7 @@ def restore(root: str, step: Optional[int] = None, *,
             device=None) -> Tuple[dict, dict]:
     """(state, meta) of ``step`` (the latest when None); tensors land on
     ``device`` and an ``opt_state`` comes back as an ``AdamWState``."""
+    mesh_lib.barrier()
     if step is None:
         step = latest_step(root)
         if step is None:

@@ -35,14 +35,18 @@ and constrained-beam-search hit rates (``run_generative_eval``) every
 ``save_dir_root`` with JAX's semantics: ``iterations`` counts from the
 resume point. With ``push_vae_to_hf`` it exports the frozen RQ-VAE to
 ``<save_dir_root>/rqvae_export`` (``models/io.save_pretrained``) and pushes
-it to the hub before the first step. On one device; the config fields that
-ask for a mesh, tensor parallelism, TensorBoard, the profiler hook or NaN
-debugging raise (``_check_supported``).
+it to the hub (rank 0) before the first step. Under ``torchrun`` it runs
+data-parallel (``parallel/mesh``: each rank samples its block of the global
+batch, gradients all-reduced once a step, reduced metrics, rank-0
+checkpoints); ``profile_dir`` traces a step window (``utils/profiling``),
+``metrics_sink="tensorboard"`` adds an event stream and ``debug_nans``
+raises ``FloatingPointError`` at the first non-finite step. Tensor
+parallelism raises (``_check_supported``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import math
 import os
 import sys
 import time
@@ -60,6 +64,7 @@ from rqvae_tpu_torch.models import generation, retrieval
 from rqvae_tpu_torch.models import rqvae as rqvae_lib
 from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
 from rqvae_tpu_torch.models.retrieval import RetrievalConfig
+from rqvae_tpu_torch.parallel import mesh as mesh_lib
 from rqvae_tpu_torch.tokenizer import semids
 from rqvae_tpu_torch.train import checkpoint as ckpt_lib
 from rqvae_tpu_torch.train import optim
@@ -67,7 +72,9 @@ from rqvae_tpu_torch.utils import amp
 from rqvae_tpu_torch.utils import config as config_lib
 from rqvae_tpu_torch.utils.device import resolve_device
 from rqvae_tpu_torch.utils.logging import MetricsLogger
-from rqvae_tpu_torch.utils.tree import tree_leaves, tree_map, tree_shapes, tree_unflatten
+from rqvae_tpu_torch.utils.profiling import StepProfiler
+from rqvae_tpu_torch.utils.tree import (tree_leaves, tree_leaves_with_path, tree_map, tree_shapes,
+                                        tree_unflatten)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,26 +125,26 @@ class DecoderTrainConfig:
     seed: int = 42
     prng_impl: str = "rbg"                       # a JAX PRNG choice; unused here
     log_every: int = 100
-    metrics_sink: str = "jsonl"                  # only "jsonl" is ported
-    tensorboard_dir: Optional[str] = None        # not ported
+    metrics_sink: str = "jsonl"                  # or "tensorboard"
+    tensorboard_dir: Optional[str] = None
     warmup_steps: int = 10000
     eval_batches: int = 32
     generation_top_k: int = 32
     generation_candidates: int = 200
     generation_temperature: float = 1.0
-    mesh_shape: Optional[Tuple[int, ...]] = None   # not ported: one device
-    tensor_parallel: bool = False                  # not ported
+    mesh_shape: Optional[Tuple[int, ...]] = None   # (data, 1): a model axis raises
+    tensor_parallel: bool = False                  # not ported: raises
     synthetic_n_items: int = 2048
     synthetic_n_users: int = 2048
     data_path: Optional[str] = None
-    profile_dir: Optional[str] = None              # not ported
+    profile_dir: Optional[str] = None
     profile_start: int = 10
     profile_steps: int = 5
     # resume from the latest checkpoint under save_dir_root when no
     # pretrained decoder path is given; `iterations` then counts steps FROM
     # THE RESUME POINT (rerunning a finished run trains `iterations` more)
     auto_resume: bool = True
-    debug_nans: bool = False                       # not ported
+    debug_nans: bool = False
 
     def vae_config(self) -> rqvae_lib.RqVaeConfig:
         return rqvae_lib.RqVaeConfig(
@@ -194,16 +201,37 @@ def load_frozen_rqvae(cfg: DecoderTrainConfig, *, device=None):
     return tree_map(lambda t: t.detach(), params), vae_cfg
 
 
-def value_and_grad(loss_fn, params, *args):
+def value_and_grad(loss_fn, params, *args, debug_nans: bool = False):
     """(loss, aux, grads) of ``loss_fn(params, *args) -> (loss, aux)``, aux
     a tensor or a tree of tensors, detached; ``grads`` has the params'
     structure (zeros for a leaf the loss does not reach). The params' own
-    tensors are not marked for autograd."""
+    tensors are not marked for autograd. ``debug_nans`` runs forward and
+    backward under ``torch.autograd.detect_anomaly(check_nan=True)`` and
+    turns its NaN error into ``FloatingPointError``."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
-    loss, aux = loss_fn(tree_unflatten(params, leaves), *args)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with (torch.autograd.detect_anomaly(check_nan=True) if debug_nans
+          else contextlib.nullcontext()):
+        loss, aux = loss_fn(tree_unflatten(params, leaves), *args)
+        try:
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        except RuntimeError as e:
+            if debug_nans and "nan values" in str(e):
+                raise FloatingPointError(
+                    f"NaN in the backward (loss {float(loss.detach())}): {e}") from e
+            raise
     grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
     return loss.detach(), tree_map(lambda t: t.detach(), aux), tree_unflatten(params, grads)
+
+
+def check_finite(grads, loss: Optional[torch.Tensor] = None) -> None:
+    """``debug_nans``' per-step check, one host sync: raises
+    ``FloatingPointError`` naming the loss or the first gradient leaf (by
+    path) that holds a NaN or an infinity."""
+    named = ([] if loss is None else [("loss", loss)]) + [
+        ("gradient " + "/".join(map(str, path)), g) for path, g in tree_leaves_with_path(grads)]
+    ok = torch.stack([torch.isfinite(t).all() for _, t in named]).cpu()
+    if not bool(ok.all()):
+        raise FloatingPointError(f"non-finite {named[int((~ok).nonzero()[0])][0]}")
 
 
 def _make_microbatch_loss(model_cfg: RetrievalConfig, index: semids.CorpusIndex,
@@ -219,25 +247,33 @@ def _make_microbatch_loss(model_cfg: RetrievalConfig, index: semids.CorpusIndex,
     return microbatch_loss
 
 
-def _apply_updates(opt, params, opt_state, grads):
+def _apply_updates(opt, params, opt_state, grads, op: str = "mean", loss=None,
+                   debug_nans: bool = False):
+    """Reduce the gradients over the data replicas (``op``; an identity on
+    one device), check them under ``debug_nans``, then one AdamW update."""
+    mesh_lib.all_reduce_(tree_leaves(grads), op)
+    if debug_nans:
+        check_finite(grads, loss)
     return params, opt.update(params, opt_state, grads)
 
 
 def make_bucketed_fns(model_cfg: RetrievalConfig, opt, index: semids.CorpusIndex,
-                      compute_dtype: torch.dtype, sem_dim: int):
+                      compute_dtype: torch.dtype, sem_dim: int, *, debug_nans: bool = False):
     """(grad_accum, apply) for length-bucketed training. ``grad_accum`` adds
     ``w`` times one group's gradients into ``grads_acc`` in place; ``apply``
-    is the single optimizer update."""
+    is the single optimizer update, after the gradients' mean over the data
+    replicas (each rank buckets its own rows)."""
     microbatch_loss = _make_microbatch_loss(model_cfg, index, compute_dtype)
 
     def grad_accum(params, grads_acc, loss_acc, loss_d_acc, batch: SeqBatch,
                    generator: Optional[torch.Generator], w: float):
-        loss, loss_d, grads = value_and_grad(microbatch_loss, params, batch, generator)
+        loss, loss_d, grads = value_and_grad(microbatch_loss, params, batch, generator,
+                                             debug_nans=debug_nans)
         torch._foreach_add_(tree_leaves(grads_acc), tree_leaves(grads), alpha=w)
         return grads_acc, loss_acc + w * loss, loss_d_acc + w * loss_d
 
-    def apply(params, opt_state, grads):
-        return _apply_updates(opt, params, opt_state, grads)
+    def apply(params, opt_state, grads, loss=None):
+        return _apply_updates(opt, params, opt_state, grads, loss=loss, debug_nans=debug_nans)
 
     return grad_accum, apply
 
@@ -255,49 +291,60 @@ def bucket_slices(lengths: np.ndarray, n_buckets: int, grid: int = 4):
 
 
 def make_packed_step(model_cfg: RetrievalConfig, opt, index: semids.CorpusIndex,
-                     compute_dtype: torch.dtype):
+                     compute_dtype: torch.dtype, *, debug_nans: bool = False):
     """``step(params, opt_state, packed, generator) -> (params, opt_state,
     metrics)`` over a packed batch (``data.packing.PackedSeqBatch`` of
     tensors, ``packing.to_device``): tokenize, the segment-local forward
     with dropout, backpropagate, one AdamW update. The same loss estimator
-    as the flat step, over the examples the packer placed."""
+    as the flat step, over the examples the packer placed. Under data
+    parallelism the loss is divided by the replicas' summed valid slots and
+    the gradients are summed: the global loss over the global slots, as
+    JAX's GSPMD step computes it; each rank's ``total_loss`` is its share."""
 
     def packed_loss(params, packed, generator: Optional[torch.Generator]):
         p = amp.cast_floating(params, compute_dtype)  # inside the loss: fp32 grads
         tok = semids.tokenize_packed(index, packed)
-        out = retrieval.forward_packed(p, model_cfg, tok, training=True, generator=generator)
+        n_valid = mesh_lib.all_reduce_sum(torch.sum(tok.slot_valid))
+        out = retrieval.forward_packed(p, model_cfg, tok, training=True, generator=generator,
+                                       n_valid=n_valid)
         return out.loss, out.loss_d
 
     def step(params, opt_state, packed, generator: Optional[torch.Generator]):
-        loss, loss_d, grads = value_and_grad(packed_loss, params, packed, generator)
-        params, opt_state = _apply_updates(opt, params, opt_state, grads)
+        loss, loss_d, grads = value_and_grad(packed_loss, params, packed, generator,
+                                             debug_nans=debug_nans)
+        params, opt_state = _apply_updates(opt, params, opt_state, grads, "sum", loss,
+                                           debug_nans)
         return params, opt_state, {"total_loss": loss, "loss_d": loss_d}
 
     return step
 
 
 def make_train_step(model_cfg: RetrievalConfig, opt, index: semids.CorpusIndex, accum: int,
-                    compute_dtype: torch.dtype, sem_dim: int):
+                    compute_dtype: torch.dtype, sem_dim: int, *, debug_nans: bool = False):
     """``step(params, opt_state, batch, generator) -> (params, opt_state,
     metrics)``; ``batch`` tensors are (accum, B, ...), gradients are meaned
-    over the ``accum`` micro-batches (a loop, where JAX scans)."""
+    over the ``accum`` micro-batches (a loop, where JAX scans) and over the
+    data replicas (``parallel/mesh``; none on one device)."""
     microbatch_loss = _make_microbatch_loss(model_cfg, index, compute_dtype)
 
     def step(params, opt_state, batch: SeqBatch, generator: Optional[torch.Generator]):
         if accum == 1:
             loss, loss_d, grads = value_and_grad(microbatch_loss, params,
-                                                 tree_map(lambda x: x[0], batch), generator)
+                                                 tree_map(lambda x: x[0], batch), generator,
+                                                 debug_nans=debug_nans)
         else:
             grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             loss = torch.zeros((), dtype=torch.float32, device=batch.ids.device)
             loss_d = torch.zeros((sem_dim,), dtype=torch.float32, device=batch.ids.device)
             for i in range(accum):
                 one = tree_map(lambda x, i=i: x[i], batch)
-                l, ld, g = value_and_grad(microbatch_loss, params, one, generator)
+                l, ld, g = value_and_grad(microbatch_loss, params, one, generator,
+                                          debug_nans=debug_nans)
                 torch._foreach_add_(tree_leaves(grads), tree_leaves(g))
                 loss, loss_d = loss + l, loss_d + ld
             torch._foreach_div_(tree_leaves(grads), float(accum))
-        params, opt_state = _apply_updates(opt, params, opt_state, grads)
+        params, opt_state = _apply_updates(opt, params, opt_state, grads, "mean", loss,
+                                           debug_nans)
         return params, opt_state, {"total_loss": loss / accum, "loss_d": loss_d / accum}
 
     return step
@@ -332,46 +379,56 @@ def run_generative_eval(params, model_cfg: RetrievalConfig, index: semids.Corpus
     """Constrained-beam-search eval over the first ``n_eval`` rows of
     ``seqs``: batches of ``cfg.batch_size`` rows, the last padded with copies
     of the final row (one batch shape, as in JAX) whose counts are masked
-    out; hit rates reduced on the host (``TopKAccumulator``). ``generator``
-    draws the candidate noise when ``generation_candidates`` is below the
-    codebook size (None is enough for the exhaustive branch)."""
+    out; hit rates reduced on the host (``TopKAccumulator``). Under data
+    parallelism each rank searches its block of every batch
+    (``mesh.host_block``) and the hit counts and row totals are summed over
+    the ranks before the rates, so every rank reports the same metrics.
+    ``generator`` draws the candidate noise when ``generation_candidates`` is
+    below the codebook size (None is enough for the exhaustive branch)."""
     dev = index.cached_ids.device
     acc = TopKAccumulator(ks=(1, 5, 10))
     generate_fn, hit_counts_fn = eval_fns or make_generative_eval_fns(model_cfg, index, cfg,
                                                                       acc.ks)
+    local_bs = mesh_lib.process_local_batch_size(cfg.batch_size)
     n_eval = min(n_eval, len(seqs))
     for lo in range(0, n_eval, cfg.batch_size):
-        idx = np.arange(lo, lo + cfg.batch_size)
-        valid = idx < min(lo + cfg.batch_size, n_eval)
-        idx = np.minimum(idx, n_eval - 1)
+        global_idx = np.arange(lo, lo + cfg.batch_size)
+        valid = mesh_lib.host_block(global_idx < min(lo + cfg.batch_size, n_eval), local_bs)
+        idx = mesh_lib.host_block(np.minimum(global_idx, n_eval - 1), local_bs)
         b = dataset_lib.to_device(
             dataset_lib.make_seq_batch(seqs.batch_at(idx), items.x, with_features=False), dev)
         gen, actual = generate_fn(params, b, generator)
         counts, n_rows = hit_counts_fn(actual, gen.sem_ids, torch.from_numpy(valid).to(dev))
         acc.accumulate_counts({k: float(v) for k, v in counts.items()}, int(n_rows))
+    if mesh_lib.data_parallel():
+        keys = sorted(acc.metrics)
+        sums = torch.tensor([acc.metrics[k] for k in keys] + [acc.total], dtype=torch.float64,
+                            device=dev)
+        sums = mesh_lib.all_reduce_([sums], "sum")[0].tolist()
+        acc.metrics, acc.total = dict(zip(keys, sums[:-1])), int(sums[-1])
     return acc.reduce()
 
 
 def _check_supported(cfg: DecoderTrainConfig) -> None:
-    unported = {
-        "mesh_shape": cfg.mesh_shape is not None and math.prod(cfg.mesh_shape) > 1,
-        "tensor_parallel": cfg.tensor_parallel,
-        "metrics_sink": cfg.metrics_sink != "jsonl",
-        "tensorboard_dir": cfg.tensorboard_dir is not None,
-        "profile_dir": cfg.profile_dir is not None,
-        "debug_nans": cfg.debug_nans,
-    }
-    bad = sorted(k for k, v in unported.items() if v)
-    if bad:
-        raise NotImplementedError(f"not ported yet: {bad}")
+    mesh_lib.refuse_tensor_parallel(cfg.mesh_shape, cfg.tensor_parallel)
+
+
+def _replicated(metrics: dict, op: str) -> dict:
+    """The step's metrics reduced over the data replicas (one collective;
+    none on one device), so every rank logs the same values."""
+    vals = [v.float() for v in metrics.values()]
+    return dict(zip(metrics, mesh_lib.all_reduce_(vals, op)))
 
 
 def train(cfg: DecoderTrainConfig, *, logger: Optional[MetricsLogger] = None, device=None):
-    """Stage-2 training on ``device`` (cuda unless told otherwise); returns
-    the trained params."""
+    """Stage-2 training on ``device`` (cuda unless told otherwise; under
+    ``torchrun``, this rank's GPU), data-parallel over the process group
+    ``torchrun`` describes; returns the trained params."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    logger = logger or MetricsLogger(every=cfg.log_every)
+    mesh_lib.maybe_init_distributed(dev)
+    logger = logger or MetricsLogger(every=cfg.log_every, sink=cfg.metrics_sink,
+                                     tensorboard_dir=cfg.tensorboard_dir)
     compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
 
     bundle = registry.load(
@@ -385,11 +442,14 @@ def train(cfg: DecoderTrainConfig, *, logger: Optional[MetricsLogger] = None, de
     sem_dim = model_cfg.sem_id_dim
     items_x = bundle.items.x
 
+    mesh_lib.make_mesh(cfg.mesh_shape)
+    rank = mesh_lib.rank()
+    local_bs = mesh_lib.process_local_batch_size(cfg.batch_size)
     vae_params, vae_cfg = load_frozen_rqvae(cfg, device=dev)
     index = semids.precompute_corpus_ids(
         vae_params, vae_cfg,
         torch.from_numpy(dataset_lib.features_for_model(items_x, vae_cfg.input_dim)).to(dev))
-    if cfg.push_vae_to_hf:
+    if cfg.push_vae_to_hf and rank == 0:
         from rqvae_tpu_torch.models import io as model_io
 
         export_dir = os.path.join(cfg.save_dir_root, "rqvae_export")
@@ -415,16 +475,19 @@ def train(cfg: DecoderTrainConfig, *, logger: Optional[MetricsLogger] = None, de
         state, meta = ckpt_lib.restore(resume_path, device=dev)
         params, opt_state = state["params"], state["opt_state"]
         start_iter = meta["step"] + 1
+    mesh_lib.broadcast_(tree_leaves(params))
 
     accum = max(1, cfg.gradient_accumulate_every)
     bs = cfg.batch_size
-    use_buckets = cfg.length_buckets > 1 and accum == 1 and bs % cfg.length_buckets == 0
+    use_buckets = cfg.length_buckets > 1 and accum == 1 and local_bs % cfg.length_buckets == 0
     if cfg.length_buckets > 1 and not use_buckets:
         print(f"WARNING: length_buckets={cfg.length_buckets} ignored (requires "
-              "gradient_accumulate_every=1 and a batch size divisible by it; "
-              f"batch_size={bs}, accum={accum}) — training takes the flat step.", file=sys.stderr)
+              "gradient_accumulate_every=1 and a per-process batch size divisible by it; "
+              f"local batch={local_bs}, accum={accum}) — training takes the flat step.",
+              file=sys.stderr)
     if use_buckets:
-        grad_accum_fn, apply_fn = make_bucketed_fns(model_cfg, opt, index, compute_dtype, sem_dim)
+        grad_accum_fn, apply_fn = make_bucketed_fns(model_cfg, opt, index, compute_dtype, sem_dim,
+                                                    debug_nans=cfg.debug_nans)
     use_packing = cfg.packed_rows > 0 and accum == 1 and not use_buckets
     if cfg.packed_rows > 0 and not use_packing:
         print(f"WARNING: packed_rows={cfg.packed_rows} ignored (requires "
@@ -434,8 +497,10 @@ def train(cfg: DecoderTrainConfig, *, logger: Optional[MetricsLogger] = None, de
     if use_packing:
         from rqvae_tpu_torch.data import packing as packing_lib
 
-        packed_step_fn = make_packed_step(model_cfg, opt, index, compute_dtype)
-    step_fn = make_train_step(model_cfg, opt, index, accum, compute_dtype, sem_dim)
+        packed_step_fn = make_packed_step(model_cfg, opt, index, compute_dtype,
+                                          debug_nans=cfg.debug_nans)
+    step_fn = make_train_step(model_cfg, opt, index, accum, compute_dtype, sem_dim,
+                              debug_nans=cfg.debug_nans)
 
     def eval_loss_fn(p, batch: SeqBatch):
         with torch.no_grad():
@@ -443,56 +508,70 @@ def train(cfg: DecoderTrainConfig, *, logger: Optional[MetricsLogger] = None, de
         return out.loss
 
     eval_fns = make_generative_eval_fns(model_cfg, index, cfg, (1, 5, 10))
-    host_rng = np.random.default_rng(cfg.seed)
+    # per-process streams: each rank samples its block of the global batch
+    # and draws its own dropout
+    host_rng = np.random.default_rng(cfg.seed + rank)
     # one device generator: dropout in the steps, candidate noise in the evals
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1 + rank)
     seq_batch = lambda raw: dataset_lib.make_seq_batch(raw, items_x, with_features=False)  # noqa: E731
     if use_packing:
-        packer = packing_lib.SequencePacker(seqs=bundle.train_seqs, rng=host_rng,
-                                            rows=cfg.packed_rows, slots=cfg.pack_slots,
-                                            subsample=cfg.train_data_subsample)
+        packer = packing_lib.SequencePacker(
+            seqs=bundle.train_seqs, rng=host_rng,
+            rows=mesh_lib.process_local_batch_size(cfg.packed_rows), slots=cfg.pack_slots,
+            subsample=cfg.train_data_subsample)
+    profiler = StepProfiler(cfg.profile_dir, cfg.profile_start, cfg.profile_steps, device=dev)
     t_start = time.monotonic()
-    examples_seen = 0
+    examples_seen = 0   # this rank's own examples when packing, else the global count
 
     for it in range(start_iter, start_iter + cfg.iterations):
+        profiler.step(it - start_iter)
         train_len_metrics = None
-        if use_packing:
-            raw, n_ex = packer.next_batch()
-            train_len_metrics = _length_quantiles(
-                (raw.slot_len[raw.slot_valid] * sem_dim).astype(np.float32), "train")
-            params, opt_state, metrics = packed_step_fn(
-                params, opt_state, packing_lib.to_device(raw, dev), gen)
-            examples_seen += n_ex
-        elif use_buckets:
-            raw = bundle.train_seqs.sample_batch(host_rng, bs, subsample=cfg.train_data_subsample)
-            log_mask = raw["ids"] >= 0
-            grads = tree_map(torch.zeros_like, params)
-            loss_acc = torch.zeros((), device=dev)
-            loss_d_acc = torch.zeros((sem_dim,), device=dev)
-            for rows, length in bucket_slices(log_mask.sum(axis=1), cfg.length_buckets):
-                sub = {"user_ids": raw["user_ids"][rows], "ids": raw["ids"][rows, :length],
-                       "ids_fut": raw["ids_fut"][rows]}
-                grads, loss_acc, loss_d_acc = grad_accum_fn(
-                    params, grads, loss_acc, loss_d_acc, dataset_lib.to_device(seq_batch(sub), dev),
-                    gen, 1.0 / cfg.length_buckets)
-            params, opt_state = apply_fn(params, opt_state, grads)
-            metrics = {"total_loss": loss_acc, "loss_d": loss_d_acc}
-        else:
-            host = [seq_batch(bundle.train_seqs.sample_batch(
-                host_rng, bs, subsample=cfg.train_data_subsample)) for _ in range(accum)]
-            stacked = SeqBatch(*(np.stack(xs) for xs in zip(*host)))
-            log_mask = stacked.seq_mask
-            params, opt_state, metrics = step_fn(params, opt_state,
-                                                 dataset_lib.to_device(stacked, dev), gen)
+        try:
+            if use_packing:
+                raw, n_ex = packer.next_batch()
+                train_len_metrics = _length_quantiles(
+                    (raw.slot_len[raw.slot_valid] * sem_dim).astype(np.float32), "train")
+                params, opt_state, metrics = packed_step_fn(
+                    params, opt_state, packing_lib.to_device(raw, dev), gen)
+                examples_seen += n_ex
+            elif use_buckets:
+                raw = bundle.train_seqs.sample_batch(host_rng, local_bs,
+                                                     subsample=cfg.train_data_subsample)
+                log_mask = raw["ids"] >= 0
+                grads = tree_map(torch.zeros_like, params)
+                loss_acc = torch.zeros((), device=dev)
+                loss_d_acc = torch.zeros((sem_dim,), device=dev)
+                for rows, length in bucket_slices(log_mask.sum(axis=1), cfg.length_buckets):
+                    sub = {"user_ids": raw["user_ids"][rows], "ids": raw["ids"][rows, :length],
+                           "ids_fut": raw["ids_fut"][rows]}
+                    grads, loss_acc, loss_d_acc = grad_accum_fn(
+                        params, grads, loss_acc, loss_d_acc,
+                        dataset_lib.to_device(seq_batch(sub), dev), gen, 1.0 / cfg.length_buckets)
+                params, opt_state = apply_fn(params, opt_state, grads, loss_acc)
+                metrics = {"total_loss": loss_acc, "loss_d": loss_d_acc}
+            else:
+                host = [seq_batch(bundle.train_seqs.sample_batch(
+                    host_rng, local_bs, subsample=cfg.train_data_subsample)) for _ in range(accum)]
+                stacked = SeqBatch(*(np.stack(xs) for xs in zip(*host)))
+                log_mask = stacked.seq_mask
+                params, opt_state, metrics = step_fn(params, opt_state,
+                                                     dataset_lib.to_device(stacked, dev), gen)
+        except FloatingPointError as e:
+            raise FloatingPointError(f"step {it + 1}: {e}") from e
         if not use_packing:
             examples_seen += accum * bs
 
         if _every(it, cfg.log_every) or it == start_iter:
-            m = {k: v.float().cpu().numpy() for k, v in metrics.items()}
+            # packed: each rank's loss is its share of the global loss
+            metrics = _replicated(metrics, "sum" if use_packing else "mean")
+            m = {k: v.cpu().numpy() for k, v in metrics.items()}
             loss_d = m.pop("loss_d")
             m.update({f"loss_{d}": loss_d[d] for d in range(sem_dim)})
             m["learning_rate"] = float(schedule(it + 1))
-            m["examples_per_s"] = examples_seen / (time.monotonic() - t_start)
+            seen = examples_seen
+            if use_packing:   # the exact global count
+                seen = int(mesh_lib.all_reduce_sum(torch.tensor(examples_seen, device=dev)))
+            m["examples_per_s"] = seen / (time.monotonic() - t_start)
             m.update(train_len_metrics if train_len_metrics is not None
                      else debug_metrics(log_mask, "train", sem_dim))
             logger.log(it + 1, m, force=True)
@@ -503,12 +582,13 @@ def train(cfg: DecoderTrainConfig, *, logger: Optional[MetricsLogger] = None, de
             losses, eval_mask = [], None
             for eb in range(min(cfg.eval_batches, max(1, n_eval_rows // bs))):
                 # small eval sets wrap modulo the set: near-uniform repeats,
-                # one batch shape
-                idx = np.arange(eb * bs, (eb + 1) * bs) % n_eval_rows
-                b = seq_batch(bundle.eval_seqs.batch_at(idx))
-                losses.append(float(eval_loss_fn(params, dataset_lib.to_device(b, dev))))
+                # one batch shape; each rank evaluates its block
+                global_idx = np.arange(eb * bs, (eb + 1) * bs) % n_eval_rows
+                b = seq_batch(bundle.eval_seqs.batch_at(mesh_lib.host_block(global_idx, local_bs)))
+                losses.append(eval_loss_fn(params, dataset_lib.to_device(b, dev)))
                 eval_mask = b.seq_mask
-            logger.log(it + 1, {"eval_loss": float(np.mean(losses)),
+            ev = mesh_lib.all_reduce_([torch.stack(losses).double()], "mean")[0]
+            logger.log(it + 1, {"eval_loss": float(ev.mean()),
                                 **debug_metrics(eval_mask, "eval", sem_dim)}, force=True)
 
         if n_eval_rows and (_every(it, cfg.full_eval_every) or last):
@@ -519,6 +599,7 @@ def train(cfg: DecoderTrainConfig, *, logger: Optional[MetricsLogger] = None, de
         if _every(it, cfg.save_model_every) or last:
             ckpt_lib.save(cfg.save_dir_root, it, {"params": params, "opt_state": opt_state},
                           meta={"config": config_lib.config_to_dict(cfg)})
+    profiler.close()
     return params
 
 

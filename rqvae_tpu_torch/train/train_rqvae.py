@@ -1,5 +1,5 @@
 """Stage-1 training: the RQ-VAE tokenizer (counterpart of
-rqvae_tpu/train/train_rqvae.py), on one device.
+rqvae_tpu/train/train_rqvae.py).
 
 * ``RqVaeTrainConfig``: every field and default of the JAX config, read from
   the same ``configs/rqvae_*.json`` files by ``utils/config.load_config``.
@@ -23,13 +23,16 @@ Mixed precision is the JAX package's: fp32 master params and AdamW state,
 ``amp.cast_floating(params, bf16)`` inside the differentiated loss, fp32
 loss islands. Parameters and the optimizer state are updated in place.
 
-Not ported: the mesh (data / tensor parallelism), the TensorBoard sink and
-the profiler hook; the config fields that ask for them raise.
+Under ``torchrun`` ``train`` runs data-parallel (``parallel/mesh``: host
+batches from ``default_rng(seed + rank)``, the device chunk's global indices
+drawn alike on every rank and split by columns, gradients all-reduced once a
+step, reduced metrics, rank 0's diversity metrics and checkpoints);
+``profile_dir``, the TensorBoard sink and ``debug_nans`` work as in the
+decoder loop. Tensor parallelism raises.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 import sys
 import time
 from typing import Optional, Tuple
@@ -41,15 +44,18 @@ from rqvae_tpu_torch.data import dataset as dataset_lib
 from rqvae_tpu_torch.data import registry
 from rqvae_tpu_torch.models import rqvae as rqvae_lib
 from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
+from rqvae_tpu_torch.ops import dispatch
+from rqvae_tpu_torch.parallel import mesh as mesh_lib
 from rqvae_tpu_torch.tokenizer import semids
 from rqvae_tpu_torch.train import checkpoint as ckpt_lib
 from rqvae_tpu_torch.train import optim
 from rqvae_tpu_torch.train import temperature
-from rqvae_tpu_torch.train.train_decoder import _every, value_and_grad
+from rqvae_tpu_torch.train.train_decoder import _every, _replicated, check_finite, value_and_grad
 from rqvae_tpu_torch.utils import amp
 from rqvae_tpu_torch.utils import config as config_lib
 from rqvae_tpu_torch.utils.device import resolve_device
 from rqvae_tpu_torch.utils.logging import MetricsLogger
+from rqvae_tpu_torch.utils.profiling import StepProfiler
 from rqvae_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -89,7 +95,7 @@ class RqVaeTrainConfig:
     seed: int = 42
     prng_impl: str = "rbg"               # a JAX PRNG choice; unused here
     log_every: int = 100
-    metrics_sink: str = "jsonl"          # only "jsonl" is ported
+    metrics_sink: str = "jsonl"          # or "tensorboard"
     tensorboard_dir: Optional[str] = None
     gumbel_temperature: float = 0.2
     gumbel_anneal: bool = False
@@ -102,18 +108,18 @@ class RqVaeTrainConfig:
     # drawn there, and this many optimizer steps run per call; 1 = the
     # host-fed loop (numpy sampling, one step per call)
     steps_per_call: int = 8
-    mesh_shape: Optional[Tuple[int, ...]] = None   # not ported: one device
-    tensor_parallel: bool = False                  # not ported
+    mesh_shape: Optional[Tuple[int, ...]] = None   # (data, 1): a model axis raises
+    tensor_parallel: bool = False                  # not ported: raises
     synthetic_n_items: int = 2048
     synthetic_n_users: int = 2048
-    profile_dir: Optional[str] = None              # not ported
+    profile_dir: Optional[str] = None
     profile_start: int = 10
     profile_steps: int = 5
     # resume from the latest checkpoint under save_dir_root when no explicit
     # pretrained path is given; `iterations` then counts steps FROM THE
     # RESUME POINT (rerunning a finished run trains `iterations` more)
     auto_resume: bool = True
-    debug_nans: bool = False                       # not ported
+    debug_nans: bool = False
 
     def model_config(self) -> rqvae_lib.RqVaeConfig:
         return rqvae_lib.RqVaeConfig(
@@ -142,15 +148,19 @@ def _make_microbatch_loss(model_cfg: rqvae_lib.RqVaeConfig, compute_dtype: torch
 
 
 def make_train_step(model_cfg: rqvae_lib.RqVaeConfig, opt, accum: int,
-                    compute_dtype: torch.dtype):
+                    compute_dtype: torch.dtype, *, debug_nans: bool = False):
     """``step(params, opt_state, x, generator, gumbel_t) -> (params,
-    opt_state, metrics)``; x is (accum, B, D), metrics are device tensors."""
+    opt_state, metrics)``; x is (accum, B, D), metrics are device tensors.
+    The gradients are meaned over the data replicas (``parallel/mesh``; none
+    on one device): the losses are batch means over equal local batches, so
+    that is the global batch's gradient."""
     microbatch_loss = _make_microbatch_loss(model_cfg, compute_dtype)
 
     def step(params, opt_state, x, generator, gumbel_t):
         dev = x.device
         if accum == 1:
-            loss, out, grads = value_and_grad(microbatch_loss, params, x[0], generator, gumbel_t)
+            loss, out, grads = value_and_grad(microbatch_loss, params, x[0], generator, gumbel_t,
+                                              debug_nans=debug_nans)
             recon, vq, pu = out.reconstruction_loss, out.rqvae_loss.float(), out.p_unique_ids
             embs_norm = out.embs_norm[None].float()
         else:
@@ -158,7 +168,8 @@ def make_train_step(model_cfg: rqvae_lib.RqVaeConfig, opt, accum: int,
             loss, recon, vq, pu = (torch.zeros((), device=dev) for _ in range(4))
             norms = []
             for i in range(accum):
-                l, out, g = value_and_grad(microbatch_loss, params, x[i], generator, gumbel_t)
+                l, out, g = value_and_grad(microbatch_loss, params, x[i], generator, gumbel_t,
+                                           debug_nans=debug_nans)
                 torch._foreach_add_(tree_leaves(grads), tree_leaves(g))
                 loss = loss + l
                 recon = recon + out.reconstruction_loss
@@ -167,6 +178,9 @@ def make_train_step(model_cfg: rqvae_lib.RqVaeConfig, opt, accum: int,
                 norms.append(out.embs_norm.float())
             torch._foreach_div_(tree_leaves(grads), float(accum))
             embs_norm = torch.stack(norms)
+        mesh_lib.all_reduce_(tree_leaves(grads), "mean")
+        if debug_nans:
+            check_finite(grads, loss)
         opt_state = opt.update(params, opt_state, grads)
         metrics = {
             "total_loss": loss / accum,
@@ -181,19 +195,28 @@ def make_train_step(model_cfg: rqvae_lib.RqVaeConfig, opt, accum: int,
 
 
 def make_device_chunk(model_cfg: rqvae_lib.RqVaeConfig, opt, accum: int,
-                      compute_dtype: torch.dtype, batch_size: int, n_steps: int):
-    """``chunk(params, opt_state, corpus, generator, gumbel_t)``: ``n_steps``
-    optimizer steps on batches drawn on the device from ``corpus`` (N, D) with
-    ``generator`` (a generator on the corpus's device). Metrics are the
-    chunk's means, still on the device."""
-    base = make_train_step(model_cfg, opt, accum, compute_dtype)
+                      compute_dtype: torch.dtype, batch_size: int, n_steps: int, *,
+                      debug_nans: bool = False):
+    """``chunk(params, opt_state, corpus, generator, gumbel_t,
+    index_generator=None)``: ``n_steps`` optimizer steps on batches drawn on
+    the device from ``corpus`` (N, D). The global (accum, ``batch_size``)
+    indices come from ``index_generator`` (default ``generator``; generators
+    on the corpus's device), and each data replica takes its block of
+    columns (JAX's ``P(None, 'data', None)``), so under data parallelism
+    ``index_generator`` must be seeded alike on every rank; ``generator``
+    draws the Gumbel noise. Metrics are the chunk's means, still on the
+    device."""
+    base = make_train_step(model_cfg, opt, accum, compute_dtype, debug_nans=debug_nans)
 
-    def chunk(params, opt_state, corpus, generator, gumbel_t):
+    def chunk(params, opt_state, corpus, generator, gumbel_t, index_generator=None):
+        local = mesh_lib.process_local_batch_size(batch_size)
+        cols = slice(mesh_lib.rank() * local, (mesh_lib.rank() + 1) * local)
         ms = []
         for _ in range(n_steps):
-            idx = torch.randint(0, corpus.shape[0], (accum, batch_size), generator=generator,
-                                device=corpus.device)
-            params, opt_state, metrics = base(params, opt_state, corpus[idx], generator, gumbel_t)
+            idx = torch.randint(0, corpus.shape[0], (accum, batch_size), device=corpus.device,
+                                generator=generator if index_generator is None else index_generator)
+            params, opt_state, metrics = base(params, opt_state, corpus[idx[:, cols]], generator,
+                                              gumbel_t)
             ms.append(metrics)
         return params, opt_state, {k: torch.mean(torch.stack([m[k] for m in ms]), dim=0)
                                    for k in ms[0]}
@@ -230,24 +253,18 @@ def id_diversity_metrics(params, model_cfg: rqvae_lib.RqVaeConfig, corpus_x: tor
 
 
 def _check_supported(cfg: RqVaeTrainConfig) -> None:
-    unported = {
-        "mesh_shape": cfg.mesh_shape is not None and math.prod(cfg.mesh_shape) > 1,
-        "tensor_parallel": cfg.tensor_parallel,
-        "metrics_sink": cfg.metrics_sink != "jsonl",
-        "profile_dir": cfg.profile_dir is not None,
-        "debug_nans": cfg.debug_nans,
-    }
-    bad = sorted(k for k, v in unported.items() if v)
-    if bad:
-        raise NotImplementedError(f"not ported yet: {bad}")
+    mesh_lib.refuse_tensor_parallel(cfg.mesh_shape, cfg.tensor_parallel)
 
 
 def train(cfg: RqVaeTrainConfig, *, logger: Optional[MetricsLogger] = None, device=None):
-    """Stage-1 training on ``device`` (cuda unless told otherwise); returns
-    the trained params."""
+    """Stage-1 training on ``device`` (cuda unless told otherwise; under
+    ``torchrun``, this rank's GPU), data-parallel over the process group
+    ``torchrun`` describes; returns the trained params."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    logger = logger or MetricsLogger(every=cfg.log_every)
+    mesh_lib.maybe_init_distributed(dev)
+    logger = logger or MetricsLogger(every=cfg.log_every, sink=cfg.metrics_sink,
+                                     tensorboard_dir=cfg.tensorboard_dir)
     model_cfg = cfg.model_config()
     compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
 
@@ -265,6 +282,9 @@ def train(cfg: RqVaeTrainConfig, *, logger: Optional[MetricsLogger] = None, devi
     eval_x = _slice(items.filtered("eval")) if cfg.do_eval else None
     index_x = _slice(items.filtered("all"))
 
+    mesh_lib.make_mesh(cfg.mesh_shape)
+    rank = mesh_lib.rank()
+    local_bs = mesh_lib.process_local_batch_size(cfg.batch_size)
     params = rqvae_lib.init(torch.Generator().manual_seed(cfg.seed), model_cfg, device=dev)
     opt = optim.adamw(cfg.learning_rate, cfg.weight_decay)
     opt_state = opt.init(params)
@@ -278,17 +298,22 @@ def train(cfg: RqVaeTrainConfig, *, logger: Optional[MetricsLogger] = None, devi
         params, opt_state = state["params"], state["opt_state"]
         start_iter = meta["step"] + 1
         print(f"---Loaded RQVAE Iter {meta['step']}---", file=sys.stderr)
+    mesh_lib.broadcast_(tree_leaves(params))
 
-    # one device generator for k-means, Gumbel noise and the chunks' batch draws
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+    # a device generator for k-means and the Gumbel noise (this rank's); the
+    # chunks' global batch indices come from one seeded alike on every rank
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1 + rank)
+    index_gen = (torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+                 if mesh_lib.data_parallel() else None)
     if start_iter == 0 and cfg.use_kmeans_init:
         n_prime = min(cfg.kmeans_prime_items, train_x.shape[0])
         params = rqvae_lib.kmeans_prime(params, model_cfg,
                                         torch.from_numpy(train_x[:n_prime]).to(dev), gen,
                                         gumbel_t=cfg.gumbel_temperature)
+        mesh_lib.broadcast_(tree_leaves(params))
 
     accum = max(1, cfg.gradient_accumulate_every)
-    step_fn = make_train_step(model_cfg, opt, accum, compute_dtype)
+    step_fn = make_train_step(model_cfg, opt, accum, compute_dtype, debug_nans=cfg.debug_nans)
     eval_fn = make_eval_step(model_cfg, cfg.gumbel_temperature, compute_dtype)
     temp_sched = (
         temperature.TemperatureScheduler(t0=cfg.gumbel_temperature, min_t=cfg.gumbel_min_t,
@@ -308,40 +333,46 @@ def train(cfg: RqVaeTrainConfig, *, logger: Optional[MetricsLogger] = None, devi
         def get_chunk_fn(n):
             if n not in chunk_fns:
                 chunk_fns[n] = make_device_chunk(model_cfg, opt, accum, compute_dtype,
-                                                 cfg.batch_size, n)
+                                                 cfg.batch_size, n, debug_nans=cfg.debug_nans)
             return chunk_fns[n]
 
-    host_rng = np.random.default_rng(cfg.seed)
+    # per-process stream: each rank samples its block of the global batch
+    host_rng = np.random.default_rng(cfg.seed + rank)
+    profiler = StepProfiler(cfg.profile_dir, cfg.profile_start, cfg.profile_steps, device=dev)
     t_start = time.monotonic()
     examples_seen = 0
     first_it = start_iter
     it = start_iter - 1  # `it` = index of the last completed iteration
     while it + 1 < start_iter + cfg.iterations:
         it_start = it + 1
+        profiler.step(it_start - start_iter)
         gumbel_t = temp_sched.get_t(it_start)
-        if spc > 1:
-            # the very first chunk is a single step, so the step-1 loss is
-            # logged as in the host-fed loop
-            cadences = (cfg.log_every, cfg.eval_every, cfg.save_model_every)
-            bounds = [c - it_start % c for c in cadences if c > 0]
-            if cfg.gumbel_anneal:
-                # t is read once per chunk: a chunk spans iters sharing get_t
-                bounds.append(temperature.constant_t_chunk_bound(
-                    it_start, cfg.gumbel_anneal_step_size))
-            n = (min(spc, start_iter + cfg.iterations - it_start, *bounds)
-                 if it_start != first_it else 1)
-            params, opt_state, metrics = get_chunk_fn(n)(params, opt_state, corpus_dev, gen,
-                                                         gumbel_t)
-            it = it_start + n - 1
-        else:
-            idx = host_rng.integers(0, train_x.shape[0], size=(accum, cfg.batch_size))
-            batch = torch.from_numpy(train_x[idx]).to(dev)
-            params, opt_state, metrics = step_fn(params, opt_state, batch, gen, gumbel_t)
-            it = it_start
+        try:
+            if spc > 1:
+                # the very first chunk is a single step, so the step-1 loss is
+                # logged as in the host-fed loop
+                cadences = (cfg.log_every, cfg.eval_every, cfg.save_model_every)
+                bounds = [c - it_start % c for c in cadences if c > 0]
+                if cfg.gumbel_anneal:
+                    # t is read once per chunk: a chunk spans iters sharing get_t
+                    bounds.append(temperature.constant_t_chunk_bound(
+                        it_start, cfg.gumbel_anneal_step_size))
+                n = (min(spc, start_iter + cfg.iterations - it_start, *bounds)
+                     if it_start != first_it else 1)
+                params, opt_state, metrics = get_chunk_fn(n)(params, opt_state, corpus_dev, gen,
+                                                             gumbel_t, index_gen)
+                it = it_start + n - 1
+            else:
+                idx = host_rng.integers(0, train_x.shape[0], size=(accum, local_bs))
+                batch = torch.from_numpy(train_x[idx]).to(dev)
+                params, opt_state, metrics = step_fn(params, opt_state, batch, gen, gumbel_t)
+                it = it_start
+        except FloatingPointError as e:
+            raise FloatingPointError(f"step {it_start + 1}: {e}") from e
         examples_seen += (it - it_start + 1) * accum * cfg.batch_size
 
         if _every(it, cfg.log_every) or it_start == first_it:
-            m = {k: v.float().cpu().numpy() for k, v in metrics.items()}
+            m = {k: v.cpu().numpy() for k, v in _replicated(metrics, "mean").items()}
             embs = m.pop("embs_norm_mean")
             m.update({f"emb_avg_norm_{i}": embs[i] for i in range(len(embs))})
             m["examples_per_s"] = examples_seen / (time.monotonic() - t_start)
@@ -357,18 +388,25 @@ def train(cfg: RqVaeTrainConfig, *, logger: Optional[MetricsLogger] = None, devi
             for eb in range(n_batches):
                 lo = eb * cfg.batch_size
                 # small eval sets wrap modulo the set: near-uniform repeats,
-                # one batch shape
-                rows = np.arange(lo, lo + cfg.batch_size) % n_eval_rows
+                # one batch shape; each rank evaluates its block
+                rows = mesh_lib.host_block(np.arange(lo, lo + cfg.batch_size) % n_eval_rows,
+                                           local_bs)
                 xe = torch.from_numpy(eval_x[rows]).to(dev)
-                losses.append([float(v) for v in eval_fn(params, xe)])
-            ev = np.asarray(losses).mean(axis=0)
-            div = id_diversity_metrics(params, model_cfg, torch.from_numpy(index_x).to(dev))
+                losses.append(torch.stack([v.double() for v in eval_fn(params, xe)]))
+            ev = mesh_lib.all_reduce_([torch.stack(losses)], "mean")[0].mean(dim=0).tolist()
+            # corpus re-tokenization on rank 0 only, as the reference does
+            div = {}
+            if rank == 0:
+                with dispatch.local_execution():
+                    div = id_diversity_metrics(params, model_cfg,
+                                               torch.from_numpy(index_x).to(dev))
             logger.log(it + 1, {"eval_total_loss": ev[0], "eval_reconstruction_loss": ev[1],
                                 "eval_rqvae_loss": ev[2], **div}, force=True)
 
         if _every(it, cfg.save_model_every) or last:
             ckpt_lib.save(cfg.save_dir_root, it, {"params": params, "opt_state": opt_state},
                           meta={"config": config_lib.config_to_dict(cfg)})
+    profiler.close()
     return params
 
 

@@ -132,8 +132,8 @@ def test_sampled_candidates_draw_from_the_seed(trained):
 
 
 def test_refusals(trained, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
-        run_eval.evaluate_checkpoint(dataclasses.replace(trained, mesh_shape=(2, 1)), device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh_shape"):   # a model axis: tensor parallel
+        run_eval.evaluate_checkpoint(dataclasses.replace(trained, mesh_shape=(1, 2)), device="cpu")
     # artifacts without a test split
     shutil.copytree(f"{trained.data_path}/processed_beauty", tmp_path / "processed_beauty")
     (tmp_path / "processed_beauty" / "seqs_test.npz").unlink()
