@@ -200,6 +200,11 @@ weights made from a seed and seeded synthetic data:
      tokenization, export / reload and eval times and one traced 256-user
      eval.
 
+Phases 26-28 (the kernel switch, data parallelism, observability) are
+described at ``_switch_ab``, ``_distributed`` and ``_observability``;
+phase 29 (tensor parallelism: two ranks of this script, ``--tp-worker``,
+share the card over gloo at mesh (1, 2)) at ``_tensor_parallel``.
+
 TF32 is switched off for matmuls and cuDNN, so fp32 work runs in fp32.
 ``RQVAE_TPU_SHORT_FLASH`` is unset for phases 1-19, so they take
 ``attend``'s default routes.
@@ -208,7 +213,8 @@ Prints the nvidia-smi line, a ``{"serving": {...}}`` line, a
 ``{"train": {...}}`` line (the packed step under its ``packed`` key, the
 Amazon decoder under ``amazon``), a ``{"train_rqvae": {...}}`` line, a
 ``{"wide": {...}}`` line (phase 24), an ``{"offline": {...}}`` line (phase
-25), the nvidia-smi line again, a ``{"kernels": [...]}`` line (nine
+25), the ``{"dispatch"}``, ``{"distributed"}``, ``{"observability"}`` and
+``{"tensor_parallel"}`` lines (phases 26-29), the nvidia-smi line again, a ``{"kernels": [...]}`` line (nine
 entries; rq_tokenize's and children_window's also carry phase 25's launches
 as ``offline_launches``) and, last, ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before the last line; so does a machine without
@@ -302,9 +308,10 @@ def check(cond: bool, what: str) -> None:
 def main() -> int:
     import torch
 
-    if sys.argv[1:2] == ["--dp-worker"]:   # a rank of phase 27, started by _dp_launch
+    if sys.argv[1:2] in (["--dp-worker"], ["--tp-worker"]):   # a rank of phase 27 or 29
         globals().update(json.loads(sys.argv[5]))   # the launching run's sizes
-        return _dp_worker(*sys.argv[2:5], sys.argv[6])
+        worker = _dp_worker if sys.argv[1] == "--dp-worker" else _tp_worker
+        return worker(*sys.argv[2:5], sys.argv[6])
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device visible")
         return 1
@@ -511,6 +518,9 @@ def main() -> int:
         distributed = _distributed(dev, rq_ckpt, work)
         torch.cuda.empty_cache()
         observability = _observability(dev, rq_ckpt, work)
+        torch.cuda.empty_cache()
+        # ---- phase 29: tensor parallelism, two ranks on the card over gloo ----
+        tensor_parallel = _tensor_parallel(dev, rq_ckpt, work, smi)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"train_rqvae": train_rqvae}), flush=True)
@@ -519,6 +529,7 @@ def main() -> int:
     print(json.dumps({"dispatch": dispatch_ab}), flush=True)
     print(json.dumps({"distributed": distributed}), flush=True)
     print(json.dumps({"observability": observability}), flush=True)
+    print(json.dumps({"tensor_parallel": tensor_parallel}), flush=True)
     # the card and the kernels once more, last, where a capture of the
     # output's tail keeps them
     print(smi, flush=True)
@@ -3263,19 +3274,24 @@ def _dp_steps(model_cfg, acfg, index, dec_params, rq_params, batch, x, gumbel_t)
 
 
 def _dp_launch(kind: str, work: str, world: int, device, rq_ckpt: str,
-               timeout: int = 420) -> list:
-    """Start ``world`` ranks of this script (``--dp-worker kind``) on
-    ``device`` with torchrun's variables and a free port; wait, stop them
-    all, and return each rank's result."""
+               timeout: int = 420, flag: str = "--dp-worker") -> list:
+    """Start ``world`` ranks of this script (``flag kind``: phase 27's
+    ``--dp-worker``, phase 29's ``--tp-worker``) on ``device`` with
+    torchrun's variables and a free port; wait, stop them all, and return
+    each rank's result."""
     import socket
 
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     procs = [subprocess.Popen(
-        [sys.executable, str(pathlib.Path(__file__).resolve()), "--dp-worker", kind, work,
+        [sys.executable, str(pathlib.Path(__file__).resolve()), flag, kind, work,
          str(device), json.dumps({"N_ITEMS": N_ITEMS, "AMAZON_USERS": AMAZON_USERS,
-                                  "BATCH": BATCH}), rq_ckpt],
+                                  "BATCH": BATCH, "ML_ITEMS": ML_ITEMS, "ML_HIST": ML_HIST,
+                                  "TP_ML_BATCH": TP_ML_BATCH,
+                                  "TP_AMAZON_BATCH": TP_AMAZON_BATCH,
+                                  "TP_AMAZON_ITERS": TP_AMAZON_ITERS,
+                                  "TP_RQ_ITERS": TP_RQ_ITERS}), rq_ckpt],
         env=dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
                  MASTER_ADDR="localhost", MASTER_PORT=str(port)),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
@@ -3291,7 +3307,7 @@ def _dp_launch(kind: str, work: str, world: int, device, rq_ckpt: str,
     for r, (p, out) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
             log(out[-6000:])
-        check(p.returncode == 0, f"phase 27 {kind} rank {r} exited {p.returncode}")
+        check(p.returncode == 0, f"{flag} {kind} rank {r} exited {p.returncode}")
     return [json.load(open(f"{work}/{kind}_r{r}.json")) for r in range(world)]
 
 
@@ -3493,6 +3509,300 @@ def _observability(dev, rq_ckpt, work) -> dict:
                                  batch_at_mean_ms={k: sum(v) / len(v) for k, v in times.items()})
     log(f"phase 28, observability: {out}")
     return out
+
+
+TP_ML_BATCH = 32        # phase 29 (a): gloo stages each activation all_reduce through the host
+TP_AMAZON_BATCH = 64    # phase 29 (b): the Amazon train() batch under two ranks on one card
+TP_AMAZON_ITERS = 20
+TP_RQ_ITERS = 16
+
+
+def _tp_ml32m_inputs(dev):
+    """Phase 29 (a)'s inputs: the ML-32M decoder of ``configs/decoder_ml32m.json``
+    (width 384, 6 heads, 4 + 4 layers, embedding 128, MLP 1024, dropout 0)
+    with random weights from the seed, the ML_ITEMS-item index and a batch
+    of TP_ML_BATCH cropped 200-item histories (801 encoder tokens)."""
+    import numpy as np
+    import torch
+
+    from rqvae_tpu_torch.models import retrieval
+    from rqvae_tpu_torch.train import train_decoder as td
+    from rqvae_tpu_torch.utils import config as config_lib
+
+    root = pathlib.Path(__file__).resolve().parent / "configs"
+    dcfg = config_lib.load_config(td.DecoderTrainConfig, str(root / "decoder_ml32m.json"),
+                                  ["dropout_p=0.0"])
+    cfg = dataclasses.replace(dcfg.retrieval_config(ML_HIST), input_dropout=0.0)
+    rng = np.random.RandomState(SEED)
+    index = _ml32m_index(rng, dev)
+    ids = rng.randint(0, ML_ITEMS, (TP_ML_BATCH, ML_HIST)).astype(np.int32)
+    lengths = _crop_lengths(rng, TP_ML_BATCH, ML_HIST)
+    ids = np.where(np.arange(ML_HIST)[None, :] < lengths[:, None], ids, -1)
+    ids_fut = rng.randint(0, ML_ITEMS, (TP_ML_BATCH, 1)).astype(np.int32)
+    flat = _seq_batch(ids, ids_fut, np.arange(TP_ML_BATCH, dtype=np.int32), dev)
+    flat = type(flat)(*(t[None] for t in flat))
+    params = retrieval.init(torch.Generator().manual_seed(SEED), cfg, device=dev)
+    return cfg, index, flat, params
+
+
+def _tp_ml32m_step(cfg, index, flat, params, dtype, dev):
+    """One ML-32M flat step (gradients captured, no update): (loss, grads,
+    launches, collectives by kind, data collectives)."""
+    from rqvae_tpu_torch.parallel import mesh
+    from rqvae_tpu_torch.parallel import tensor as ttp
+    from rqvae_tpu_torch.train import train_decoder as td
+
+    step = td.make_train_step(cfg, _Grads(), index, 1, dtype, 4)
+    ttp.calls.clear()
+    mesh.collective_calls = 0
+    (_, grads, m), launches = _counted(lambda: step(params, None, flat, None))
+    calls, data_calls = dict(ttp.calls), mesh.collective_calls
+    ms = _wall_ms_on(dev, lambda: step(params, None, flat, None), 3)
+    return float(m["total_loss"]), grads, launches, calls, data_calls, ms
+
+
+def _tp_flash_twins(cfg, index, flat, params, dtype) -> dict:
+    """The flat flash kernels against their twins on this rank's own layer-0
+    encoder operands (its H / m heads), recorded in a rerun of the step;
+    forward and backward errors over the reference's max-abs."""
+    import torch
+
+    from rqvae_tpu_torch.ops import attention as attn_ops
+    from rqvae_tpu_torch.ops import flash_attention as fa
+    from rqvae_tpu_torch.train import train_decoder as td
+
+    seen = []
+    real = attn_ops.flash_attention
+
+    def record(q, k, v, **kw):
+        if not seen:
+            seen.append((q.detach(), k.detach(), v.detach(), kw))
+        return real(q, k, v, **kw)
+
+    real_plain = attn_ops.flash_attention_plain   # the route a CPU rehearsal takes
+
+    def record_plain(q, k, v, **kw):
+        if not seen:
+            seen.append((q.detach(), k.detach(), v.detach(), kw))
+        return real_plain(q, k, v, **kw)
+
+    attn_ops.flash_attention, attn_ops.flash_attention_plain = record, record_plain
+    try:
+        td.make_train_step(cfg, _Grads(), index, 1, dtype, 4)(params, None, flat, None)
+    finally:
+        attn_ops.flash_attention, attn_ops.flash_attention_plain = real, real_plain
+    q, k, v, kw = seen[0]
+    g = torch.randn(q.shape, generator=torch.Generator(device=q.device).manual_seed(SEED),
+                    device=q.device).to(q.dtype)
+    errs = {}
+    outs = []
+    for fn in (fa.flash_attention, fa.flash_attention_plain):
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out = fn(qq, kk, vv, **kw)
+        outs.append([out.detach()] + [t.detach() for t in
+                                      torch.autograd.grad(out, (qq, kk, vv), g)])
+    for name, a, b in zip(("out", "dq", "dk", "dv"), *outs):
+        errs[name] = float((a.float() - b.float()).abs().max()) / max(
+            float(b.float().abs().max()), 1e-12)
+    return dict(heads=int(q.shape[1]), shape=list(q.shape), rel_err=errs)
+
+
+def _tp_configs(rq_ckpt, out, mesh_shape, tensor_parallel: bool):
+    """Phase 29's stage-1 (TP_RQ_ITERS flagship steps) and Amazon decoder
+    (TP_AMAZON_ITERS bf16 steps at batch TP_AMAZON_BATCH, then the eval:
+    one batch of beam search) configs on ``mesh_shape``."""
+    rcfg, dcfg = _dp_configs(rq_ckpt, out, mesh_shape, amp="true",
+                             batch_size=TP_AMAZON_BATCH, iterations=TP_AMAZON_ITERS,
+                             partial_eval_every=TP_AMAZON_ITERS, full_eval_every=TP_AMAZON_ITERS,
+                             save_model_every=TP_AMAZON_ITERS, eval_batches=1)
+    rcfg = dataclasses.replace(rcfg, iterations=TP_RQ_ITERS, eval_every=TP_RQ_ITERS,
+                               save_model_every=TP_RQ_ITERS, tensor_parallel=tensor_parallel)
+    return rcfg, dataclasses.replace(dcfg, tensor_parallel=tensor_parallel)
+
+
+def _tp_loops(rq_ckpt, out, mesh_shape, tensor_parallel: bool, dev) -> dict:
+    """Stage 1 then the Amazon decoder through ``train()`` (the short route
+    on), each counted: (records, launches, host ms a step)."""
+    from rqvae_tpu_torch.parallel import mesh
+    from rqvae_tpu_torch.parallel import tensor as ttp
+    from rqvae_tpu_torch.train import train_decoder as td
+    from rqvae_tpu_torch.train import train_rqvae as tr
+
+    rcfg, dcfg = _tp_configs(rq_ckpt, out, mesh_shape, tensor_parallel)
+    res = {}
+    with _env(RQVAE_TPU_SHORT_FLASH="1"):
+        for name, fn, cfg in (("rq", tr.train, rcfg), ("decoder", td.train, dcfg)):
+            rec = _Records()
+            ttp.calls.clear()
+            mesh.collective_calls = 0
+            params, launches = _counted(lambda: fn(cfg, logger=rec, device=dev))
+            spec = mesh.rqvae_tp_spec if name == "rq" else mesh.retrieval_tp_spec
+            whole = mesh.fetch_to_host(params, spec)   # a collective under TP
+            res[name] = dict(records=rec.records, launches=launches, step_ms=_step_ms(rec.records),
+                             collectives={**ttp.calls, "data": mesh.collective_calls},
+                             params=whole)
+    return res
+
+
+def _tp_worker(kind: str, work: str, device: str, rq_ckpt: str) -> int:
+    """A rank of phase 29 (two ranks sharing the one card over gloo, mesh
+    (1, 2), tensor_parallel): (a) the ML-32M flat step in fp32 and bf16 on
+    the shards, its flash kernels against their twins on the rank's heads;
+    (b, c) stage 1 and the Amazon decoder through ``train()``. Writes
+    ``<work>/<kind>_r<rank>.json`` and ``<work>/<kind>_r<rank>.pt``."""
+    import torch
+
+    from rqvae_tpu_torch.parallel import mesh
+    from rqvae_tpu_torch.parallel import tensor as ttp
+    from rqvae_tpu_torch.utils.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    res = {"world": mesh.maybe_init_distributed(dev, backend="gloo")}
+    res["backend"] = torch.distributed.get_backend()
+    tp_mesh = mesh.make_mesh((1, 2), tensor_parallel=True)
+    rank = mesh.rank()
+    res["mesh"] = dict(data=tp_mesh.data, model=tp_mesh.model, tp=ttp.size(),
+                       model_index=ttp.index())
+    cfg, index, flat, params = _tp_ml32m_inputs(dev)
+    shards = mesh.shard_params(params, mesh.retrieval_tp_spec, cfg.num_heads)
+    saved = {}
+    res["ml32m"] = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        loss, grads, launches, calls, data_calls, ms = _tp_ml32m_step(cfg, index, flat, shards,
+                                                                      dtype, dev)
+        saved[name] = tree_map(lambda t: t.detach().cpu(),
+                               mesh.gather_params(grads, mesh.retrieval_tp_spec))
+        res["ml32m"][name] = dict(loss=loss, launches=launches, collectives=calls,
+                                  data_collectives=data_calls, step_ms=ms,
+                                  twins=_tp_flash_twins(cfg, index, flat, shards, dtype))
+    del shards, params
+    loops = _tp_loops(rq_ckpt, f"{work}/tp_loops", (1, 2), True, dev)
+    for name, entry in loops.items():
+        saved[f"{name}_params"] = entry.pop("params")
+    res["loops"] = loops
+    torch.save(saved, f"{work}/{kind}_r{rank}.pt")
+    with open(f"{work}/{kind}_r{rank}.json", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _tensor_parallel(dev, rq_ckpt, work, smi: str) -> dict:
+    """Phase 29: two ranks share the one card over gloo at mesh (1, 2) with
+    ``tensor_parallel``: (a) the ML-32M flat step at full width (batch cut to
+    TP_ML_BATCH) in fp32 and bf16 against one process on the card (fp32
+    loss 1e-4 relative, gathered leaves 1e-3 of max-abs; bf16 loss 2e-2
+    relative, leaves as ``_bf16_leaves_close`` says), 4 flash forward and 4 backward launches a rank a step on
+    3 of 6 heads, each kernel against its twin on the rank's own operands;
+    (b) the Amazon decoder through ``train()`` (short kernels on 4 of 8
+    heads, ``children_window_mask`` in the beam search); (c) the flagship
+    stage 1 through ``train()``: no ``rq_quantize_train``, ``rq_tokenize`` in
+    rank 0's diversity metrics; (d) both TP checkpoints restore into one
+    process with the ranks' gathered leaves, bit for bit."""
+    import torch
+
+    from rqvae_tpu_torch.train import checkpoint
+    from rqvae_tpu_torch.utils.tree import tree_leaves
+
+    # one process on the card first, so its times are its own
+    cfg, index, flat, params = _tp_ml32m_inputs(dev)
+    one = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        loss, grads, launches, _, _, ms = _tp_ml32m_step(cfg, index, flat, params, dtype, dev)
+        one[name] = dict(loss=loss, grads=grads, launches=launches, step_ms=ms)
+    del params, flat, index
+    torch.cuda.empty_cache()
+    one_loops = _tp_loops(rq_ckpt, f"{work}/one_loops", None, False, dev)
+    torch.cuda.empty_cache()
+
+    ranks = _dp_launch("tp", work, 2, dev, rq_ckpt, flag="--tp-worker")
+    out = dict(card=smi, mesh=[1, 2], ranks=[], one_process={})
+    for name in ("fp32", "bf16"):
+        out["one_process"][f"ml32m_{name}"] = dict(loss=one[name]["loss"],
+                                                   step_ms=one[name]["step_ms"],
+                                                   launches=one[name]["launches"])
+    for name in ("rq", "decoder"):
+        out["one_process"][name] = dict(step_ms=one_loops[name]["step_ms"],
+                                        launches=one_loops[name]["launches"])
+    for r, res in enumerate(ranks):
+        check(res["world"] == 2 and res["backend"] == "gloo" and res["mesh"]["tp"] == 2
+              and res["mesh"]["model_index"] == r, f"phase 29 rank {r}: {res['mesh']}")
+        saved = torch.load(f"{work}/tp_r{r}.pt", weights_only=False)
+        entry = dict(ml32m={}, loops={})
+        for name, rel in (("fp32", 1e-4), ("bf16", 2e-2)):
+            a = res["ml32m"][name]
+            loss_rel = abs(a["loss"] - one[name]["loss"]) / abs(one[name]["loss"])
+            check(loss_rel <= rel, f"phase 29 rank {r} {name} loss {a['loss']} vs "
+                                   f"{one[name]['loss']}")
+            if name == "fp32":
+                leaf = _leaves_close(saved[name], one[name]["grads"], 1e-3,
+                                     f"phase 29 rank {r} fp32 gradients")
+            else:
+                leaf = _bf16_leaves_close(saved[name], one["bf16"]["grads"],
+                                          one["fp32"]["grads"], f"phase 29 rank {r} bf16")
+            check(a["launches"].get("flash_attention_fwd") == 4
+                  and a["launches"].get("flash_attention_bwd") == 4,
+                  f"phase 29 rank {r} {name} launches {a['launches']}")
+            tw = a["twins"]
+            tol = 1e-4 if name == "fp32" else 2e-2
+            check(tw["heads"] == cfg.num_heads // 2 and max(tw["rel_err"].values()) <= tol,
+                  f"phase 29 rank {r} {name} flash vs twin: {tw}")
+            entry["ml32m"][name] = dict(loss_rel=loss_rel, leaf_rel=leaf, step_ms=a["step_ms"],
+                                        launches=a["launches"], collectives=a["collectives"],
+                                        data_collectives=a["data_collectives"], twins=tw)
+        rq, dec = res["loops"]["rq"], res["loops"]["decoder"]
+        check("rq_quantize_train" not in rq["launches"],
+              f"phase 29 rank {r}: rq_quantize_train under TP {rq['launches']}")
+        check(r != 0 or rq["launches"].get("rq_tokenize", 0) > 0,
+              f"phase 29 rank 0: no rq_tokenize in the diversity metrics {rq['launches']}")
+        check(dec["launches"].get("flash_attention_small_fwd", 0) > 0
+              and dec["launches"].get("flash_attention_small_bwd", 0) > 0
+              and dec["launches"].get("children_window_mask", 0) > 0,
+              f"phase 29 rank {r} Amazon launches {dec['launches']}")
+        for name, recs in (("rq", rq["records"]), ("decoder", dec["records"])):
+            losses = [x["total_loss"] for x in recs if "total_loss" in x]
+            check(len(losses) >= 2 and all(math.isfinite(x) for x in losses),
+                  f"phase 29 rank {r} {name} losses {losses}")
+        evals = {k: v for x in dec["records"] for k, v in x.items()
+                 if k.startswith(("h@", "ndcg"))}
+        check(evals and all(0.0 <= v <= 1.0 for v in evals.values()),
+              f"phase 29 rank {r} eval {evals}")
+        for name in ("rq", "decoder"):
+            entry["loops"][name] = dict(step_ms=res["loops"][name]["step_ms"],
+                                        launches=res["loops"][name]["launches"],
+                                        collectives=res["loops"][name]["collectives"])
+        entry["loops"]["decoder"]["eval"] = evals
+        out["ranks"].append(entry)
+
+    # (d) the TP checkpoints restore into one process, equal to the ranks' leaves
+    saved = torch.load(f"{work}/tp_r0.pt", weights_only=False)
+    for name in ("rq", "decoder"):
+        state, _ = checkpoint.restore(f"{work}/tp_loops/{name}", device="cpu")
+        for a, b in zip(tree_leaves(state["params"]), tree_leaves(saved[f"{name}_params"])):
+            check(torch.equal(a, b), f"phase 29 {name} checkpoint leaf differs")
+    out["checkpoints_restore_whole"] = True
+    log(f"phase 29, tensor parallel: {out}")
+    return out
+
+
+def _bf16_leaves_close(got, want, want32, what: str) -> float:
+    """bf16 gradient leaves against one process's bf16 ones: each within 2e-2
+    of the leaf's max-abs, or within twice what bf16 itself moves the leaf
+    on one process (against its fp32 gradients), whichever is larger, since
+    the ranks round their partial products to bf16 before they sum them.
+    Returns the worst error over 2e-2 of the max-abs."""
+    from rqvae_tpu_torch.utils.tree import tree_leaves
+
+    worst = 0.0
+    for a, b, c in zip(tree_leaves(got), tree_leaves(want), tree_leaves(want32)):
+        a, b, c = (t.float().cpu() for t in (a, b, c))
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        own = float((b - c).abs().max())
+        check(err <= max(2e-2 * scale, 2 * own) + 1e-12,
+              f"{what}: a leaf differs by {err} of {scale} (bf16 on one process: {own})")
+        worst = max(worst, err / (2e-2 * scale) if scale else 0.0)
+    return worst
 
 
 if __name__ == "__main__":

@@ -14,9 +14,12 @@ the GPU), and runs the padded-tail beam-search eval of the train loop
 epilogue once a level), printing one JSON line of h@{1,5,10} / NDCG
 metrics. On the GPU unless ``device="cpu"`` is passed; under ``torchrun``
 (``torchrun --nproc_per_node=N -m rqvae_tpu_torch.evaluate.run_eval ...``)
-each rank scores its block of every batch of users and the metrics are
-summed over the ranks, so every rank prints the same line, equal to one
-process's. ``mesh_shape`` may ask for data parallelism only.
+each data replica scores its block of every batch of users and the metrics
+are summed over the data group, so every rank prints the same line, equal to
+one process's. ``mesh_shape`` may hold a model axis: its ranks keep the
+parameters whole and score the same rows, as JAX's ``run_eval`` keeps them
+replicated (``dp_param_shardings``) whatever the config's
+``tensor_parallel``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 
 from rqvae_tpu_torch.data import dataset as dataset_lib
 from rqvae_tpu_torch.data import registry
+from rqvae_tpu_torch.ops import dispatch
 from rqvae_tpu_torch.parallel import mesh as mesh_lib
 from rqvae_tpu_torch.tokenizer import semids
 from rqvae_tpu_torch.train import checkpoint as ckpt_lib
@@ -50,7 +54,6 @@ def evaluate_checkpoint(
     of ``split``, plus ``split``, ``n_users`` and ``checkpoint_step``. The
     candidate noise (when ``generation_candidates`` is below the codebook
     size) draws from a device generator seeded with ``seed``."""
-    mesh_lib.refuse_tensor_parallel(cfg.mesh_shape, cfg.tensor_parallel)
     dev = resolve_device(device)
     mesh_lib.maybe_init_distributed(dev)
     bundle = registry.load(
@@ -66,9 +69,11 @@ def evaluate_checkpoint(
 
     model_cfg = cfg.retrieval_config(bundle.max_seq_len)
     vae_params, vae_cfg = train_decoder.load_frozen_rqvae(cfg, device=dev)
-    index = semids.precompute_corpus_ids(
-        vae_params, vae_cfg,
-        torch.from_numpy(dataset_lib.features_for_model(bundle.items.x, vae_cfg.input_dim)).to(dev))
+    with dispatch.local_execution():   # the whole frozen RQ-VAE on every rank
+        index = semids.precompute_corpus_ids(
+            vae_params, vae_cfg,
+            torch.from_numpy(dataset_lib.features_for_model(bundle.items.x,
+                                                            vae_cfg.input_dim)).to(dev))
     del vae_params
 
     # the params only: an opt_state in the checkpoint is read and dropped
@@ -77,7 +82,7 @@ def evaluate_checkpoint(
     del state
     print(f"---Loaded decoder iter {meta['step']}---", file=sys.stderr)
 
-    mesh_lib.make_mesh(cfg.mesh_shape)
+    mesh_lib.make_mesh(cfg.mesh_shape)   # whole parameters on every rank
     n_users = len(seqs) if max_users is None else min(max_users, len(seqs))
     gen = torch.Generator(device=dev).manual_seed(seed)
     metrics = train_decoder.run_generative_eval(params, model_cfg, index, seqs, bundle.items,

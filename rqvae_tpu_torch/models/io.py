@@ -23,11 +23,13 @@ from typing import Optional, Tuple
 import torch
 
 from rqvae_tpu_torch.models import convert, retrieval, rqvae
+from rqvae_tpu_torch.parallel import mesh as mesh_lib
 from rqvae_tpu_torch.train import checkpoint as ckpt_lib
 from rqvae_tpu_torch.utils import config as config_lib
 from rqvae_tpu_torch.utils.device import resolve_device
-from rqvae_tpu_torch.utils.tree import tree_map, tree_shapes
+from rqvae_tpu_torch.utils.tree import tree_shapes
 
+_SPECS = {"rqvae": mesh_lib.rqvae_tp_spec, "retrieval": mesh_lib.retrieval_tp_spec}
 _KINDS = {
     "rqvae": (rqvae.RqVaeConfig, rqvae.init),
     "retrieval": (retrieval.RetrievalConfig, retrieval.init),
@@ -36,14 +38,16 @@ _KINDS = {
 
 def save_pretrained(path: str, params, cfg) -> str:
     """Write {params, model config, kind} under ``path`` (the step_0 layout);
-    the tensors are stored on the CPU."""
+    the tensors are stored on the CPU, whole: tensor-parallel shards are
+    gathered first (a collective every rank calls), as checkpoints are."""
     kind = next((k for k, (cls, _) in _KINDS.items() if isinstance(cfg, cls)), None)
     if kind is None:
         raise TypeError(f"unsupported config type: {type(cfg)}")
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "model_config.json"), "w") as f:
         json.dump({"kind": kind, "config": config_lib.config_to_dict(cfg)}, f)
-    ckpt_lib.save(path, 0, {"params": tree_map(lambda t: t.detach().cpu(), params)})
+    whole = mesh_lib.fetch_to_host(params, _SPECS[kind])
+    ckpt_lib.save(path, 0, {"params": whole})
     return path
 
 

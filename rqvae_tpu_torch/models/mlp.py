@@ -2,6 +2,13 @@
 
 Params are a list of (in, out) weight matrices; compute dtype follows ``x``.
 In training, dropout follows each SiLU, drawn from the caller's generator.
+
+Under tensor parallelism (``parallel/tensor``) the layers alternate as JAX's
+rules split them: even layers column-parallel (the input copied to the
+model group, the output a slice of the hidden width), odd layers
+row-parallel (a partial product, then one ``all_reduce``); a stack that ends
+on a column layer gathers its output. The MLPs have no bias, so nothing is
+added after a reduce.
 """
 from __future__ import annotations
 
@@ -12,6 +19,7 @@ import torch.nn.functional as F
 
 from rqvae_tpu_torch.models.dropout import dropout as _dropout
 from rqvae_tpu_torch.models.normalize import l2norm
+from rqvae_tpu_torch.parallel import tensor as tp
 from rqvae_tpu_torch.utils import initializers
 from rqvae_tpu_torch.utils.device import resolve_device
 
@@ -36,10 +44,18 @@ def apply(params: List[torch.Tensor], x: torch.Tensor, *, dropout: float = 0.0,
     if x.shape[-1] != in_dim:
         raise ValueError(f"Invalid input dim: expected {in_dim}, found {x.shape[-1]}")
     n = len(params)
+    split = tp.size() > 1
     for i, w in enumerate(params):
+        column = split and i % 2 == 0
+        if column:
+            x = tp.copy_to_model(x)
         x = x @ w.to(x.dtype)
+        if split and not column:
+            x = tp.reduce_from_model(x)
         if i != n - 1:
-            x = _dropout(F.silu(x), dropout, training, generator)
+            x = _dropout(F.silu(x), dropout, training, generator, sharded=column)
+        elif column:
+            x = tp.gather_from_model(x)
     if normalize:
         x = l2norm(x)
     return x

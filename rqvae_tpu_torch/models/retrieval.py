@@ -9,6 +9,14 @@ In training, ``input_dropout`` applies to both normalised streams and the
 transformer's own dropout inside it, all drawn from one ``torch.Generator``.
 ``forward_packed`` is the packed-training forward: several user segments a
 row, attention made segment-local by per-query key spans.
+
+Under tensor parallelism (``parallel/tensor``; JAX's ``tp_param_shardings``)
+the sem-ID lookup is vocab-parallel (``models/embeddings``), ``in_proj`` and
+``in_proj_context`` are column-parallel with their outputs gathered (the
+residual stream and its RMSNorm need whole rows), the transformer runs the
+rank's heads and FFN slice, and ``out_proj`` is row-parallel: the rank's
+features of the whole decoder output times its rows, then one
+``all_reduce`` of the logits. Every entry point below does this.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ from rqvae_tpu_torch.models import embeddings, transformer
 from rqvae_tpu_torch.models.dropout import dropout as _dropout
 from rqvae_tpu_torch.models.normalize import rms_norm, rms_norm_init
 from rqvae_tpu_torch.models.transformer import TransformerConfig
+from rqvae_tpu_torch.parallel import tensor as tp
 from rqvae_tpu_torch.utils import initializers
 from rqvae_tpu_torch.utils.device import resolve_device
 
@@ -77,6 +86,17 @@ def init(gen: torch.Generator, cfg: RetrievalConfig, *, device=None):
     }
 
 
+def _in_proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Column-parallel input projection, output gathered to whole rows."""
+    return tp.gather_from_model(tp.copy_to_model(h) @ w.to(h.dtype))
+
+
+def _logits(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Row-parallel output projection: the rank's features of ``out`` times
+    its rows of ``w``, summed over the model group."""
+    return tp.reduce_from_model(tp.scatter_to_model(out) @ w.to(out.dtype))
+
+
 def embed_context(params, cfg: RetrievalConfig, batch: TokenizedSeqBatch):
     """History stream: [user token, wpe + sem-ID embeddings] and its mask."""
     b, n = batch.sem_ids.shape
@@ -116,8 +136,8 @@ def predict(params, cfg: RetrievalConfig, batch: TokenizedSeqBatch, *, training:
     h_ctx = _dropout(rms_norm(ctx_emb, params["norm"]), cfg.input_dropout, training, generator)
     h_fut = _dropout(rms_norm(fut_emb, params["norm_cxt"]), cfg.input_dropout, training,
                      generator)
-    ctx_in = h_ctx @ params["in_proj_context"].to(h_ctx.dtype)
-    fut_in = h_fut @ params["in_proj"].to(h_fut.dtype)
+    ctx_in = _in_proj(h_ctx, params["in_proj_context"])
+    fut_in = _in_proj(h_fut, params["in_proj"])
     out, context = transformer.apply(params["transformer"], cfg.transformer, fut_in, ctx_in,
                                      ctx_mask, training=training, generator=generator,
                                      cached_context=cached_context)
@@ -138,7 +158,7 @@ def forward(params, cfg: RetrievalConfig, batch: TokenizedSeqBatch, *, training:
     """Training / eval-loss forward: CE summed over the sem-ID tuple, meaned
     over the batch. ``training`` turns dropout on (``generator`` required)."""
     out, _, _ = predict(params, cfg, batch, training=training, generator=generator)
-    logits = (out @ params["out_proj"].to(out.dtype))[:, :-1, :]
+    logits = _logits(out, params["out_proj"])[:, :-1, :]
     unred = cross_entropy_ignore(logits, batch.sem_ids_fut)
     return ModelOutput(loss=torch.mean(torch.sum(unred, dim=1)), logits=logits,
                        loss_d=torch.mean(unred, dim=0))
@@ -240,15 +260,15 @@ def forward_packed(params, cfg: RetrievalConfig, tok, *, training: bool = False,
     h_ctx = _dropout(rms_norm(ctx_emb, params["norm"]), cfg.input_dropout, training, generator)
     h_fut = _dropout(rms_norm(fut_emb, params["norm_cxt"]), cfg.input_dropout, training,
                      generator)
-    ctx_in = h_ctx @ params["in_proj_context"].to(h_ctx.dtype)
-    fut_in = h_fut @ params["in_proj"].to(h_fut.dtype)
+    ctx_in = _in_proj(h_ctx, params["in_proj_context"])
+    fut_in = _in_proj(h_fut, params["in_proj"])
     enc_spans, fut_self_spans, cross_spans = packed_spans(cfg, tok)
     context = transformer.encode(params["transformer"], cfg.transformer, ctx_in, None,
                                  training=training, generator=generator, self_spans=enc_spans)
     out = transformer.decode(params["transformer"], cfg.transformer, fut_in, context, None,
                              training=training, generator=generator,
                              self_spans=fut_self_spans, cross_spans=cross_spans)
-    logits = out @ params["out_proj"].to(out.dtype)               # (R, S*(D+1), K)
+    logits = _logits(out, params["out_proj"])                     # (R, S*(D+1), K)
     r, s, d = tok.sem_ids_fut.shape
     logits = logits.reshape(r, s, d + 1, -1)[:, :, :d]             # predict 0..D-1
     targets = torch.where(tok.slot_valid[:, :, None], tok.sem_ids_fut, -1)
@@ -273,7 +293,7 @@ def encode_for_generation(params, cfg: RetrievalConfig,
     """Run the encoder once and cache cross-attention K/V per decoder block."""
     ctx_emb, ctx_mask = embed_context(params, cfg, batch)
     h_ctx = rms_norm(ctx_emb, params["norm"])
-    ctx_in = h_ctx @ params["in_proj_context"].to(h_ctx.dtype)
+    ctx_in = _in_proj(h_ctx, params["in_proj_context"])
     context = transformer.encode(params["transformer"], cfg.transformer, ctx_in, ctx_mask)
     kv = transformer.cross_kv(params["transformer"], cfg.transformer, context)
     return GenerationCache(kv=tuple(kv), ctx_mask=ctx_mask)
@@ -292,10 +312,10 @@ def forward_generate_cached(params, cfg: RetrievalConfig, cache: GenerationCache
         fut_emb = torch.cat([bos, _fut_embed(params, cfg, sem_ids_fut, token_type_ids_fut)],
                             dim=1)
     h_fut = rms_norm(fut_emb, params["norm_cxt"])
-    fut_in = h_fut @ params["in_proj"].to(h_fut.dtype)
+    fut_in = _in_proj(h_fut, params["in_proj"])
     out = transformer.decode_with_kv(params["transformer"], cfg.transformer, fut_in,
                                      cache.kv, cache.ctx_mask, beams=beams)
-    return out[:, -1, :] @ params["out_proj"].to(out.dtype)
+    return _logits(out[:, -1, :], params["out_proj"])
 
 
 def decode_token_cached(params, cfg: RetrievalConfig, cache: GenerationCache, self_kv,
@@ -310,7 +330,7 @@ def decode_token_cached(params, cfg: RetrievalConfig, cache: GenerationCache, se
         tt = torch.full((n_rows, 1), token_type, dtype=torch.int32, device=token_ids.device)
         emb = _fut_embed(params, cfg, token_ids[:, None], tt)
     h = rms_norm(emb, params["norm_cxt"])
-    x_in = h @ params["in_proj"].to(h.dtype)
+    x_in = _in_proj(h, params["in_proj"])
     out, self_kv = transformer.decode_step_with_kv(params["transformer"], cfg.transformer, x_in,
                                                    self_kv, cache.kv, cache.ctx_mask, beams=beams)
-    return out[:, -1, :] @ params["out_proj"].to(out.dtype), self_kv
+    return _logits(out[:, -1, :], params["out_proj"]), self_kv

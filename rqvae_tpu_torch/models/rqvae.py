@@ -18,6 +18,15 @@ The kernel wrappers run their CUDA kernels on the GPU and their plain twins
 on the CPU, so a GPU run and a CPU run of one config take the same route.
 With ``RQVAE_TPU_DISABLE_PALLAS=1`` (``ops/dispatch``) both quantizer routes
 take the plain per-level loop, as JAX's do.
+
+Under tensor parallelism (``parallel/tensor``; JAX's ``_rqvae_tp_spec``) the
+encoder and decoder MLPs alternate column and row layers (``models/mlp``)
+and each level's codebook is split by rows (``models/quantize``). The fused
+training route is off then, as JAX's ``_fused_shardable`` turns it off: the
+kernel needs the whole (L, K, D) stack, so a TP step launches no
+``rq_quantize_train`` and takes the per-level loop. ``kmeans_prime`` and
+``encode_and_tokenize`` take whole parameters (the callers gather them and
+run these under ``dispatch.local_execution``).
 """
 from __future__ import annotations
 
@@ -153,7 +162,8 @@ def get_semantic_ids(params, cfg: RqVaeConfig, x: torch.Tensor, *, gumbel_t: flo
             and cfg.codebook_mode in (QuantizeForwardMode.STE, QuantizeForwardMode.ROTATION_TRICK)
             and cfg.codebook_size * cfg.embed_dim >= FUSED_TRAIN_MIN_CODEBOOK_VOLUME
             and kernel_width(cfg)
-            and dispatch.kernels_enabled()):
+            and dispatch.kernels_enabled()
+            and dispatch.model_axis_size() == 1):
         return _fused_train_quantize(params, cfg, res)
     embs, residuals, sem_ids = [], [], []
     q_loss = torch.zeros(res.shape[:-1], dtype=res.dtype, device=res.device)
@@ -210,6 +220,13 @@ def forward(params, cfg: RqVaeConfig, x: torch.Tensor, *, gumbel_t: float,
     )
 
 
+def _whole_params(name: str) -> None:
+    if dispatch.model_axis_size() > 1:
+        raise ValueError(f"{name} takes whole parameters: gather them "
+                         "(parallel/mesh.gather_params) and call it under "
+                         "dispatch.local_execution()")
+
+
 def effective_codebooks(params, cfg: RqVaeConfig) -> torch.Tensor:
     """(L, K, D) stack of post-SimVQ / post-norm codebooks."""
     return torch.stack([
@@ -225,7 +242,10 @@ def encode_and_tokenize(params, cfg: RqVaeConfig, x: torch.Tensor) -> torch.Tens
     orders the distance terms as the TPU kernel does). An embedding wider
     than the kernel takes (``kernel_width``) is tokenized by
     ``get_semantic_ids``, as JAX does with Pallas disabled; so does every
-    width when the kernel switch is off (``ops/dispatch``)."""
+    width when the kernel switch is off (``ops/dispatch``). Whole parameters
+    only: under a tensor-parallel mesh it raises (gather them and call it
+    under ``dispatch.local_execution``)."""
+    _whole_params("encode_and_tokenize")
     if not kernel_width(cfg) or not dispatch.kernels_enabled():
         return get_semantic_ids(params, cfg, x).sem_ids
     z = encode(params, cfg, x).float().contiguous()
@@ -238,7 +258,9 @@ def kmeans_prime(params, cfg: RqVaeConfig, x: torch.Tensor, generator: torch.Gen
     """Sequential per-level k-means codebook init on a priming batch: level
     i's k-means runs on the residuals left after level i-1's training-mode
     forward (with its own k-means codebook). Returns new params; k-means and
-    the Gumbel noise draw from ``generator`` in that order."""
+    the Gumbel noise draw from ``generator`` in that order. Whole parameters
+    only (see ``encode_and_tokenize``)."""
+    _whole_params("kmeans_prime")
     with torch.no_grad():
         res = encode(params, cfg, x)
         layers = list(params["layers"])

@@ -8,6 +8,15 @@ Fused qkv projection for self-attention, separate q / kv for cross; no bias.
 In training (``training=True`` with a ``torch.Generator``) dropout applies
 where the JAX package puts it: after ``attn_norm``, after
 ``cross_attn_norm``, inside the FFN and after the FFN.
+
+Under tensor parallelism (``parallel/tensor``) each rank holds its heads'
+columns of ``wqkv`` / ``wq`` / ``wkv`` and their rows of ``proj``: every
+entry point computes H / m heads (the attention kernels see only those, and
+the generation caches hold only those), copies the whole input of each
+column-parallel projection to the model group and all-reduces each
+row-parallel output, the FFN likewise (``models/mlp``). The decoder's
+context is copied once for all its cross-attention blocks. Heads that do not
+divide over the model axis raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ from rqvae_tpu_torch.models import mlp
 from rqvae_tpu_torch.models.dropout import dropout as _dropout
 from rqvae_tpu_torch.models.normalize import rms_norm, rms_norm_init
 from rqvae_tpu_torch.ops import attention as attn_ops
+from rqvae_tpu_torch.parallel import tensor as tp
 from rqvae_tpu_torch.utils import initializers
 from rqvae_tpu_torch.utils.device import resolve_device
 
@@ -67,23 +77,31 @@ def init(gen: torch.Generator, cfg: TransformerConfig, *, device=None):
     }
 
 
+def _out_proj(p, out, dtype):
+    """The row-parallel output projection of the local heads, reduced."""
+    return tp.reduce_from_model(attn_ops.merge_heads(out) @ p["proj"].to(dtype))
+
+
 def _self_attention(p, x, num_heads, *, causal, k_mask, q_spans=None):
-    q, k, v = torch.chunk(x @ p["wqkv"].to(x.dtype), 3, dim=-1)
+    heads = tp.local_heads(num_heads)
+    q, k, v = torch.chunk(tp.copy_to_model(x) @ p["wqkv"].to(x.dtype), 3, dim=-1)
     out = attn_ops.attend(
-        attn_ops.split_heads(q, num_heads), attn_ops.split_heads(k, num_heads),
-        attn_ops.split_heads(v, num_heads), causal=causal, k_mask=k_mask, q_spans=q_spans,
+        attn_ops.split_heads(q, heads), attn_ops.split_heads(k, heads),
+        attn_ops.split_heads(v, heads), causal=causal, k_mask=k_mask, q_spans=q_spans,
     )
-    return attn_ops.merge_heads(out) @ p["proj"].to(x.dtype)
+    return _out_proj(p, out, x.dtype)
 
 
 def _cross_attention(p, x, context, num_heads, *, k_mask, q_spans=None):
-    q = x @ p["wq"].to(x.dtype)
+    """``context`` is already copied to the model group (``decode``)."""
+    heads = tp.local_heads(num_heads)
+    q = tp.copy_to_model(x) @ p["wq"].to(x.dtype)
     k, v = torch.chunk(context @ p["wkv"].to(x.dtype), 2, dim=-1)
     out = attn_ops.attend(
-        attn_ops.split_heads(q, num_heads), attn_ops.split_heads(k, num_heads),
-        attn_ops.split_heads(v, num_heads), causal=False, k_mask=k_mask, q_spans=q_spans,
+        attn_ops.split_heads(q, heads), attn_ops.split_heads(k, heads),
+        attn_ops.split_heads(v, heads), causal=False, k_mask=k_mask, q_spans=q_spans,
     )
-    return attn_ops.merge_heads(out) @ p["proj"].to(x.dtype)
+    return _out_proj(p, out, x.dtype)
 
 
 def _block_apply(p, cfg: TransformerConfig, x, *, causal: bool, self_k_mask=None,
@@ -125,6 +143,7 @@ def decode(params, cfg: TransformerConfig, x: torch.Tensor, context: torch.Tenso
     training passes ``self_spans`` (causality within a segment as hi = own
     position + 1) and ``cross_spans`` (the segment's encoder window) in place
     of plain causality and the key mask."""
+    context = tp.copy_to_model(context)
     for block in params["decoder"]:
         x = _block_apply(block, cfg, x, causal=self_spans is None, context=context,
                          cross_k_mask=None if cross_spans is not None else context_mask,
@@ -148,13 +167,14 @@ def apply(params, cfg: TransformerConfig, x, context_in, context_mask, *,
 
 
 def cross_kv(params, cfg: TransformerConfig, context: torch.Tensor):
-    """Every decoder block's cross-attention (k, v), each (B, Nc, H, Dh),
-    computed once from the encoder output: the generation loop's cache."""
+    """Every decoder block's cross-attention (k, v), each (B, Nc, H, Dh)
+    (H / m local heads under tensor parallelism), computed once from the
+    encoder output: the generation loop's cache."""
+    heads = tp.local_heads(cfg.num_heads)
     out = []
     for block in params["decoder"]:
         k, v = torch.chunk(context @ block["cross_attn"]["wkv"].to(context.dtype), 2, dim=-1)
-        out.append((attn_ops.split_heads(k, cfg.num_heads),
-                    attn_ops.split_heads(v, cfg.num_heads)))
+        out.append((attn_ops.split_heads(k, heads), attn_ops.split_heads(v, heads)))
     return out
 
 
@@ -172,9 +192,10 @@ def _unfold_beams(x: torch.Tensor, beams: int) -> torch.Tensor:
 
 def _cross_from_cache(block, hc, ck, cv, context_mask, num_heads, beams, dtype):
     p = block["cross_attn"]
-    qf = _fold_beams(attn_ops.split_heads(hc @ p["wq"].to(hc.dtype), num_heads), beams)
+    heads = tp.local_heads(num_heads)
+    qf = _fold_beams(attn_ops.split_heads(hc @ p["wq"].to(hc.dtype), heads), beams)
     of = attn_ops.attend(qf, ck, cv, causal=False, k_mask=context_mask)
-    return attn_ops.merge_heads(_unfold_beams(of, beams)) @ p["proj"].to(dtype)
+    return _out_proj(p, _unfold_beams(of, beams), dtype)
 
 
 def decode_with_kv(params, cfg: TransformerConfig, x: torch.Tensor, kv,
@@ -195,15 +216,17 @@ def decode_step_with_kv(params, cfg: TransformerConfig, x_new: torch.Tensor, sel
     """Single-token decoder step with a growing self-attention KV cache.
 
     ``x_new`` (B*beams, 1, d_model) is the newest token; ``self_kv`` is None
-    (first token) or per block (k, v), each (B*beams, T, H, Dh). The newest
-    position attends every cached one, so causality needs no mask.
+    (first token) or per block (k, v), each (B*beams, T, H, Dh) (H / m
+    local heads under tensor parallelism). The newest position attends every
+    cached one, so causality needs no mask.
     Returns (x_out, new self_kv with T+1 entries)."""
     x = x_new
     new_kv = []
+    heads = tp.local_heads(cfg.num_heads)
     for li, (block, (ck, cv)) in enumerate(zip(params["decoder"], kv)):
         h = rms_norm(x, block["attn_norm"])
         p = block["attn"]
-        q1, k1, v1 = (attn_ops.split_heads(t, cfg.num_heads)
+        q1, k1, v1 = (attn_ops.split_heads(t, heads)
                       for t in torch.chunk(h @ p["wqkv"].to(h.dtype), 3, dim=-1))
         if self_kv is None:
             k_full, v_full = k1, v1
@@ -212,8 +235,7 @@ def decode_step_with_kv(params, cfg: TransformerConfig, x_new: torch.Tensor, sel
             k_full = torch.cat([pk, k1], dim=1)
             v_full = torch.cat([pv, v1], dim=1)
         new_kv.append((k_full, v_full))
-        sa = attn_ops.merge_heads(attn_ops.attend(q1, k_full, v_full, causal=False))
-        attn_out = x + sa @ p["proj"].to(x.dtype)
+        attn_out = x + _out_proj(p, attn_ops.attend(q1, k_full, v_full, causal=False), x.dtype)
         hc = rms_norm(x, block["cross_attn_norm"])  # quirk: block input x
         attn_out = attn_out + _cross_from_cache(block, hc, ck, cv, context_mask,
                                                 cfg.num_heads, beams, x.dtype)

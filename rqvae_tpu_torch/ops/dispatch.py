@@ -1,4 +1,4 @@
-"""The kernel switch and the data-parallel mesh registry (counterpart of
+"""The kernel switch and the mesh registry (counterpart of
 rqvae_tpu/ops/dispatch.py).
 
 ``kernels_enabled()`` reads ``RQVAE_TPU_DISABLE_PALLAS`` at each call, the
@@ -18,14 +18,19 @@ set, on the CPU and on CUDA alike, and no kernel and no twin is called:
 The switch is explicit and read where the route is taken, so a process can
 time a step on both routes in turns; it is never a quiet fallback.
 
-The mesh registry holds the data-parallel mesh that
-``parallel/mesh.make_mesh`` registers. ``local_execution`` clears it for a
-process-local computation (rank 0's diversity metrics): inside it the data
-collectives of ``parallel/mesh`` are identities.
+The mesh registry holds the (data, model) mesh that
+``parallel/mesh.make_mesh`` registers. ``model_axis_size`` reads it: the
+number of shards the parameters are split into, which the models divide
+their heads, codebook rows and MLP widths by (``parallel/tensor``).
+``local_execution`` clears it for a process-local computation on whole
+parameters (rank 0's diversity metrics, corpus tokenization, k-means
+priming): inside it every collective of ``parallel/mesh`` and
+``parallel/tensor`` is an identity.
 
 No counterpart:
 * ``shard_over_batch``: the port runs one process per GPU, so a kernel only
-  ever sees its own rank's rows and needs no wrapper;
+  ever sees its own rank's rows and, under tensor parallelism, its own
+  heads (the column-parallel projections hand it H / m of them): no wrapper;
 * ``RQVAE_TPU_FORCE_PALLAS``: the port's kernels run only on the card, and on
   the CPU the port already runs the kernels' twins.
 """
@@ -46,7 +51,7 @@ def kernels_enabled() -> bool:
 
 
 def set_execution_mesh(mesh) -> None:
-    """Register (or clear, with None) the data-parallel mesh."""
+    """Register (or clear, with None) the mesh."""
     global _EXECUTION_MESH
     _EXECUTION_MESH = mesh
 
@@ -57,8 +62,8 @@ def execution_mesh():
 
 @contextlib.contextmanager
 def local_execution():
-    """Clear the registered mesh for a process-local computation; the data
-    collectives are identities inside."""
+    """Clear the registered mesh for a process-local computation on whole
+    parameters; every collective is an identity inside."""
     global _EXECUTION_MESH
     saved = _EXECUTION_MESH
     _EXECUTION_MESH = None
@@ -80,5 +85,7 @@ def divisible_over_data(n: int, heads=None) -> bool:
 
 
 def model_axis_size() -> int:
+    """The shards the registered mesh splits the parameters into: its model
+    axis under ``tensor_parallel``, else 1 (1 with no mesh)."""
     mesh = _EXECUTION_MESH
-    return mesh.model if mesh is not None else 1
+    return mesh.tp if mesh is not None else 1

@@ -7,16 +7,20 @@ Layout: ``<root>/step_<N>/`` holds ``state.pt`` (``torch.save`` of
 to a temporary name and moved into place with ``os.replace``, and ``DONE``
 comes last, so ``latest_step`` never picks a half-written step.
 
-Under data parallelism (``parallel/mesh``) only rank 0 writes; every rank
-waits at a barrier before ``save`` returns and before ``restore`` reads, and
-every rank restores. With no data mesh the barriers are identities.
+Under a mesh of several ranks (``parallel/mesh``) only rank 0 writes; every
+rank waits at a barrier before ``save`` returns and before ``restore`` reads,
+and every rank restores. With one rank the barriers are identities. A
+checkpoint always holds the whole layout: under tensor parallelism ``save``
+gathers the shards of the params and the Adam moments over the model group
+first (``spec_fn``; a collective every rank calls), and the loops shard what
+``restore`` returns, so a checkpoint restores into any mesh.
 """
 from __future__ import annotations
 
 import json
 import os
 import re
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -63,9 +67,14 @@ def _write_text(path: str, text: str) -> None:
     _write_atomic(path, write)
 
 
-def save(root: str, step: int, state: Any, meta: Optional[dict] = None) -> str:
+def save(root: str, step: int, state: Any, meta: Optional[dict] = None,
+         spec_fn: Optional[Callable] = None) -> str:
     """``state``: e.g. ``{"params": ..., "opt_state": AdamWState}``; written
-    by rank 0, every rank returns after it is on disk."""
+    by rank 0, every rank returns after it is on disk. ``spec_fn`` (a
+    ``parallel/mesh`` layout) gathers tensor-parallel shards to the whole
+    layout first."""
+    if spec_fn is not None:
+        state = mesh_lib.gather_state(state, spec_fn)
     path = _step_dir(root, step)
     if mesh_lib.rank() == 0:
         os.makedirs(path, exist_ok=True)

@@ -36,12 +36,19 @@ and constrained-beam-search hit rates (``run_generative_eval``) every
 resume point. With ``push_vae_to_hf`` it exports the frozen RQ-VAE to
 ``<save_dir_root>/rqvae_export`` (``models/io.save_pretrained``) and pushes
 it to the hub (rank 0) before the first step. Under ``torchrun`` it runs
-data-parallel (``parallel/mesh``: each rank samples its block of the global
-batch, gradients all-reduced once a step, reduced metrics, rank-0
-checkpoints); ``profile_dir`` traces a step window (``utils/profiling``),
-``metrics_sink="tensorboard"`` adds an event stream and ``debug_nans``
-raises ``FloatingPointError`` at the first non-finite step. Tensor
-parallelism raises (``_check_supported``).
+over a (data, model) mesh (``parallel/mesh``, ``mesh_shape``; default all
+ranks on ``data``): each data replica samples its block of the global batch
+and draws its dropout from a generator seeded by its data coordinate,
+gradients are all-reduced once a step over the data group, metrics are
+reduced over it, and rank 0 writes the checkpoints. With
+``tensor_parallel=True`` and a model axis above 1 the parameters and their
+Adam moments are split by JAX's Megatron rules (``mesh.retrieval_tp_spec``)
+after init or restore, every step and eval runs on the shards
+(``parallel/tensor``), and checkpoints are gathered to the whole layout, so
+they restore into any mesh. ``profile_dir`` traces a step window
+(``utils/profiling``), ``metrics_sink="tensorboard"`` adds an event stream
+and ``debug_nans`` raises ``FloatingPointError`` at the first non-finite
+step.
 """
 from __future__ import annotations
 
@@ -64,6 +71,7 @@ from rqvae_tpu_torch.models import generation, retrieval
 from rqvae_tpu_torch.models import rqvae as rqvae_lib
 from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
 from rqvae_tpu_torch.models.retrieval import RetrievalConfig
+from rqvae_tpu_torch.ops import dispatch
 from rqvae_tpu_torch.parallel import mesh as mesh_lib
 from rqvae_tpu_torch.tokenizer import semids
 from rqvae_tpu_torch.train import checkpoint as ckpt_lib
@@ -132,8 +140,8 @@ class DecoderTrainConfig:
     generation_top_k: int = 32
     generation_candidates: int = 200
     generation_temperature: float = 1.0
-    mesh_shape: Optional[Tuple[int, ...]] = None   # (data, 1): a model axis raises
-    tensor_parallel: bool = False                  # not ported: raises
+    mesh_shape: Optional[Tuple[int, ...]] = None   # (data, model); default (world, 1)
+    tensor_parallel: bool = False                  # split the params over 'model'
     synthetic_n_items: int = 2048
     synthetic_n_users: int = 2048
     data_path: Optional[str] = None
@@ -380,9 +388,11 @@ def run_generative_eval(params, model_cfg: RetrievalConfig, index: semids.Corpus
     ``seqs``: batches of ``cfg.batch_size`` rows, the last padded with copies
     of the final row (one batch shape, as in JAX) whose counts are masked
     out; hit rates reduced on the host (``TopKAccumulator``). Under data
-    parallelism each rank searches its block of every batch
+    parallelism each replica searches its block of every batch
     (``mesh.host_block``) and the hit counts and row totals are summed over
-    the ranks before the rates, so every rank reports the same metrics.
+    the data group before the rates, so every rank reports the same metrics;
+    under tensor parallelism a model group searches its block together, on
+    its shards.
     ``generator`` draws the candidate noise when ``generation_candidates`` is
     below the codebook size (None is enough for the exhaustive branch)."""
     dev = index.cached_ids.device
@@ -409,10 +419,6 @@ def run_generative_eval(params, model_cfg: RetrievalConfig, index: semids.Corpus
     return acc.reduce()
 
 
-def _check_supported(cfg: DecoderTrainConfig) -> None:
-    mesh_lib.refuse_tensor_parallel(cfg.mesh_shape, cfg.tensor_parallel)
-
-
 def _replicated(metrics: dict, op: str) -> dict:
     """The step's metrics reduced over the data replicas (one collective;
     none on one device), so every rank logs the same values."""
@@ -422,9 +428,9 @@ def _replicated(metrics: dict, op: str) -> dict:
 
 def train(cfg: DecoderTrainConfig, *, logger: Optional[MetricsLogger] = None, device=None):
     """Stage-2 training on ``device`` (cuda unless told otherwise; under
-    ``torchrun``, this rank's GPU), data-parallel over the process group
-    ``torchrun`` describes; returns the trained params."""
-    _check_supported(cfg)
+    ``torchrun``, this rank's GPU), over the (data, model) mesh of the
+    process group ``torchrun`` describes; returns the trained params (the
+    rank's shards under tensor parallelism)."""
     dev = resolve_device(device)
     mesh_lib.maybe_init_distributed(dev)
     logger = logger or MetricsLogger(every=cfg.log_every, sink=cfg.metrics_sink,
@@ -442,13 +448,15 @@ def train(cfg: DecoderTrainConfig, *, logger: Optional[MetricsLogger] = None, de
     sem_dim = model_cfg.sem_id_dim
     items_x = bundle.items.x
 
-    mesh_lib.make_mesh(cfg.mesh_shape)
+    mesh_lib.make_mesh(cfg.mesh_shape, cfg.tensor_parallel)
     rank = mesh_lib.rank()
+    data_index = mesh_lib.data_index()
     local_bs = mesh_lib.process_local_batch_size(cfg.batch_size)
     vae_params, vae_cfg = load_frozen_rqvae(cfg, device=dev)
-    index = semids.precompute_corpus_ids(
-        vae_params, vae_cfg,
-        torch.from_numpy(dataset_lib.features_for_model(items_x, vae_cfg.input_dim)).to(dev))
+    with dispatch.local_execution():   # the whole frozen RQ-VAE on every rank
+        index = semids.precompute_corpus_ids(
+            vae_params, vae_cfg,
+            torch.from_numpy(dataset_lib.features_for_model(items_x, vae_cfg.input_dim)).to(dev))
     if cfg.push_vae_to_hf and rank == 0:
         from rqvae_tpu_torch.models import io as model_io
 
@@ -476,6 +484,11 @@ def train(cfg: DecoderTrainConfig, *, logger: Optional[MetricsLogger] = None, de
         params, opt_state = state["params"], state["opt_state"]
         start_iter = meta["step"] + 1
     mesh_lib.broadcast_(tree_leaves(params))
+    # the rank's shards of the whole tree (itself without tensor parallelism)
+    state = mesh_lib.shard_state({"params": params, "opt_state": opt_state},
+                                 mesh_lib.retrieval_tp_spec, model_cfg.num_heads)
+    params, opt_state = state["params"], state["opt_state"]
+    del state
 
     accum = max(1, cfg.gradient_accumulate_every)
     bs = cfg.batch_size
@@ -508,11 +521,11 @@ def train(cfg: DecoderTrainConfig, *, logger: Optional[MetricsLogger] = None, de
         return out.loss
 
     eval_fns = make_generative_eval_fns(model_cfg, index, cfg, (1, 5, 10))
-    # per-process streams: each rank samples its block of the global batch
-    # and draws its own dropout
-    host_rng = np.random.default_rng(cfg.seed + rank)
+    # per-replica streams: each data replica samples its block of the global
+    # batch and draws its own dropout; a model group's ranks draw alike
+    host_rng = np.random.default_rng(cfg.seed + data_index)
     # one device generator: dropout in the steps, candidate noise in the evals
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1 + rank)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1 + data_index)
     seq_batch = lambda raw: dataset_lib.make_seq_batch(raw, items_x, with_features=False)  # noqa: E731
     if use_packing:
         packer = packing_lib.SequencePacker(
@@ -598,7 +611,8 @@ def train(cfg: DecoderTrainConfig, *, logger: Optional[MetricsLogger] = None, de
 
         if _every(it, cfg.save_model_every) or last:
             ckpt_lib.save(cfg.save_dir_root, it, {"params": params, "opt_state": opt_state},
-                          meta={"config": config_lib.config_to_dict(cfg)})
+                          meta={"config": config_lib.config_to_dict(cfg)},
+                          spec_fn=mesh_lib.retrieval_tp_spec)
     profiler.close()
     return params
 

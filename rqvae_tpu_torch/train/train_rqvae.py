@@ -23,12 +23,17 @@ Mixed precision is the JAX package's: fp32 master params and AdamW state,
 ``amp.cast_floating(params, bf16)`` inside the differentiated loss, fp32
 loss islands. Parameters and the optimizer state are updated in place.
 
-Under ``torchrun`` ``train`` runs data-parallel (``parallel/mesh``: host
-batches from ``default_rng(seed + rank)``, the device chunk's global indices
-drawn alike on every rank and split by columns, gradients all-reduced once a
-step, reduced metrics, rank 0's diversity metrics and checkpoints);
-``profile_dir``, the TensorBoard sink and ``debug_nans`` work as in the
-decoder loop. Tensor parallelism raises.
+Under ``torchrun`` ``train`` runs over a (data, model) mesh
+(``parallel/mesh``): host batches from ``default_rng(seed + data
+coordinate)``, the device chunk's global indices drawn alike on every rank
+and split by columns between the data replicas, gradients all-reduced once a
+step over the data group, reduced metrics, rank 0's diversity metrics and
+checkpoints. With ``tensor_parallel=True`` and a model axis above 1 the
+codebooks and MLPs are split by JAX's rules (``mesh.rqvae_tp_spec``) after
+k-means priming, which runs on the whole parameters; the steps take the
+per-level loop (no ``rq_quantize_train``), the diversity metrics run on
+gathered parameters and checkpoints hold the whole layout. ``profile_dir``,
+the TensorBoard sink and ``debug_nans`` work as in the decoder loop.
 """
 from __future__ import annotations
 
@@ -108,8 +113,9 @@ class RqVaeTrainConfig:
     # drawn there, and this many optimizer steps run per call; 1 = the
     # host-fed loop (numpy sampling, one step per call)
     steps_per_call: int = 8
-    mesh_shape: Optional[Tuple[int, ...]] = None   # (data, 1): a model axis raises
-    tensor_parallel: bool = False                  # not ported: raises
+    mesh_shape: Optional[Tuple[int, ...]] = None   # (data, model); default (world, 1)
+    # shard codebooks + enc/dec MLPs over the mesh 'model' axis
+    tensor_parallel: bool = False
     synthetic_n_items: int = 2048
     synthetic_n_users: int = 2048
     profile_dir: Optional[str] = None
@@ -202,15 +208,16 @@ def make_device_chunk(model_cfg: rqvae_lib.RqVaeConfig, opt, accum: int,
     the device from ``corpus`` (N, D). The global (accum, ``batch_size``)
     indices come from ``index_generator`` (default ``generator``; generators
     on the corpus's device), and each data replica takes its block of
-    columns (JAX's ``P(None, 'data', None)``), so under data parallelism
-    ``index_generator`` must be seeded alike on every rank; ``generator``
-    draws the Gumbel noise. Metrics are the chunk's means, still on the
-    device."""
+    columns (JAX's ``P(None, 'data', None)``; a model group's ranks take
+    the same), so under data parallelism ``index_generator`` must be seeded
+    alike on every rank; ``generator`` draws the Gumbel noise. Metrics are
+    the chunk's means, still on the device."""
     base = make_train_step(model_cfg, opt, accum, compute_dtype, debug_nans=debug_nans)
 
     def chunk(params, opt_state, corpus, generator, gumbel_t, index_generator=None):
         local = mesh_lib.process_local_batch_size(batch_size)
-        cols = slice(mesh_lib.rank() * local, (mesh_lib.rank() + 1) * local)
+        i = mesh_lib.data_index()
+        cols = slice(i * local, (i + 1) * local)
         ms = []
         for _ in range(n_steps):
             idx = torch.randint(0, corpus.shape[0], (accum, batch_size), device=corpus.device,
@@ -252,15 +259,11 @@ def id_diversity_metrics(params, model_cfg: rqvae_lib.RqVaeConfig, corpus_x: tor
     return out
 
 
-def _check_supported(cfg: RqVaeTrainConfig) -> None:
-    mesh_lib.refuse_tensor_parallel(cfg.mesh_shape, cfg.tensor_parallel)
-
-
 def train(cfg: RqVaeTrainConfig, *, logger: Optional[MetricsLogger] = None, device=None):
     """Stage-1 training on ``device`` (cuda unless told otherwise; under
-    ``torchrun``, this rank's GPU), data-parallel over the process group
-    ``torchrun`` describes; returns the trained params."""
-    _check_supported(cfg)
+    ``torchrun``, this rank's GPU), over the (data, model) mesh of the
+    process group ``torchrun`` describes; returns the trained params (the
+    rank's shards under tensor parallelism)."""
     dev = resolve_device(device)
     mesh_lib.maybe_init_distributed(dev)
     logger = logger or MetricsLogger(every=cfg.log_every, sink=cfg.metrics_sink,
@@ -282,8 +285,9 @@ def train(cfg: RqVaeTrainConfig, *, logger: Optional[MetricsLogger] = None, devi
     eval_x = _slice(items.filtered("eval")) if cfg.do_eval else None
     index_x = _slice(items.filtered("all"))
 
-    mesh_lib.make_mesh(cfg.mesh_shape)
+    mesh_lib.make_mesh(cfg.mesh_shape, cfg.tensor_parallel)
     rank = mesh_lib.rank()
+    data_index = mesh_lib.data_index()
     local_bs = mesh_lib.process_local_batch_size(cfg.batch_size)
     params = rqvae_lib.init(torch.Generator().manual_seed(cfg.seed), model_cfg, device=dev)
     opt = optim.adamw(cfg.learning_rate, cfg.weight_decay)
@@ -300,17 +304,24 @@ def train(cfg: RqVaeTrainConfig, *, logger: Optional[MetricsLogger] = None, devi
         print(f"---Loaded RQVAE Iter {meta['step']}---", file=sys.stderr)
     mesh_lib.broadcast_(tree_leaves(params))
 
-    # a device generator for k-means and the Gumbel noise (this rank's); the
-    # chunks' global batch indices come from one seeded alike on every rank
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1 + rank)
+    # a device generator for k-means and the Gumbel noise (this data
+    # replica's, alike across a model group); the chunks' global batch
+    # indices come from one seeded alike on every rank
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1 + data_index)
     index_gen = (torch.Generator(device=dev).manual_seed(cfg.seed + 1)
                  if mesh_lib.data_parallel() else None)
     if start_iter == 0 and cfg.use_kmeans_init:
         n_prime = min(cfg.kmeans_prime_items, train_x.shape[0])
-        params = rqvae_lib.kmeans_prime(params, model_cfg,
-                                        torch.from_numpy(train_x[:n_prime]).to(dev), gen,
-                                        gumbel_t=cfg.gumbel_temperature)
+        with dispatch.local_execution():   # on the whole parameters
+            params = rqvae_lib.kmeans_prime(params, model_cfg,
+                                            torch.from_numpy(train_x[:n_prime]).to(dev), gen,
+                                            gumbel_t=cfg.gumbel_temperature)
         mesh_lib.broadcast_(tree_leaves(params))
+    # the rank's shards of the whole tree (itself without tensor parallelism)
+    state = mesh_lib.shard_state({"params": params, "opt_state": opt_state},
+                                 mesh_lib.rqvae_tp_spec)
+    params, opt_state = state["params"], state["opt_state"]
+    del state
 
     accum = max(1, cfg.gradient_accumulate_every)
     step_fn = make_train_step(model_cfg, opt, accum, compute_dtype, debug_nans=cfg.debug_nans)
@@ -336,8 +347,8 @@ def train(cfg: RqVaeTrainConfig, *, logger: Optional[MetricsLogger] = None, devi
                                                  cfg.batch_size, n, debug_nans=cfg.debug_nans)
             return chunk_fns[n]
 
-    # per-process stream: each rank samples its block of the global batch
-    host_rng = np.random.default_rng(cfg.seed + rank)
+    # per-replica stream: each data replica samples its block of the global batch
+    host_rng = np.random.default_rng(cfg.seed + data_index)
     profiler = StepProfiler(cfg.profile_dir, cfg.profile_start, cfg.profile_steps, device=dev)
     t_start = time.monotonic()
     examples_seen = 0
@@ -394,18 +405,22 @@ def train(cfg: RqVaeTrainConfig, *, logger: Optional[MetricsLogger] = None, devi
                 xe = torch.from_numpy(eval_x[rows]).to(dev)
                 losses.append(torch.stack([v.double() for v in eval_fn(params, xe)]))
             ev = mesh_lib.all_reduce_([torch.stack(losses)], "mean")[0].mean(dim=0).tolist()
-            # corpus re-tokenization on rank 0 only, as the reference does
+            # corpus re-tokenization on rank 0 only, as the reference does,
+            # on the whole parameters (the gather is a collective)
+            whole = mesh_lib.gather_params(params, mesh_lib.rqvae_tp_spec)
             div = {}
             if rank == 0:
                 with dispatch.local_execution():
-                    div = id_diversity_metrics(params, model_cfg,
+                    div = id_diversity_metrics(whole, model_cfg,
                                                torch.from_numpy(index_x).to(dev))
+            del whole
             logger.log(it + 1, {"eval_total_loss": ev[0], "eval_reconstruction_loss": ev[1],
                                 "eval_rqvae_loss": ev[2], **div}, force=True)
 
         if _every(it, cfg.save_model_every) or last:
             ckpt_lib.save(cfg.save_dir_root, it, {"params": params, "opt_state": opt_state},
-                          meta={"config": config_lib.config_to_dict(cfg)})
+                          meta={"config": config_lib.config_to_dict(cfg)},
+                          spec_fn=mesh_lib.rqvae_tp_spec)
     profiler.close()
     return params
 

@@ -9,7 +9,8 @@ process over the whole batch.
   ``rtol=1e-5, atol=1e-6`` (JAX's ``tests/test_sharding.py`` tolerance),
   losses ``rtol=1e-5``;
 * ``maybe_init_distributed`` from the environment alone, ``make_mesh``
-  refusing a model axis and a shape that does not cover the world;
+  taking a model axis (tensor parallelism: test_torch_tensor_parallel.py)
+  and refusing a shape that does not cover the world;
 * ``train()`` of both stages with ``mesh_shape=(2, 1)``: replicated metrics
   equal across the ranks to ``rtol=1e-6``, checkpoints written by rank 0
   only, ``rqvae_entropy`` logged by rank 0 only (JAX's
@@ -162,11 +163,12 @@ def _worker_steps(out_dir: pathlib.Path):
     res = {"world": world, "again": mesh.maybe_init_distributed("cpu"),
            "backend": torch.distributed.get_backend(),
            "rank_sum": None, "refusals": []}
-    for shape, err in (((1, 2), NotImplementedError), ((4, 1), ValueError)):
-        try:
-            mesh.make_mesh(shape)
-        except err as e:
-            res["refusals"].append(str(e))
+    tp = mesh.make_mesh((1, 2), tensor_parallel=True)   # a model axis: tensor parallelism
+    res["tp_mesh"] = (tp.data, tp.model, tp.tp, tp.model_index, mesh.dispatch.model_axis_size())
+    try:
+        mesh.make_mesh((4, 1))
+    except ValueError as e:
+        res["refusals"].append(str(e))
     mesh.make_mesh((WORLD, 1))
     res["rank_sum"] = float(mesh.all_reduce_([torch.tensor([float(r + 1)])], "sum")[0])
     half = GLOBAL_ROWS // WORLD
@@ -268,7 +270,8 @@ def test_init_from_the_environment_and_mesh_refusals(step_runs):
     for res in ranks:
         assert res["world"] == res["again"] == WORLD and res["backend"] == "gloo"
         assert res["rank_sum"] == 3.0
-        assert "tensor_parallel" in res["refusals"][0] and "(4, 1)" in res["refusals"][1]
+        assert res["tp_mesh"][:3] == (1, 2, 2) and res["tp_mesh"][4] == 2
+        assert len(res["refusals"]) == 1 and "(4, 1)" in res["refusals"][0]
         assert res["local_collectives"] == 0     # identities under local_execution
 
 

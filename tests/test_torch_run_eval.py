@@ -132,8 +132,11 @@ def test_sampled_candidates_draw_from_the_seed(trained):
 
 
 def test_refusals(trained, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="mesh_shape"):   # a model axis: tensor parallel
-        run_eval.evaluate_checkpoint(dataclasses.replace(trained, mesh_shape=(1, 2)), device="cpu")
+    # a model axis is accepted (the parameters stay whole), but (1, 2) does
+    # not cover a world of one; a model axis over ranks: test_torch_tensor_parallel.py
+    with pytest.raises(ValueError, match=r"mesh_shape \(1, 2\) does not cover"):
+        run_eval.evaluate_checkpoint(dataclasses.replace(trained, mesh_shape=(1, 2),
+                                                         tensor_parallel=True), device="cpu")
     # artifacts without a test split
     shutil.copytree(f"{trained.data_path}/processed_beauty", tmp_path / "processed_beauty")
     (tmp_path / "processed_beauty" / "seqs_test.npz").unlink()

@@ -238,11 +238,26 @@ UNPORTED = {"mesh_shape": (1, 2), "tensor_parallel": True}   # tensor parallelis
 
 
 @pytest.mark.parametrize("field", sorted(UNPORTED))
-def test_train_refuses_unported_options(field, tmp_path):
-    cfg = dataclasses.replace(ttd.DecoderTrainConfig(dataset=treg.RecDataset.SYNTHETIC),
+def test_train_refuses_unported_options(field, stage1_ckpt, tmp_path):
+    """Tensor parallelism is ported: ``tensor_parallel=True`` in a world of
+    one runs (a model axis of 1: one process, the losses of the default
+    run); ``mesh_shape=(1, 2)`` does not cover a world of one and raises
+    ``ValueError``. Two- and four-rank runs: test_torch_tensor_parallel.py."""
+    rq_path, _ = stage1_ckpt
+    cfg = dataclasses.replace(_decoder_cfg(tmp_path, rq_path, iterations=2, log_every=1,
+                                           partial_eval_every=0, full_eval_every=0),
                               **{field: UNPORTED[field]})
-    with pytest.raises(NotImplementedError, match=field):
-        ttd.train(cfg, device="cpu")
+    if field == "mesh_shape":
+        with pytest.raises(ValueError, match=r"\(1, 2\) does not cover the 1 processes"):
+            ttd.train(cfg, device="cpu")
+        return
+    logs = [CaptureLogger(), CaptureLogger()]
+    ttd.train(cfg, logger=logs[0], device="cpu")
+    ttd.train(dataclasses.replace(cfg, tensor_parallel=False,
+                                  save_dir_root=str(tmp_path / "plain")), logger=logs[1],
+              device="cpu")
+    losses = [[r["total_loss"] for r in log.records if "total_loss" in r] for log in logs]
+    assert len(losses[0]) == 2 and losses[0] == losses[1]
 
 
 @pytest.mark.parametrize("path", sorted((REPO / "configs").glob("decoder_*.json")),

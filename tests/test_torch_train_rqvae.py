@@ -233,8 +233,17 @@ def test_train_runs_evals_saves_and_resumes(tmp_path, spc):
 
 
 def test_train_refuses_unported_options_and_datasets(tmp_path):
-    with pytest.raises(NotImplementedError, match="tensor_parallel"):
-        ttr.train(_train_cfg(tmp_path, 4, tensor_parallel=True), device="cpu")
+    # tensor parallelism is ported: a world of one runs it on a model axis of
+    # 1 (the default run's losses) and refuses a mesh it does not cover
+    logs = [CaptureLogger(), CaptureLogger()]
+    ttr.train(_train_cfg(tmp_path, 4, tensor_parallel=True, iterations=4), logger=logs[0],
+              device="cpu")
+    ttr.train(_train_cfg(tmp_path, 4, iterations=4, save_dir_root=str(tmp_path / "plain")),
+              logger=logs[1], device="cpu")
+    losses = [[r["total_loss"] for r in log.records if "total_loss" in r] for log in logs]
+    assert losses[0] and losses[0] == losses[1]
+    with pytest.raises(ValueError, match="does not cover the 1 processes"):
+        ttr.train(_train_cfg(tmp_path, 4, mesh_shape=(1, 2)), device="cpu")
     # the Amazon loader reads preprocessed artifacts, which this directory lacks
     with pytest.raises(FileNotFoundError, match="processed_beauty"):
         ttr.train(_train_cfg(tmp_path, 4, dataset="AMAZON", dataset_folder=str(tmp_path)),
