@@ -78,8 +78,9 @@ weights made from a seed and seeded synthetic data:
  13. rq_quantize_train against its twin on the stretch step's and the
      flagship step's own encoder output and codebooks (ids equal off
      near-ties, values to 1e-5), its gradients (STE and rotation trick)
-     against the plain per-level ``quantize.apply`` chain to 1e-4 of each
-     leaf's max-abs; rq_tokenize against its twin at 4 x 2048 x 64 on the
+     against the plain per-level ``quantize.apply`` chain, each level's value
+     set to its codeword as the fused route's is, to 1e-4 of each leaf's
+     max-abs (the gap to the chain as it is, logged); rq_tokenize against its twin at 4 x 2048 x 64 on the
      corpus chunks the diversity metrics tokenized (their own ids) and on the
      step's rows; both quantizer kernels at ten odd shapes (B = 1, ragged
      rows and code blocks, L = 1, D = 3, 4, 16 and 128, D = 128 just under
@@ -90,9 +91,9 @@ weights made from a seed and seeded synthetic data:
      (what the CPU tests emulate) at every shape, each plan resident on the
      card;
  14. two fp32 stage-1 steps at the Amazon widths, batch 64, GPU against CPU,
-     through both quantizer routes (``FUSED_TRAIN_MIN_CODEBOOK_VOLUME``
-     forced to 0 and to infinity): loss to 1e-5 relative, gradient leaves to
-     1e-4 of their max-abs;
+     each from the card's state, through both quantizer routes
+     (``FUSED_TRAIN_MIN_CODEBOOK_VOLUME`` forced to 0 and to infinity): loss
+     to 1e-5 relative, gradient leaves to 1e-4 of their max-abs;
  15. both quantizer kernels timed at both shapes (rq_quantize_train at the
      flagship's B = 64 x 3 x 256 x 32 and the stretch's 1024 x 4 x 2048 x 64,
      rq_tokenize at 4,096 rows of each stack): CUDA events, profiler device
@@ -205,6 +206,17 @@ described at ``_switch_ab``, ``_distributed`` and ``_observability``;
 phase 29 (tensor parallelism: two ranks of this script, ``--tp-worker``,
 share the card over gloo at mesh (1, 2)) at ``_tensor_parallel``.
 
+Phases 30-33 run the shipped MovieLens configs through the entry points, on
+raw fixtures of MovieLens' shape written from the seed and preprocessed by
+``movielens.process`` (``_movielens_data``: ML-32M cut to a tenth of its
+users and ratings, ML-1M whole). Phase 31 (``_ml_stage1``:
+``configs/rqvae_ml32m.json`` and ``rqvae_ml1m.json`` through
+``train_rqvae.train``) runs first, because its ML-32M RQ-VAE feeds phase 30
+(``_tp4``: ML-32M's 6 heads on four ranks at mesh (1, 4), whole on every
+rank), phase 32 (``_ml_decoder``: ``configs/decoder_ml32m.json`` as
+shipped through ``train_decoder.train``) and phase 33 (``_ml_branches``:
+``train()``'s packed and accumulating branches).
+
 TF32 is switched off for matmuls and cuDNN, so fp32 work runs in fp32.
 ``RQVAE_TPU_SHORT_FLASH`` is unset for phases 1-19, so they take
 ``attend``'s default routes.
@@ -214,9 +226,12 @@ Prints the nvidia-smi line, a ``{"serving": {...}}`` line, a
 Amazon decoder under ``amazon``), a ``{"train_rqvae": {...}}`` line, a
 ``{"wide": {...}}`` line (phase 24), an ``{"offline": {...}}`` line (phase
 25), the ``{"dispatch"}``, ``{"distributed"}``, ``{"observability"}`` and
-``{"tensor_parallel"}`` lines (phases 26-29), the nvidia-smi line again, a ``{"kernels": [...]}`` line (nine
-entries; rq_tokenize's and children_window's also carry phase 25's launches
-as ``offline_launches``) and, last, ``{"ok": true, "device": {...}}``.
+``{"tensor_parallel"}`` lines (phases 26-29), a ``{"movielens": {...}}``
+line (phases 30-33), the nvidia-smi line again, a ``{"kernels": [...]}``
+line (nine entries; rq_tokenize's and children_window's also carry phase
+25's launches as ``offline_launches``; phases 30, 31 and 33's shapes are
+added to the entries' ``at_shapes``) and, last, ``{"ok": true, "device":
+{...}}``.
 Any failure exits non-zero before the last line; so does a machine without
 a GPU. Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -521,6 +536,28 @@ def main() -> int:
         torch.cuda.empty_cache()
         # ---- phase 29: tensor parallelism, two ranks on the card over gloo ----
         tensor_parallel = _tensor_parallel(dev, rq_ckpt, work, smi)
+        torch.cuda.empty_cache()
+        # ---- phases 30-33: the shipped MovieLens configs through the entry
+        # points; phase 31 runs first, since its ML-32M RQ-VAE feeds the others ----
+        roots = {}
+        roots["ml32m"], roots["ml1m"], ml_data = _movielens_data(work)
+        ml_stage1, rq32_ckpt, rq_shapes = _ml_stage1(dev, work, roots)
+        torch.cuda.empty_cache()
+        tp4 = _tp4(dev, work, roots, rq32_ckpt, smi)
+        torch.cuda.empty_cache()
+        ml_decoder = _ml_decoder(dev, work, roots, rq32_ckpt)
+        torch.cuda.empty_cache()
+        ml_branches, span_shape = _ml_branches(dev, work, roots, rq32_ckpt)
+    movielens = dict(data=ml_data, tp_1x4=tp4, stage1=ml_stage1, decoder_ml32m=ml_decoder,
+                     branches=ml_branches)
+    by_name = {e["name"]: e for e in kernels}
+    for name, shapes in rq_shapes.items():
+        by_name[name]["at_shapes"].update(shapes)
+    for d in ("fwd", "bwd"):   # the whole heads of one rank at (1, 4)
+        by_name[f"flash_attention_{d}"].setdefault("at_shapes", {})["ml32m_tp1x4_rank0"] = {
+            dt: tp4["ranks"][0]["ml32m"][dt]["twins"] for dt in ("fp32", "bf16")}
+        by_name[f"flash_attention_spans_{d}"].setdefault("at_shapes", {})[
+            "ml32m_packed_train_layer0"] = span_shape
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"train_rqvae": train_rqvae}), flush=True)
@@ -530,6 +567,7 @@ def main() -> int:
     print(json.dumps({"distributed": distributed}), flush=True)
     print(json.dumps({"observability": observability}), flush=True)
     print(json.dumps({"tensor_parallel": tensor_parallel}), flush=True)
+    print(json.dumps({"movielens": movielens}), flush=True)
     # the card and the kernels once more, last, where a capture of the
     # output's tail keeps them
     print(smi, flush=True)
@@ -1366,7 +1404,7 @@ def _stage1(dev, work):
     from rqvae_tpu_torch.train import train_rqvae as tr
     from rqvae_tpu_torch.utils import config as config_lib
     from rqvae_tpu_torch.utils.logging import MetricsLogger
-    from rqvae_tpu_torch.utils.tree import tree_leaves, tree_map
+    from rqvae_tpu_torch.utils.tree import tree_map
 
     n_chunks = math.ceil(N_ITEMS / 4096)  # precompute_corpus_ids' chunks
 
@@ -1530,7 +1568,17 @@ def _stage1(dev, work):
         """rq_quantize_train on the card against its twin (ids equal off
         near-ties, values to 1e-5) and its gradients (STE and rotation
         trick) against the plain per-level quantize.apply chain (1e-4 of
-        each leaf's max-abs), on the rows without a near-tie."""
+        each leaf's max-abs), on the rows without a near-tie.
+
+        The fused route's value of a level is its codeword, as the JAX
+        kernel's is; the chain's rotation-trick value is the codeword times
+        |res| / (|res| + 1e-6), the scale's eps. Every later residual, and so
+        every later level's codebook gradient 2 (emb - res), moves by ~1e-6
+        in norm, which at a trained model's small deep residuals is some
+        1e-4 of the leaf's max-abs. So the chain held against the route sets
+        each level's value to its codeword (``x + sg(codeword - x)`` on the
+        estimator's output: its gradients unchanged); the gap to the chain
+        as it is is logged as ``model_chain_gap``."""
         with torch.no_grad():
             k_out = qk.rq_quantize_train(xs, cbs, "ROTATION_TRICK", 0.25)
             p_out = qk.rq_quantize_train_plain(xs, cbs, commitment_weight=0.25)
@@ -1556,21 +1604,29 @@ def _stage1(dev, work):
             xa, ca = xs[keep].clone().requires_grad_(True), cbs.clone().requires_grad_(True)
             o = qk.rq_quantize_train(xa, ca, mode, 0.25)
             got = torch.autograd.grad(readout(o.embeddings, o.quantize_loss), (xa, ca))
-            xb, cb_ = xs[keep].clone().requires_grad_(True), cbs.clone().requires_grad_(True)
-            res, embs, q_loss = xb, [], 0.0
-            for level in range(cbs.shape[0]):
-                q = quantize.apply({"codebook": cb_[level]}, res,
-                                   mode=quantize.QuantizeForwardMode[mode], commitment_weight=0.25,
-                                   training=True)
-                q_loss = q_loss + q.loss
-                res = res - q.embeddings
-                embs.append(q.embeddings)
-            want = torch.autograd.grad(readout(torch.stack(embs, dim=-1), q_loss), (xb, cb_))
-            row = {}
-            for name, a, b in (("x", got[0], want[0]), ("codebooks", got[1], want[1])):
+            want = {}
+            for snap in (True, False):
+                xb, cb_ = xs[keep].clone().requires_grad_(True), cbs.clone().requires_grad_(True)
+                res, embs, q_loss = xb, [], 0.0
+                for level in range(cbs.shape[0]):
+                    q = quantize.apply({"codebook": cb_[level]}, res,
+                                       mode=quantize.QuantizeForwardMode[mode],
+                                       commitment_weight=0.25, training=True)
+                    q_loss = q_loss + q.loss
+                    out = q.embeddings
+                    if snap:
+                        out = out + (cb_[level][q.ids.long()] - out).detach()
+                    res = res - out
+                    embs.append(out)
+                want[snap] = torch.autograd.grad(readout(torch.stack(embs, dim=-1), q_loss),
+                                                 (xb, cb_))
+            row = {"model_chain_gap": {}}
+            for i, name in enumerate(("x", "codebooks")):
+                a, b, c = got[i], want[True][i], want[False][i]
                 e, scale = float((a - b).abs().max()), float(b.abs().max())
                 check(e <= 1e-4 * scale, f"rq_quantize_train {mode} d{name} ({label}): {e} of {scale}")
                 row[name] = e / scale
+                row["model_chain_gap"][name] = float((a - c).abs().max()) / float(c.abs().max())
             grads[mode] = row
         held = dict(rows=int(xs.shape[0]), id_rows_differ=int(differ.sum()),
                     near_tie_rows=int(near.sum()), max_abs_err=err, grad_err_over_max_abs=grads)
@@ -1691,41 +1747,39 @@ def _stage1(dev, work):
         check(rows.shape[0] == n, f"only {rows.shape[0]} rows without a near-tie")
         return rows
 
-    class Recording:
-        """AdamW that keeps a copy of every gradient it applies."""
-
-        def __init__(self, opt):
-            self.opt, self.grads = opt, []
-
-        def update(self, params, state, grads):
-            self.grads.append(tree_leaves(tree_map(lambda g: g.detach().to(cpu, copy=True), grads)))
-            return self.opt.update(params, state, grads)
-
     gpu_cpu = {}
     default_volume = rqvae.FUSED_TRAIN_MIN_CODEBOOK_VOLUME
+    opt = optim.adamw(5e-4, 0.01)
     for route, volume in (("plain", float("inf")), ("fused", 0)):
         rqvae.FUSED_TRAIN_MIN_CODEBOOK_VOLUME = volume
         try:
-            runs, batches = [], []
-            for device in (dev, cpu):
-                p = tree_map(lambda t: t.detach().to(device, copy=True), flag_params)
-                opt_r = Recording(optim.adamw(5e-4, 0.01))
-                state = opt_r.opt.init(p)
-                step = tr.make_train_step(acfg, opt_r, 1, torch.float32)
-                step_losses = []
-                for i in range(2):
-                    if device == dev:
-                        batches.append(clean_rows(p, pool[128 * i:128 * (i + 1)]))
-                    p, state, m = step(p, state, batches[i].to(device)[None], None, 0.2)
-                    step_losses.append(float(m["total_loss"]))
-                runs.append((step_losses, opt_r.grads))
+            # both devices take each step from the card's state: AdamW's
+            # first update is near lr * sign(g), so a last-bit gradient
+            # difference in a leaf's near-zero entries would move the CPU's
+            # next start by ~lr there, and its next gradients far more than
+            # one step's rounding does
+            p = tree_map(lambda t: t.detach().to(dev, copy=True), flag_params)
+            state = opt.init(p)
+            lg, lc, gg, gc = [], [], [], []
+            for i in range(2):
+                batch = clean_rows(p, pool[128 * i:128 * (i + 1)])
+                to_cpu = lambda tree: tree_map(lambda t: t.to(cpu, copy=True), tree)  # noqa: E731
+                on_cpu = (to_cpu(p), state._replace(mu=to_cpu(state.mu), nu=to_cpu(state.nu)))
+                for where, start, losses, grads in ((dev, (p, state), lg, gg),
+                                                    (cpu, on_cpu, lc, gc)):
+                    opt_r = _Recorded(opt)
+                    step = tr.make_train_step(acfg, opt_r, 1, torch.float32)
+                    q, s, m = step(*start, batch.to(where)[None], None, 0.2)
+                    losses.append(float(m["total_loss"]))
+                    grads.append(opt_r.grads[0])
+                    if start[0] is p:
+                        p, state = q, s
         finally:
             rqvae.FUSED_TRAIN_MIN_CODEBOOK_VOLUME = default_volume
-        (lg, gg), (lc, gc) = runs
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
         leaf_rel = 0.0
         for step_g, step_c in zip(gg, gc):
-            for a, b in zip(step_g, step_c):
+            for (_, a), (_, b) in zip(step_g, step_c):
                 err, scale = float((a - b).abs().max()), float(b.abs().max())
                 check(err <= 1e-4 * scale + 1e-12, f"{route}: GPU vs CPU leaf {err} of {scale}")
                 leaf_rel = max(leaf_rel, err / scale if scale else 0.0)
@@ -2336,6 +2390,109 @@ def _write_beauty_raw(root: str, seed: int) -> int:
     return int(lengths.sum())
 
 
+ML_GENRES = ("Action", "Adventure", "Animation", "Children", "Comedy", "Crime", "Documentary",
+             "Drama", "Fantasy", "Film-Noir", "Horror", "IMAX", "Musical", "Mystery", "Romance",
+             "Sci-Fi", "Thriller", "War", "Western")
+
+
+def _ml_titles_genres(rng, n: int, names=ML_GENRES, none_share: float = 0.01):
+    """MovieLens-style titles ("Title (year)", a comma in some) and genre
+    strings (1-4 of ``names`` joined by "|"; "(no genres listed)" in
+    ``none_share`` of them, as ML-32M has and ML-1M has not)."""
+    titles = [f"Movie {i}{', The' if i % 11 == 0 else ''} ({1900 + int(y)})"
+              for i, y in enumerate(rng.randint(0, 124, n))]
+    genres = []
+    for k in rng.randint(1, 5, n):
+        if rng.rand() < none_share:
+            genres.append("(no genres listed)")
+        else:
+            pick = sorted(rng.choice(len(names), k, replace=False))
+            genres.append("|".join(names[j] for j in pick))
+    return titles, genres
+
+
+def _ml_histories(rng, n_users: int, n_ratings: int, n_movies: int, *, distinct: bool):
+    """Per-user rating counts (at least 20, as GroupLens requires; log-normal,
+    scaled to ``n_ratings`` in all), movies by a Zipf-like popularity (each
+    user's distinct when ``distinct``) and increasing timestamps. Returns
+    (users, movie indices, ratings, timestamps), user-major."""
+    import numpy as np
+
+    raw = rng.lognormal(np.log(75.0), 1.1, n_users)
+    lengths = 20 + np.floor(raw / raw.sum() * (n_ratings - 20 * n_users)).astype(np.int64)
+    cap = n_movies * 3 // 5 if distinct else n_ratings   # ML-1M's longest user: 2,314 of 3,883
+    lengths = np.minimum(lengths, cap)
+    while int(lengths.sum()) < n_ratings:
+        room = np.flatnonzero(lengths < cap)
+        lengths[rng.choice(room, min(n_ratings - int(lengths.sum()), room.size),
+                           replace=False)] += 1
+    pop = 1.0 / np.arange(1, n_movies + 1) ** 0.9
+    pop = pop[rng.permutation(n_movies)]
+    pop /= pop.sum()
+    if distinct:
+        movies = np.concatenate([rng.choice(n_movies, n, replace=False, p=pop) for n in lengths])
+    else:
+        movies = rng.choice(n_movies, int(lengths.sum()), p=pop)
+    users = np.repeat(np.arange(1, n_users + 1), lengths)
+    start = np.repeat(rng.randint(789_652_009, 1_690_000_000, n_users), lengths)
+    steps = rng.exponential(3600.0, int(lengths.sum())).astype(np.int64) + 1
+    first = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    csum = np.cumsum(steps)
+    ts = start + csum - np.repeat(csum[first] - steps[first], lengths)
+    stars = rng.randint(1, 11, int(lengths.sum())) / 2.0
+    return users, movies, stars, ts, lengths
+
+
+def _write_ml32m_raw(root: str, seed: int, n_movies: int, n_users: int, n_ratings: int) -> dict:
+    """A raw MovieLens 32M of the real one's shape under ``<root>/raw``:
+    ``movies.csv`` (movieId,title,genres; sparse ids) and ``ratings.csv``
+    (userId,movieId,rating,timestamp; half-star ratings, every user at least
+    20, log-normal history lengths with a long tail, Zipf-like movie
+    popularity). The full file holds 87,585 movies, 200,948 users and
+    32,000,204 ratings; the caller passes the cut it runs at."""
+    import numpy as np
+    import pandas as pd
+
+    rng = np.random.RandomState(seed)
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw)
+    ids = np.sort(rng.choice(np.arange(1, 292_758), n_movies, replace=False))
+    titles, genres = _ml_titles_genres(rng, n_movies)
+    pd.DataFrame({"movieId": ids, "title": titles, "genres": genres}).to_csv(
+        os.path.join(raw, "movies.csv"), index=False)
+    users, movies, stars, ts, lengths = _ml_histories(rng, n_users, n_ratings, n_movies,
+                                                      distinct=False)
+    pd.DataFrame({"userId": users, "movieId": ids[movies], "rating": stars,
+                  "timestamp": ts}).to_csv(os.path.join(raw, "ratings.csv"), index=False)
+    return dict(movies=n_movies, users=n_users, ratings=int(lengths.sum()),
+                ratings_per_user_p50=float(np.median(lengths)),
+                users_over_200=int((lengths > 200).sum()))
+
+
+def _write_ml1m_raw(root: str, seed: int, n_movies: int = 3883, n_users: int = 6040,
+                    n_ratings: int = 1_000_209) -> dict:
+    """A raw MovieLens 1M of the real one's shape (3,883 movies, 6,040 users,
+    1,000,209 ratings by default) under ``<root>/raw``: ``movies.dat``
+    (MovieID::Title::Genres) and ``ratings.dat``
+    (UserID::MovieID::Rating::Timestamp, whole stars), ISO-8859-1, every
+    user at least 20 distinct movies."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw)
+    titles, genres = _ml_titles_genres(rng, n_movies, [g for g in ML_GENRES if g != "IMAX"], 0.0)
+    with open(os.path.join(raw, "movies.dat"), "w", encoding="ISO-8859-1") as f:
+        f.writelines(f"{i}::{t}::{g}\n" for i, (t, g) in enumerate(zip(titles, genres), start=1))
+    users, movies, stars, ts, lengths = _ml_histories(rng, n_users, n_ratings, n_movies,
+                                                      distinct=True)
+    stars = np.ceil(stars).astype(np.int64)
+    with open(os.path.join(raw, "ratings.dat"), "w", encoding="ISO-8859-1") as f:
+        f.writelines(f"{u}::{m + 1}::{r}::{t}\n" for u, m, r, t in zip(
+            users.tolist(), movies.tolist(), stars.tolist(), ts.tolist()))
+    return dict(movies=n_movies, users=n_users, ratings=int(lengths.sum()))
+
+
 def _offline(dev, rq_ckpt, work) -> dict:
     """Phase 25: the offline path users run around training, at the Amazon
     Beauty width, with attend's default routes (the short switch unset):
@@ -2923,6 +3080,41 @@ class _Grads:
         return grads
 
 
+def _grads_close(got, want, rel: float, what: str) -> dict:
+    """Gradient leaves of two runs ((path, tensor) lists) within ``rel`` of
+    each leaf's max-abs, the scale floored at 1e-2 of the largest leaf's
+    max-abs: a leaf whose gradients nearly cancel (max-abs ~1e-6 beside
+    leaves of ~1e-3) sums terms of the tree's size, and its fp32 rounding
+    follows them. Returns the worst ratio and its leaf."""
+    top = max(float(b.abs().max()) for _, b in want)
+    worst = {"rel_err": 0.0, "leaf": None}
+    for (path, a), (_, b) in zip(got, want):
+        err = float((a.float().cpu() - b.float().cpu()).abs().max())
+        scale = max(float(b.abs().max()), 1e-2 * top)
+        check(err <= rel * scale + 1e-12, f"{what}: leaf {path} differs by {err} of {scale} "
+                                          f"(its max-abs {float(b.abs().max())})")
+        if scale and err / scale > worst["rel_err"]:
+            worst = {"rel_err": err / scale, "leaf": str(path)}
+    return worst
+
+
+class _Recorded:
+    """An optimizer that applies ``opt`` and keeps a host copy of every
+    gradient it is given (phases 31-33)."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, []
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, params, state, grads):
+        from rqvae_tpu_torch.utils.tree import tree_leaves_with_path
+
+        self.grads.append([(p, g.detach().cpu().clone()) for p, g in tree_leaves_with_path(grads)])
+        return self.opt.update(params, state, grads)
+
+
 def _amazon_inputs(dev, rq_ckpt, work):
     """The flagship's RQ-VAE and the Amazon decoder's last checkpoint (phase
     20's), the 12,101-item corpus, 256 users' cropped 20-item histories and
@@ -3274,11 +3466,11 @@ def _dp_steps(model_cfg, acfg, index, dec_params, rq_params, batch, x, gumbel_t)
 
 
 def _dp_launch(kind: str, work: str, world: int, device, rq_ckpt: str,
-               timeout: int = 420, flag: str = "--dp-worker") -> list:
+               timeout: int = 420, flag: str = "--dp-worker", extra: dict = None) -> list:
     """Start ``world`` ranks of this script (``flag kind``: phase 27's
-    ``--dp-worker``, phase 29's ``--tp-worker``) on ``device`` with
-    torchrun's variables and a free port; wait, stop them all, and return
-    each rank's result."""
+    ``--dp-worker``, phases 29 and 30's ``--tp-worker``) on ``device`` with
+    torchrun's variables and a free port (``extra`` joins the sizes they
+    read); wait, stop them all, and return each rank's result."""
     import socket
 
     with socket.socket() as s:
@@ -3291,7 +3483,9 @@ def _dp_launch(kind: str, work: str, world: int, device, rq_ckpt: str,
                                   "TP_ML_BATCH": TP_ML_BATCH,
                                   "TP_AMAZON_BATCH": TP_AMAZON_BATCH,
                                   "TP_AMAZON_ITERS": TP_AMAZON_ITERS,
-                                  "TP_RQ_ITERS": TP_RQ_ITERS}), rq_ckpt],
+                                  "TP_RQ_ITERS": TP_RQ_ITERS, "TP4_ITERS": TP4_ITERS,
+                                  "ML_DEC_EXTRA": list(ML_DEC_EXTRA),
+                                  **(extra or {})}), rq_ckpt],
         env=dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
                  MASTER_ADDR="localhost", MASTER_PORT=str(port)),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
@@ -3637,7 +3831,8 @@ def _tp_loops(rq_ckpt, out, mesh_shape, tensor_parallel: bool, dev) -> dict:
             mesh.collective_calls = 0
             params, launches = _counted(lambda: fn(cfg, logger=rec, device=dev))
             spec = mesh.rqvae_tp_spec if name == "rq" else mesh.retrieval_tp_spec
-            whole = mesh.fetch_to_host(params, spec)   # a collective under TP
+            heads = None if name == "rq" else cfg.attn_heads
+            whole = mesh.fetch_to_host(params, spec, heads)   # a collective under TP
             res[name] = dict(records=rec.records, launches=launches, step_ms=_step_ms(rec.records),
                              collectives={**ttp.calls, "data": mesh.collective_calls},
                              params=whole)
@@ -3645,10 +3840,14 @@ def _tp_loops(rq_ckpt, out, mesh_shape, tensor_parallel: bool, dev) -> dict:
 
 
 def _tp_worker(kind: str, work: str, device: str, rq_ckpt: str) -> int:
-    """A rank of phase 29 (two ranks sharing the one card over gloo, mesh
-    (1, 2), tensor_parallel): (a) the ML-32M flat step in fp32 and bf16 on
-    the shards, its flash kernels against their twins on the rank's heads;
-    (b, c) stage 1 and the Amazon decoder through ``train()``. Writes
+    """A rank of phase 29 (``tp``: two ranks sharing the one card over gloo,
+    mesh (1, 2), tensor_parallel) or phase 30 (``tp4``: four ranks, mesh
+    (1, 4), where ML-32M's 6 heads stay whole on every rank): (a) the ML-32M
+    flat step in fp32 and bf16 on the shards, its flash kernels against
+    their twins on the rank's heads; then phase 29's stage 1 and Amazon
+    decoder through ``train()`` (b, c), or phase 30's
+    ``configs/decoder_ml32m.json`` through ``train()`` on the ML-32M
+    artifacts at ``ML_DATA`` over the RQ-VAE at ``rq_ckpt`` (b). Writes
     ``<work>/<kind>_r<rank>.json`` and ``<work>/<kind>_r<rank>.pt``."""
     import torch
 
@@ -3661,7 +3860,7 @@ def _tp_worker(kind: str, work: str, device: str, rq_ckpt: str) -> int:
     dev = torch.device(device)
     res = {"world": mesh.maybe_init_distributed(dev, backend="gloo")}
     res["backend"] = torch.distributed.get_backend()
-    tp_mesh = mesh.make_mesh((1, 2), tensor_parallel=True)
+    tp_mesh = mesh.make_mesh((1, 4) if kind == "tp4" else (1, 2), tensor_parallel=True)
     rank = mesh.rank()
     res["mesh"] = dict(data=tp_mesh.data, model=tp_mesh.model, tp=ttp.size(),
                        model_index=ttp.index())
@@ -3673,15 +3872,19 @@ def _tp_worker(kind: str, work: str, device: str, rq_ckpt: str) -> int:
         loss, grads, launches, calls, data_calls, ms = _tp_ml32m_step(cfg, index, flat, shards,
                                                                       dtype, dev)
         saved[name] = tree_map(lambda t: t.detach().cpu(),
-                               mesh.gather_params(grads, mesh.retrieval_tp_spec))
+                               mesh.gather_params(grads, mesh.retrieval_tp_spec,
+                                                  cfg.num_heads))
         res["ml32m"][name] = dict(loss=loss, launches=launches, collectives=calls,
                                   data_collectives=data_calls, step_ms=ms,
                                   twins=_tp_flash_twins(cfg, index, flat, shards, dtype))
     del shards, params
-    loops = _tp_loops(rq_ckpt, f"{work}/tp_loops", (1, 2), True, dev)
-    for name, entry in loops.items():
-        saved[f"{name}_params"] = entry.pop("params")
-    res["loops"] = loops
+    if kind == "tp4":
+        res["train"], saved["decoder_params"] = _tp4_train(rq_ckpt, work, dev)
+    else:
+        loops = _tp_loops(rq_ckpt, f"{work}/tp_loops", (1, 2), True, dev)
+        for name, entry in loops.items():
+            saved[f"{name}_params"] = entry.pop("params")
+        res["loops"] = loops
     torch.save(saved, f"{work}/{kind}_r{rank}.pt")
     with open(f"{work}/{kind}_r{rank}.json", "w") as f:
         json.dump(res, f)
@@ -3706,13 +3909,7 @@ def _tensor_parallel(dev, rq_ckpt, work, smi: str) -> dict:
     from rqvae_tpu_torch.utils.tree import tree_leaves
 
     # one process on the card first, so its times are its own
-    cfg, index, flat, params = _tp_ml32m_inputs(dev)
-    one = {}
-    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        loss, grads, launches, _, _, ms = _tp_ml32m_step(cfg, index, flat, params, dtype, dev)
-        one[name] = dict(loss=loss, grads=grads, launches=launches, step_ms=ms)
-    del params, flat, index
-    torch.cuda.empty_cache()
+    cfg, one = _tp_one_process(dev)
     one_loops = _tp_loops(rq_ckpt, f"{work}/one_loops", None, False, dev)
     torch.cuda.empty_cache()
 
@@ -3726,31 +3923,8 @@ def _tensor_parallel(dev, rq_ckpt, work, smi: str) -> dict:
         out["one_process"][name] = dict(step_ms=one_loops[name]["step_ms"],
                                         launches=one_loops[name]["launches"])
     for r, res in enumerate(ranks):
-        check(res["world"] == 2 and res["backend"] == "gloo" and res["mesh"]["tp"] == 2
-              and res["mesh"]["model_index"] == r, f"phase 29 rank {r}: {res['mesh']}")
-        saved = torch.load(f"{work}/tp_r{r}.pt", weights_only=False)
-        entry = dict(ml32m={}, loops={})
-        for name, rel in (("fp32", 1e-4), ("bf16", 2e-2)):
-            a = res["ml32m"][name]
-            loss_rel = abs(a["loss"] - one[name]["loss"]) / abs(one[name]["loss"])
-            check(loss_rel <= rel, f"phase 29 rank {r} {name} loss {a['loss']} vs "
-                                   f"{one[name]['loss']}")
-            if name == "fp32":
-                leaf = _leaves_close(saved[name], one[name]["grads"], 1e-3,
-                                     f"phase 29 rank {r} fp32 gradients")
-            else:
-                leaf = _bf16_leaves_close(saved[name], one["bf16"]["grads"],
-                                          one["fp32"]["grads"], f"phase 29 rank {r} bf16")
-            check(a["launches"].get("flash_attention_fwd") == 4
-                  and a["launches"].get("flash_attention_bwd") == 4,
-                  f"phase 29 rank {r} {name} launches {a['launches']}")
-            tw = a["twins"]
-            tol = 1e-4 if name == "fp32" else 2e-2
-            check(tw["heads"] == cfg.num_heads // 2 and max(tw["rel_err"].values()) <= tol,
-                  f"phase 29 rank {r} {name} flash vs twin: {tw}")
-            entry["ml32m"][name] = dict(loss_rel=loss_rel, leaf_rel=leaf, step_ms=a["step_ms"],
-                                        launches=a["launches"], collectives=a["collectives"],
-                                        data_collectives=a["data_collectives"], twins=tw)
+        entry = dict(ml32m=_hold_tp_ml32m("phase 29", r, res, f"{work}/tp_r{r}.pt", one,
+                                          cfg.num_heads // 2, 2), loops={})
         rq, dec = res["loops"]["rq"], res["loops"]["decoder"]
         check("rq_quantize_train" not in rq["launches"],
               f"phase 29 rank {r}: rq_quantize_train under TP {rq['launches']}")
@@ -3783,6 +3957,641 @@ def _tensor_parallel(dev, rq_ckpt, work, smi: str) -> dict:
             check(torch.equal(a, b), f"phase 29 {name} checkpoint leaf differs")
     out["checkpoints_restore_whole"] = True
     log(f"phase 29, tensor parallel: {out}")
+    return out
+
+
+# ---- phases 30-33: the shipped MovieLens configs through the entry points ----
+
+ML32_USERS = 20_096        # a tenth of ML-32M's 200,948 users ...
+ML32_RATINGS = 3_200_020   # ... and of its 32,000,204 ratings
+ML_RQ_ITERS = 300          # phase 31's steps a config (the configs: 50,000)
+ML_DEC_ITERS = 100         # phase 32's steps before the resume (decoder_ml32m.json: 20,000)
+ML_DEC_RESUME_ITERS = 20
+TP4_ITERS = 10             # phase 30 (b)
+ML_DATA = None             # phase 30's ranks: the ML-32M artifacts' root
+ML_DEC_EXTRA = ()          # overrides after the decoder config's (a CPU rehearsal cuts it)
+ML_PACK_ROWS = 16          # phase 33 (a): packed rows a step (the config packs none)
+ML_BRANCH_ITERS = 10       # phase 33's steps a branch
+ML_CPU_USERS = 2           # phase 32's fp32 steps held against the CPU
+
+
+def _ml_config(cls, name: str, overrides) -> object:
+    from rqvae_tpu_torch.utils import config as config_lib
+
+    path = pathlib.Path(__file__).resolve().parent / "configs" / f"{name}.json"
+    return config_lib.load_config(cls, str(path), list(overrides))
+
+
+def _movielens_data(work: str) -> tuple:
+    """The raw ML-32M (cut to ML32_USERS users and ML32_RATINGS ratings; the
+    84,432 movies its ratings reach, ML_ITEMS) and ML-1M (whole) fixtures,
+    written from the seed and run through the port's ``movielens.process``
+    with the stub encoder. Returns (ml32m root, ml1m root, what it made)."""
+    from rqvae_tpu_torch.data import movielens, registry
+    from rqvae_tpu_torch.data.text import hashed_stub_encoder
+
+    out = {}
+    roots = {}
+    for name, write in (("ml32m", lambda r: _write_ml32m_raw(r, SEED, ML_ITEMS, ML32_USERS,
+                                                             ML32_RATINGS)),
+                        ("ml1m", lambda r: _write_ml1m_raw(r, SEED))):
+        root = roots[name] = f"{work}/{name}"
+        t0 = time.perf_counter()
+        raw = write(root)
+        fixture_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        movielens.process(root, name, encode_fn=hashed_stub_encoder())
+        process_s = time.perf_counter() - t0
+        bundle = registry.load(registry.RecDataset.ML_32M if name == "ml32m"
+                               else registry.RecDataset.ML_1M, root)
+        train_len = (bundle.train_seqs.item_ids >= 0).sum(axis=1)
+        out[name] = dict(raw=raw, fixture_s=fixture_s, process_s=process_s,
+                         items=list(bundle.items.x.shape), train_rows=len(bundle.train_seqs),
+                         eval_rows=len(bundle.eval_seqs),
+                         train_rows_at_200=int((train_len == 200).sum()))
+    check(out["ml32m"]["items"][0] == ML_ITEMS, f"ML-32M artifacts: {out['ml32m']}")
+    check(out["ml32m"]["train_rows_at_200"] > 0, "no full 200-item ML-32M windows")
+    log(f"phases 30-33 data: {out}")
+    return roots["ml32m"], roots["ml1m"], out
+
+
+def _ml_stage1(dev, work: str, roots: dict) -> tuple:
+    """Phase 31: ``configs/rqvae_ml32m.json`` (rotation trick, embed 64) on
+    the ML-32M fixture's items and ``configs/rqvae_ml1m.json``
+    (Gumbel-softmax, embed 32) on the ML-1M one's, each through
+    ``train_rqvae.train`` (ML_RQ_ITERS steps): k-means priming, one
+    ``rq_quantize_train`` a step for the first and none for the second (the
+    plain per-level loop), ``rq_tokenize`` in the eval, the loss finite and
+    falling; ``rq_quantize_train`` and ``rq_tokenize`` against their twins at
+    D = 64 on the run's own operands; one fp32 step of each config on the
+    card against the CPU on a batch of the config's 64 rows, the Gumbel
+    uniforms injected (the card's and the CPU's generators draw other
+    streams). Returns (result, ML-32M checkpoint, at_shapes entries for the
+    two quantizer kernels)."""
+    import torch
+
+    from rqvae_tpu_torch.data import dataset as dataset_lib
+    from rqvae_tpu_torch.data import registry
+    from rqvae_tpu_torch.models import quantize, rqvae
+    from rqvae_tpu_torch.ops import quantize_kernels as qk
+    from rqvae_tpu_torch.train import checkpoint, optim
+    from rqvae_tpu_torch.train import train_rqvae as tr
+    from rqvae_tpu_torch.utils.tree import tree_map
+
+    res, at_shapes = {}, {}
+    for name, dataset in (("rqvae_ml32m", "ml32m"), ("rqvae_ml1m", "ml1m")):
+        cfg = _ml_config(tr.RqVaeTrainConfig, name, [
+            f"data_path={roots[dataset]}", f"iterations={ML_RQ_ITERS}",
+            f"log_every={ML_RQ_ITERS // 6}",
+            f"eval_every={ML_RQ_ITERS}", f"save_model_every={ML_RQ_ITERS}", f"seed={SEED}",
+            f"save_dir_root={work}/{name}"])
+        mcfg = cfg.model_config()
+        primes, fused = [], {}
+        real_prime, real_fused = rqvae.kmeans_prime, rqvae.rq_quantize_train
+
+        def prime(*a, **kw):
+            primes.append(1)
+            return real_prime(*a, **kw)
+
+        def record(x, cbs, mode, beta):
+            fused.setdefault("x", x.detach().float().clone())
+            fused.setdefault("cbs", cbs.detach().float().clone())
+            return real_fused(x, cbs, mode, beta)
+
+        counters = _launch_counters()
+        rec = _Records()
+        real_log = rec.log
+        rec.log = lambda step, m, force=False: real_log(step, {   # noqa: E731
+            **m, **{f"launches_{k}": c.launches for k, c in counters.items()}})
+        rqvae.kmeans_prime, rqvae.rq_quantize_train = prime, record
+        try:
+            t0 = time.perf_counter()
+            _, launches = _counted(lambda: tr.train(cfg, logger=rec, device=dev))
+            wall_s = time.perf_counter() - t0
+        finally:
+            rqvae.kmeans_prime, rqvae.rq_quantize_train = real_prime, real_fused
+        logs = [r for r in rec.records if "total_loss" in r]
+        losses = [r["total_loss"] for r in logs]
+        evals = [r for r in rec.records if "eval_total_loss" in r]
+        a, b = logs[1], logs[-1]   # steps 50 and ML_RQ_ITERS: training only, before the eval
+        per_step = (b["launches_rq_quantize_train"] - a["launches_rq_quantize_train"]) / (
+            b["step"] - a["step"])
+        want = 1 if name == "rqvae_ml32m" else 0
+        check(per_step == want, f"phase 31 {name}: {per_step} rq_quantize_train a step, "
+                                f"expected {want}")
+        check(len(primes) == 1, f"phase 31 {name}: k-means priming ran {len(primes)} times")
+        check(all(math.isfinite(x) for x in losses) and sum(losses[-2:]) / 2 < losses[0],
+              f"phase 31 {name} losses {losses}")
+        check(len(evals) == 1 and math.isfinite(evals[0]["eval_total_loss"])
+              and launches.get("rq_tokenize", 0) > 0,
+              f"phase 31 {name}: eval {evals}, launches {launches}")
+        entry = dict(embed_dim=mcfg.embed_dim, mode=str(mcfg.codebook_mode), batch=cfg.batch_size,
+                     iterations=ML_RQ_ITERS, losses=losses, wall_s=wall_s,
+                     step_ms=_step_ms(rec.records), launches=launches,
+                     rq_quantize_train_per_step=per_step,
+                     eval={k: v for k, v in evals[0].items() if k != "t" and "launches" not in k})
+
+        # one fp32 step on the card against the CPU, the Gumbel uniforms injected
+        state, _ = checkpoint.restore(cfg.save_dir_root, device="cpu")
+        bundle = registry.load(cfg.dataset, roots[dataset], need_seqs=False)
+        # rows whose code chain has no near-tie (1e-4), which sums taken in
+        # another order could flip
+        pool = torch.from_numpy(dataset_lib.features_for_model(
+            bundle.items.filtered("train")[:4 * cfg.batch_size], mcfg.input_dim))
+        with torch.no_grad():
+            z = rqvae.encode(state["params"], mcfg, pool).float()
+            zcb = rqvae.effective_codebooks(state["params"], mcfg).float()
+            near = _near_ties(z, zcb, qk.rq_quantize_train_plain(z, zcb).sem_ids, rel=1e-4)
+        x = pool[~near][:cfg.batch_size][None]
+        check(x.shape[1] == cfg.batch_size,
+              f"phase 31 {name}: {x.shape[1]} rows without a near-tie")
+        gen = torch.Generator().manual_seed(SEED + 31)
+        draws = [torch.rand((cfg.batch_size, mcfg.codebook_size), generator=gen)
+                 for _ in range(mcfg.n_layers)]
+        real_sample = quantize.gumbel_softmax_sample
+        out = {}
+        for where in (dev, torch.device("cpu")):
+            feed = iter(draws)
+            quantize.gumbel_softmax_sample = lambda logits, t, **kw: real_sample(   # noqa: E731
+                logits, t, uniform=next(feed).to(logits.device))
+            try:
+                opt = _Recorded(optim.adamw(cfg.learning_rate, cfg.weight_decay))
+                p = tree_map(lambda t: t.to(where).clone(), state["params"])
+                step = tr.make_train_step(mcfg, opt, 1, torch.float32)
+                _, _, m = step(p, opt.init(p), x.to(where), None, cfg.gumbel_temperature)
+                out[where.type] = (float(m["total_loss"]), opt.grads[0])
+            finally:
+                quantize.gumbel_softmax_sample = real_sample
+        (lg, gg), (lc, gc) = out[dev.type], out["cpu"]
+        loss_rel = abs(lg - lc) / abs(lc)
+        check(loss_rel <= 1e-4, f"phase 31 {name} GPU vs CPU loss {lg} vs {lc}")
+        entry["gpu_vs_cpu"] = dict(rows=cfg.batch_size, loss_rel_err=loss_rel,
+                                   worst_grad_leaf=_grads_close(
+                                       gg, gc, 1e-3, f"phase 31 {name} GPU vs CPU gradients"))
+        res[name] = entry
+        log(f"phase 31, {name}: {entry}")
+
+        if name == "rqvae_ml32m":
+            rq32_ckpt = cfg.save_dir_root
+            xs, cbs = fused["x"], fused["cbs"]
+            check(tuple(xs.shape) == (cfg.batch_size, 64), f"recorded operands {tuple(xs.shape)}")
+            with torch.no_grad():
+                k_out = qk.rq_quantize_train(xs, cbs, "ROTATION_TRICK", mcfg.commitment_weight)
+                p_out = qk.rq_quantize_train_plain(xs, cbs,
+                                                   commitment_weight=mcfg.commitment_weight)
+            near = _near_ties(xs, cbs, p_out.sem_ids)
+            differ = (k_out.sem_ids != p_out.sem_ids).any(-1)
+            check(not bool((differ & ~near).any()), "phase 31 rq_quantize_train ids off near-ties")
+            err = 0.0
+            for field in ("embeddings", "residuals", "quantize_loss"):
+                ka, pa = getattr(k_out, field)[~differ], getattr(p_out, field)[~differ]
+                check(torch.allclose(ka, pa, rtol=1e-5, atol=1e-5),
+                      f"phase 31 rq_quantize_train {field} differs from its twin")
+                err = max(err, float((ka - pa).abs().max()))
+            timed = _rq_timed("rq_quantize_train",
+                              lambda: qk.rq_quantize_train(xs, cbs, "ROTATION_TRICK", 0.25),
+                              lambda: qk.rq_quantize_train_plain(xs, cbs, commitment_weight=0.25),
+                              xs, cbs)
+            at_shapes["rq_quantize_train"] = {"rqvae_ml32m_64x3x256x64": dict(
+                timed, max_abs_err=err, rows_differ=int(differ.sum()),
+                near_tie_rows=int(near.sum()))}
+            # rq_tokenize on a corpus chunk of the trained model, as the eval and phase 32 run it
+            params = tree_map(lambda t: t.to(dev), state["params"])
+            corpus = torch.from_numpy(dataset_lib.features_for_model(
+                bundle.items.x[:4096], mcfg.input_dim)).to(dev)
+            z = rqvae.encode(params, mcfg, corpus).float().contiguous()
+            zcbs = rqvae.effective_codebooks(params, mcfg).float().contiguous()
+            k_tok = qk.rq_tokenize(z, zcbs, commitment_weight=mcfg.commitment_weight)
+            held = _hold_rq_tokenize(z, zcbs, mcfg.commitment_weight, k_tok)
+            timed = _rq_timed("rq_tokenize", lambda: qk.rq_tokenize(z, zcbs),
+                              lambda: qk.rq_tokenize_plain(z, zcbs), z, zcbs)
+            at_shapes["rq_tokenize"] = {"rqvae_ml32m_4096x3x256x64": dict(
+                timed, rows_differ=held[0], near_tie_rows=held[1], max_abs_err=held[3])}
+        del state
+        torch.cuda.empty_cache()
+    return res, rq32_ckpt, at_shapes
+
+
+def _ml_decoder_cfg(roots: dict, rq_ckpt: str, save: str, iterations: int, *extra):
+    """``configs/decoder_ml32m.json`` as shipped (batch 64, 2 length buckets,
+    dropout 0.1, 384 wide, 6 heads, 8 layers, fp32) on the ML-32M fixture's
+    artifacts over phase 31's RQ-VAE; evals (one batch each) and a
+    checkpoint at the end."""
+    from rqvae_tpu_torch.train import train_decoder as td
+
+    return _ml_config(td.DecoderTrainConfig, "decoder_ml32m", [
+        f"data_path={roots['ml32m']}", f"pretrained_rqvae_path={rq_ckpt}",
+        f"save_dir_root={save}", f"iterations={iterations}", f"seed={SEED}", "log_every=10",
+        f"partial_eval_every={iterations}", f"full_eval_every={iterations}",
+        f"save_model_every={iterations}", "eval_batches=1", *extra, *ML_DEC_EXTRA])
+
+
+def _bucket_recorder(td):
+    """Wrap ``td.bucket_slices``: every call's encoder tokens a bucket."""
+    calls, real = [], td.bucket_slices
+
+    def record(lengths, n_buckets, grid=4):
+        out = real(lengths, n_buckets, grid)
+        calls.append([4 * int(length) + 1 for _, length in out])
+        return out
+
+    return calls, record, real
+
+
+def _ml_train(cfg, dev):
+    """``train_decoder.train(cfg)`` counted: (records with each log's launch
+    counts, launches of the whole run, wall s, the params it returns)."""
+    from rqvae_tpu_torch.train import train_decoder as td
+
+    counters = _launch_counters()
+    rec = _Records()
+    real_log = rec.log
+    rec.log = lambda step, m, force=False: real_log(step, {   # noqa: E731
+        **m, **{f"launches_{k}": c.launches for k, c in counters.items()}})
+    t0 = time.perf_counter()
+    params, launches = _counted(lambda: td.train(cfg, logger=rec, device=dev))
+    return rec.records, launches, time.perf_counter() - t0, params
+
+
+def _per_step(records, name: str) -> float:
+    """A kernel's launches a step between the second and the last training
+    log (before the end's evals)."""
+    logs = [r for r in records if "total_loss" in r]
+    a, b = logs[1], logs[-1]
+    return (b[f"launches_{name}"] - a[f"launches_{name}"]) / (b["step"] - a["step"])
+
+
+def _ml_decoder(dev, work: str, roots: dict, rq_ckpt: str) -> dict:
+    """Phase 32: ``configs/decoder_ml32m.json`` as shipped through
+    ``train_decoder.train`` (ML_DEC_ITERS steps, an eval batch, a checkpoint,
+    then ML_DEC_RESUME_ITERS resumed steps): the 785-token bucket on the flat
+    flash kernels and the short one on the route ``attend`` picks (the dense
+    ``sdpa`` below 256 tokens), counted a step against the buckets' tokens;
+    the loss finite and falling; ``children_window_mask`` and
+    ``rq_tokenize`` in the generative eval; two fp32 bucketed steps at
+    dropout 0 on ML_CPU_USERS users, the card against the CPU, each from the
+    card's state (loss 1e-4 relative, gradients ``_grads_close``)."""
+    import numpy as np
+    import torch
+
+    from rqvae_tpu_torch.data import dataset as dataset_lib
+    from rqvae_tpu_torch.data import registry
+    from rqvae_tpu_torch.tokenizer import semids
+    from rqvae_tpu_torch.train import checkpoint, optim
+    from rqvae_tpu_torch.train import train_decoder as td
+    from rqvae_tpu_torch.utils.tree import tree_map
+
+    save = f"{work}/decoder_ml32m"
+    cfg = _ml_decoder_cfg(roots, rq_ckpt, save, ML_DEC_ITERS)
+    check((cfg.batch_size, cfg.length_buckets, cfg.dropout_p, cfg.attn_embed_dim, cfg.attn_heads,
+           cfg.attn_layers, cfg.amp) == (64, 2, 0.1, 384, 6, 8, False),
+          f"decoder_ml32m.json is not as shipped: {cfg}")
+    buckets, record, real_slices = _bucket_recorder(td)
+    td.bucket_slices = record
+    try:
+        records, launches, wall_s, _ = _ml_train(cfg, dev)
+        resumed = _ml_train(_ml_decoder_cfg(roots, rq_ckpt, save, ML_DEC_RESUME_ITERS), dev)[0]
+    finally:
+        td.bucket_slices = real_slices
+    logs = [r for r in records if "total_loss" in r]
+    losses = [r["total_loss"] for r in logs]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"phase 32 losses {losses}")
+    # the launches a step against the buckets' tokens: 4 flat flash forward
+    # and backward (the encoder's layers) for each bucket of 256 tokens or more
+    a, b = logs[1]["step"], logs[-1]["step"]
+    big = sum(sum(t >= 256 for t in step) for step in buckets[a:b])
+    got = {k: logs[-1][f"launches_{k}"] - logs[1][f"launches_{k}"]
+           for k in ("flash_attention_fwd", "flash_attention_bwd")}
+    check(got == {"flash_attention_fwd": 4 * big, "flash_attention_bwd": 4 * big},
+          f"phase 32 flash launches {got} over steps {a + 1}-{b}, {big} buckets >= 256 tokens")
+    evals = [r for r in records if "eval_loss" in r]
+    gen_evals = [r for r in records if "ndcg@10" in r]
+    check(len(evals) == len(gen_evals) == 1 and math.isfinite(evals[0]["eval_loss"])
+          and all(0.0 <= v <= 1.0 for k, v in gen_evals[0].items() if k.startswith(("h@", "ndcg")))
+          and launches.get("children_window_mask", 0) > 0 and launches.get("rq_tokenize", 0) > 0,
+          f"phase 32 evals {evals} {gen_evals}, launches {launches}")
+    resumed_steps = [r["step"] for r in resumed if "total_loss" in r]
+    check(resumed_steps[:1] == [ML_DEC_ITERS + 1]
+          and checkpoint.latest_step(save) == ML_DEC_ITERS + ML_DEC_RESUME_ITERS - 1,
+          f"phase 32 resume: steps {resumed_steps}, checkpoint {checkpoint.latest_step(save)}")
+    tokens = [t for step in buckets[:ML_DEC_ITERS] for t in step]
+    out = dict(batch=cfg.batch_size, iterations=ML_DEC_ITERS, wall_s=wall_s, losses=losses,
+               step_ms=_step_ms(records), launches=launches,
+               bucket_tokens={"long_max": max(s[0] for s in buckets[:ML_DEC_ITERS]),
+                              "short_max": max(s[1] for s in buckets[:ML_DEC_ITERS]),
+                              "long_mean": float(np.mean([s[0] for s in buckets[:ML_DEC_ITERS]])),
+                              "short_mean": float(np.mean([s[1] for s in buckets[:ML_DEC_ITERS]])),
+                              "steps_with_a_short_flash_bucket": sum(
+                                  s[1] >= 256 for s in buckets[:ML_DEC_ITERS])},
+               flash_launches_per_step={k: v / (b - a) for k, v in got.items()},
+               dense_attention_buckets_per_step=(len(tokens) - sum(t >= 256 for t in tokens))
+               / ML_DEC_ITERS,
+               eval={k: v for k, v in evals[0].items() if k != "t" and "launches" not in k},
+               generative_eval={k: v for k, v in gen_evals[0].items()
+                                if k != "t" and "launches" not in k},
+               resumed_first_step=resumed_steps[0])
+
+    # two fp32 bucketed steps at dropout 0, the card against the CPU
+    bundle = registry.load(registry.RecDataset.ML_32M, roots["ml32m"])
+    model_cfg = dataclasses.replace(cfg.retrieval_config(bundle.max_seq_len), dropout=0.0,
+                                    input_dropout=0.0)
+    vae_params, vae_cfg = td.load_frozen_rqvae(cfg, device=dev)
+    index = semids.precompute_corpus_ids(vae_params, vae_cfg, torch.from_numpy(
+        dataset_lib.features_for_model(bundle.items.x, vae_cfg.input_dim)).to(dev))
+    state, _ = checkpoint.restore(save, device="cpu")
+    # eval rows: their targets are held-out items (a train row's target is
+    # the -1 its crop appends unless the crop ends inside the window)
+    raws = [bundle.eval_seqs.batch_at(np.arange(i * ML_CPU_USERS, (i + 1) * ML_CPU_USERS))
+            for i in range(2)]
+    opt_gpu = optim.adamw(optim.inv_sqrt_schedule(cfg.learning_rate, cfg.warmup_steps),
+                          cfg.weight_decay)
+    start = (state["params"], opt_gpu.init(state["params"]))
+    steps = []
+    for raw in raws:
+        # both devices step from the card's state: AdamW's first updates are
+        # near lr * sign(g), so a last-bit gradient difference in a leaf's
+        # near-zero entries would move the next step's start by ~lr there
+        res = {}
+        for where in (dev, torch.device("cpu")):
+            idx = semids.CorpusIndex(index.cached_ids.to(where), index.sorted_keys.to(where),
+                                     index.bases, index.codebook_size, index.n_distinct)
+            opt = _Recorded(opt_gpu)
+            p = tree_map(lambda t: t.to(where).clone(), start[0])
+            s = start[1]._replace(mu=tree_map(lambda t: t.to(where).clone(), start[1].mu),
+                                  nu=tree_map(lambda t: t.to(where).clone(), start[1].nu))
+            grad_fn, apply_fn = td.make_bucketed_fns(model_cfg, opt, idx, torch.float32,
+                                                     model_cfg.sem_id_dim)
+            grads = tree_map(torch.zeros_like, p)
+            loss = torch.zeros((), device=where)
+            loss_d = torch.zeros((model_cfg.sem_id_dim,), device=where)
+            lengths = (raw["ids"] >= 0).sum(axis=1)
+            for rows, length in td.bucket_slices(lengths, cfg.length_buckets):
+                sub = {"user_ids": raw["user_ids"][rows], "ids": raw["ids"][rows, :length],
+                       "ids_fut": raw["ids_fut"][rows]}
+                grads, loss, loss_d = grad_fn(p, grads, loss, loss_d, dataset_lib.to_device(
+                    dataset_lib.make_seq_batch(sub, bundle.items.x, with_features=False), where),
+                    None, 1.0 / cfg.length_buckets)
+            p, s = apply_fn(p, s, grads, loss)
+            res[where.type] = (float(loss), opt.grads[0], (p, s))
+        (lg, gg, nxt), (lc, gc, _) = res[dev.type], res["cpu"]
+        loss_rel = abs(lg - lc) / abs(lc)
+        check(loss_rel <= 1e-4, f"phase 32 step {len(steps)} GPU vs CPU loss {lg} vs {lc}")
+        steps.append(dict(loss_rel_err=loss_rel, worst_grad_leaf=_grads_close(
+            gg, gc, 1e-3, f"phase 32 step {len(steps)} GPU vs CPU gradients")))
+        start = nxt
+    out["gpu_vs_cpu"] = dict(users=ML_CPU_USERS, steps=steps)
+    log(f"phase 32, decoder_ml32m.json through train(): {out}")
+    return out
+
+
+def _ml_branches(dev, work: str, roots: dict, rq_ckpt: str) -> tuple:
+    """Phase 33: ``train()``'s other branches on the ML-32M artifacts, the
+    config otherwise as shipped: (a) ``packed_rows`` = ML_PACK_ROWS (8 slots
+    a row; ``length_buckets`` 1, as the packed branch requires): 4 span
+    forward and 4 span backward launches a step and no flat flash, each
+    span kernel against its twin on the step's layer-0 encoder operands;
+    (b) ``gradient_accumulate_every`` = 2: 8 + 8 flat flash launches a step,
+    and on the card the accumulating step's first update equals one flat
+    step on the whole batch at dropout 0 (fp32, leaves 1e-3 of max-abs).
+    Returns (result, at_shapes entries of the span kernels)."""
+    import numpy as np
+    import torch
+
+    from rqvae_tpu_torch.data import dataset as dataset_lib
+    from rqvae_tpu_torch.data import registry
+    from rqvae_tpu_torch.data.schemas import SeqBatch
+    from rqvae_tpu_torch.ops import attention as attn_ops
+    from rqvae_tpu_torch.ops import flash_attention as fa
+    from rqvae_tpu_torch.tokenizer import semids
+    from rqvae_tpu_torch.train import checkpoint, optim
+    from rqvae_tpu_torch.train import train_decoder as td
+    from rqvae_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    out = {}
+    # ---- (a) the packed branch ----
+    seen = []
+    real_spans, real_plain = attn_ops.flash_attention_spans, attn_ops.flash_attention_spans_plain
+
+    def record(fn):
+        def wrapped(q, k, v, lo, hi, extra):
+            if not seen and q.requires_grad:
+                seen.append((q.detach(), k.detach(), v.detach(), lo, hi, extra))
+            return fn(q, k, v, lo, hi, extra)
+        return wrapped
+
+    attn_ops.flash_attention_spans = record(real_spans)
+    attn_ops.flash_attention_spans_plain = record(real_plain)   # the CPU rehearsal's route
+    try:
+        cfg = _ml_decoder_cfg(roots, rq_ckpt, f"{work}/packed", ML_BRANCH_ITERS,
+                              "length_buckets=1", f"packed_rows={ML_PACK_ROWS}", "log_every=2")
+        records, launches, wall_s, _ = _ml_train(cfg, dev)
+    finally:
+        attn_ops.flash_attention_spans = real_spans
+        attn_ops.flash_attention_spans_plain = real_plain
+    per = {k: _per_step(records, k) for k in ("flash_attention_spans_fwd",
+                                              "flash_attention_spans_bwd",
+                                              "flash_attention_fwd", "flash_attention_bwd")}
+    losses = [r["total_loss"] for r in records if "total_loss" in r]
+    check(per == {"flash_attention_spans_fwd": 4, "flash_attention_spans_bwd": 4,
+                  "flash_attention_fwd": 0, "flash_attention_bwd": 0},
+          f"phase 33 packed launches a step {per}")
+    check(all(math.isfinite(x) for x in losses), f"phase 33 packed losses {losses}")
+    q, k, v, lo, hi, extra = seen[0]
+    g = torch.randn(q.shape, generator=torch.Generator(device=q.device).manual_seed(SEED + 33),
+                    device=q.device).to(q.dtype)
+    outs = []
+    for fn in (fa.flash_attention_spans, fa.flash_attention_spans_plain):
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o = fn(qq, kk, vv, lo, hi, extra)
+        outs.append([o.detach()] + [t.detach() for t in torch.autograd.grad(o, (qq, kk, vv), g)])
+    errs = {n: float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-12)
+            for n, a, b in zip(("out", "dq", "dk", "dv"), *outs)}
+    tol = 1e-4 if q.dtype == torch.float32 else 2e-2
+    check(max(errs.values()) <= tol, f"phase 33 span kernels vs twins {errs}")
+    span_shape = {"shape": list(q.shape), "dtype": str(q.dtype), "rel_err": errs}
+    out["packed"] = dict(rows=ML_PACK_ROWS, slots=cfg.pack_slots, iterations=ML_BRANCH_ITERS,
+                         wall_s=wall_s, step_ms=_step_ms(records), losses=losses,
+                         launches_per_step=per, twins=span_shape)
+
+    # ---- (b) gradient accumulation ----
+    cfg = _ml_decoder_cfg(roots, rq_ckpt, f"{work}/accum", ML_BRANCH_ITERS,
+                          "length_buckets=1", "gradient_accumulate_every=2", "log_every=2")
+    records, launches, wall_s, _ = _ml_train(cfg, dev)
+    per = {k: _per_step(records, k) for k in ("flash_attention_fwd", "flash_attention_bwd")}
+    losses = [r["total_loss"] for r in records if "total_loss" in r]
+    check(per == {"flash_attention_fwd": 8, "flash_attention_bwd": 8}
+          and all(math.isfinite(x) for x in losses),
+          f"phase 33 accumulation: launches a step {per}, losses {losses}")
+    # the first update of the accumulating step against one flat step on the whole batch
+    bundle = registry.load(registry.RecDataset.ML_32M, roots["ml32m"])
+    model_cfg = dataclasses.replace(cfg.retrieval_config(bundle.max_seq_len), dropout=0.0,
+                                    input_dropout=0.0)
+    vae_params, vae_cfg = td.load_frozen_rqvae(cfg, device=dev)
+    index = semids.precompute_corpus_ids(vae_params, vae_cfg, torch.from_numpy(
+        dataset_lib.features_for_model(bundle.items.x, vae_cfg.input_dim)).to(dev))
+    state, _ = checkpoint.restore(f"{work}/decoder_ml32m", device=dev)
+    raw = bundle.eval_seqs.batch_at(np.arange(32))   # held-out targets, as in phase 32
+    whole = dataset_lib.make_seq_batch(raw, bundle.items.x, with_features=False)
+    halves = SeqBatch(*(np.stack([a[:16], a[16:]]) for a in whole))
+    res = {}
+    for accum, batch in ((2, halves), (1, SeqBatch(*(a[None] for a in whole)))):
+        opt = _Recorded(optim.adamw(optim.inv_sqrt_schedule(cfg.learning_rate, cfg.warmup_steps),
+                                    cfg.weight_decay))
+        p = tree_map(lambda t: t.clone(), state["params"])
+        step = td.make_train_step(model_cfg, opt, index, accum, torch.float32,
+                                  model_cfg.sem_id_dim)
+        p, _, m = step(p, opt.init(p), dataset_lib.to_device(batch, dev), None)
+        res[accum] = (float(m["total_loss"]), opt.grads[0], tree_leaves(p))
+    loss_rel = abs(res[2][0] - res[1][0]) / abs(res[1][0])
+    check(loss_rel <= 1e-4, f"phase 33 accumulated loss {res[2][0]} vs flat {res[1][0]}")
+    grad_rel = _grads_close(res[2][1], res[1][1], 1e-3, "phase 33 accumulated gradients")
+    # the updated leaves where the gradient is not near zero: AdamW's first
+    # update is ~lr * sign(g), so where g is near zero a last-bit gradient
+    # difference moves an entry by up to 2 lr (~1.7e-3 of a leaf's max-abs)
+    worst, skipped = 0.0, 0
+    for (_, g), a, b in zip(res[1][1], res[2][2], res[1][2]):
+        live = ((g.abs() >= 1e-3 * g.abs().max()) | (g == 0)).to(b.device)
+        err = float((a - b)[live].abs().max()) if bool(live.any()) else 0.0
+        scale = float(b.abs().max())
+        check(err <= 1e-3 * scale + 1e-12, f"phase 33 accumulated update: {err} of {scale}")
+        worst, skipped = max(worst, err / scale if scale else 0.0), skipped + int((~live).sum())
+    out["accumulate"] = dict(gradient_accumulate_every=2, iterations=ML_BRANCH_ITERS,
+                             wall_s=wall_s, step_ms=_step_ms(records), losses=losses,
+                             launches_per_step=per,
+                             first_update_vs_flat=dict(rows=32, loss_rel_err=loss_rel,
+                                                       worst_grad_leaf=grad_rel,
+                                                       worst_leaf_rel_err=worst,
+                                                       near_zero_gradient_entries=skipped))
+    log(f"phase 33, train()'s packed and accumulating branches: {out}")
+    return out, span_shape
+
+
+def _tp_one_process(dev):
+    """Phases 29 and 30's one-process reference: the ML-32M flat step of
+    ``_tp_ml32m_inputs`` in fp32 and bf16 on the card. Returns (model
+    config, {dtype name: loss, gradients, launches, step ms})."""
+    import torch
+
+    cfg, index, flat, params = _tp_ml32m_inputs(dev)
+    one = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        loss, grads, launches, _, _, ms = _tp_ml32m_step(cfg, index, flat, params, dtype, dev)
+        one[name] = dict(loss=loss, grads=grads, launches=launches, step_ms=ms)
+    del params, flat, index
+    torch.cuda.empty_cache()
+    return cfg, one
+
+
+def _hold_tp_ml32m(phase: str, r: int, res: dict, saved_path: str, one: dict, heads: int,
+                   m: int) -> dict:
+    """A rank's ML-32M flat steps (fp32, bf16) against one process: fp32
+    loss 1e-4 relative and gathered gradients 1e-3 of each leaf's max-abs;
+    bf16 loss 2e-2 and gradients as ``_bf16_leaves_close`` says; 4 flat
+    flash forward and 4 backward launches a step on ``heads`` heads a rank,
+    each kernel against its twin on the rank's operands (fp32 1e-4, bf16
+    2e-2 of the max-abs)."""
+    import torch
+
+    check(res["world"] == m and res["backend"] == "gloo" and res["mesh"]["tp"] == m
+          and res["mesh"]["model_index"] == r, f"{phase} rank {r}: {res['mesh']}")
+    saved = torch.load(saved_path, weights_only=False)
+    out = {}
+    for name, rel in (("fp32", 1e-4), ("bf16", 2e-2)):
+        a = res["ml32m"][name]
+        loss_rel = abs(a["loss"] - one[name]["loss"]) / abs(one[name]["loss"])
+        check(loss_rel <= rel, f"{phase} rank {r} {name} loss {a['loss']} vs {one[name]['loss']}")
+        if name == "fp32":
+            leaf = _leaves_close(saved[name], one[name]["grads"], 1e-3,
+                                 f"{phase} rank {r} fp32 gradients")
+        else:
+            leaf = _bf16_leaves_close(saved[name], one["bf16"]["grads"], one["fp32"]["grads"],
+                                      f"{phase} rank {r} bf16")
+        check(a["launches"].get("flash_attention_fwd") == 4
+              and a["launches"].get("flash_attention_bwd") == 4,
+              f"{phase} rank {r} {name} launches {a['launches']}")
+        tw = a["twins"]
+        tol = 1e-4 if name == "fp32" else 2e-2
+        check(tw["heads"] == heads and max(tw["rel_err"].values()) <= tol,
+              f"{phase} rank {r} {name} flash vs twin: {tw}")
+        out[name] = dict(loss_rel=loss_rel, leaf_rel=leaf, step_ms=a["step_ms"],
+                         launches=a["launches"], collectives=a["collectives"],
+                         data_collectives=a["data_collectives"], twins=tw)
+    return out
+
+
+def _tp4_train(rq_ckpt: str, work: str, dev) -> tuple:
+    """Phase 30 (b) on one rank: ``configs/decoder_ml32m.json`` through
+    ``train_decoder.train`` with ``tensor_parallel=true`` and ``mesh_shape``
+    [1, 4] for TP4_ITERS steps on the artifacts at ``ML_DATA``, its evals
+    and checkpoint at the end. Returns (its records, launches, buckets'
+    tokens and wall s; the whole parameters on the host)."""
+    from rqvae_tpu_torch.parallel import mesh
+    from rqvae_tpu_torch.train import train_decoder as td
+
+    cfg = _ml_decoder_cfg({"ml32m": ML_DATA}, rq_ckpt, f"{work}/tp4_train", TP4_ITERS,
+                          "tensor_parallel=true", "mesh_shape=[1,4]", "log_every=2")
+    buckets, record, real_slices = _bucket_recorder(td)
+    td.bucket_slices = record
+    try:
+        records, launches, wall_s, params = _ml_train(cfg, dev)
+    finally:
+        td.bucket_slices = real_slices
+    whole = mesh.fetch_to_host(params, mesh.retrieval_tp_spec, cfg.attn_heads)   # a collective
+    return dict(records=records, launches=launches, buckets=buckets, wall_s=wall_s), whole
+
+
+def _tp4(dev, work: str, roots: dict, rq_ckpt: str, smi: str) -> dict:
+    """Phase 30: four ranks of this script share the card over gloo at mesh
+    (1, 4) with ``tensor_parallel``, where ML-32M's 6 heads do not divide
+    and every rank computes all of them on whole attention leaves: (a) the
+    ML-32M flat step at ``configs/decoder_ml32m.json``'s width (batch cut to
+    TP_ML_BATCH, dropout 0) in fp32 and bf16 against one process on the card
+    (``_hold_tp_ml32m``: 4 + 4 flash launches a rank on 6 heads, each kernel
+    against its twin on the rank's operands); (b) TP4_ITERS steps of
+    ``train_decoder.train`` on the ML-32M artifacts over phase 31's RQ-VAE,
+    the flat flash launches a step against the buckets' tokens, the loss
+    finite, the evals in range, and its checkpoint restored into one
+    process equal to the ranks' gathered leaves, bit for bit."""
+    import torch
+
+    from rqvae_tpu_torch.train import checkpoint
+    from rqvae_tpu_torch.utils.tree import tree_leaves
+
+    cfg, one = _tp_one_process(dev)
+    ranks = _dp_launch("tp4", work, 4, dev, rq_ckpt, timeout=600, flag="--tp-worker",
+                       extra={"ML_DATA": roots["ml32m"]})
+    out = dict(card=smi, mesh=[1, 4], heads=cfg.num_heads, ranks=[],
+               one_process={f"ml32m_{n}": dict(loss=one[n]["loss"], step_ms=one[n]["step_ms"],
+                                               launches=one[n]["launches"]) for n in one})
+    for r, res in enumerate(ranks):
+        entry = dict(ml32m=_hold_tp_ml32m("phase 30", r, res, f"{work}/tp4_r{r}.pt", one,
+                                          cfg.num_heads, 4))
+        tr = res["train"]
+        logs = [x for x in tr["records"] if "total_loss" in x]
+        losses = [x["total_loss"] for x in logs]
+        a, b = logs[1]["step"], logs[-1]["step"]
+        big = sum(sum(t >= 256 for t in step) for step in tr["buckets"][a:b])
+        got = {k: logs[-1][f"launches_{k}"] - logs[1][f"launches_{k}"]
+               for k in ("flash_attention_fwd", "flash_attention_bwd")}
+        evals = {k: v for x in tr["records"] for k, v in x.items() if k.startswith(("h@", "ndcg"))}
+        check(all(math.isfinite(x) for x in losses) and len(losses) >= 3
+              and got == {"flash_attention_fwd": 4 * big, "flash_attention_bwd": 4 * big}
+              and evals and all(0.0 <= v <= 1.0 for v in evals.values()),
+              f"phase 30 rank {r} train(): losses {losses}, flash {got} for {big} long buckets, "
+              f"eval {evals}")
+        entry["train"] = dict(losses=losses, step_ms=_step_ms(tr["records"]),
+                              wall_s=tr["wall_s"], launches=tr["launches"],
+                              flash_launches_per_step={k: v / (b - a) for k, v in got.items()},
+                              eval=evals)
+        out["ranks"].append(entry)
+    saved = torch.load(f"{work}/tp4_r0.pt", weights_only=False)
+    state, meta = checkpoint.restore(f"{work}/tp4_train", device="cpu")
+    check(meta["step"] == TP4_ITERS - 1, f"phase 30 checkpoint step {meta['step']}")
+    for a, b in zip(tree_leaves(state["params"]), tree_leaves(saved["decoder_params"])):
+        check(torch.equal(a, b), "phase 30 checkpoint leaf differs from the ranks' gathered one")
+    out["checkpoint_restores_whole"] = True
+    log(f"phase 30, 6 heads at mesh (1, 4): {out}")
     return out
 
 

@@ -11,6 +11,8 @@ import torch
 
 Tensor = torch.Tensor
 
+FUT_SUFFIX = "_fut"   # the target fields' suffix: ids_fut, sem_ids_fut, ...
+
 
 class SeqBatch(NamedTuple):
     """A batch in raw item-ID space."""

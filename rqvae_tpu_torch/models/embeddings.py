@@ -35,6 +35,12 @@ def sem_id_embedder_init(gen: torch.Generator, num_embeddings: int, sem_ids_dim:
     return table
 
 
+def sem_id_padding_idx(num_embeddings: int, sem_ids_dim: int) -> int:
+    """The first zeroed row of the sem-ID table: the padding row of the
+    reference's ``padding_idx`` (any row from there on is zero)."""
+    return num_embeddings * sem_ids_dim
+
+
 def sem_id_embed(table: torch.Tensor, sem_ids: torch.Tensor, token_type_ids: torch.Tensor,
                  num_embeddings: int, seq_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Level-offset lookup; invalid positions hit the (zeroed) last row.

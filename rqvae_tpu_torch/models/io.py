@@ -46,7 +46,8 @@ def save_pretrained(path: str, params, cfg) -> str:
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "model_config.json"), "w") as f:
         json.dump({"kind": kind, "config": config_lib.config_to_dict(cfg)}, f)
-    whole = mesh_lib.fetch_to_host(params, _SPECS[kind])
+    heads = cfg.num_heads if kind == "retrieval" else None
+    whole = mesh_lib.fetch_to_host(params, _SPECS[kind], heads)
     ckpt_lib.save(path, 0, {"params": whole})
     return path
 

@@ -280,11 +280,22 @@ def forward_packed(params, cfg: RetrievalConfig, tok, *, training: bool = False,
                        loss_d=torch.sum(unred, dim=(0, 1)) / n_valid)
 
 
+def forward_generate_step(params, cfg: RetrievalConfig, batch: TokenizedSeqBatch, *,
+                          cached_context: Optional[torch.Tensor] = None):
+    """The uncached generation step: logits (B, K) at the LAST fut position
+    of the whole forward (no dropout), and the encoder context to cache
+    (``cached_context`` skips the encoder). The semantic reference that the
+    KV-cached decode (``forward_generate_cached``, ``decode_token_cached``)
+    is held to; the generation loop itself runs the cached one."""
+    out, context, _ = predict(params, cfg, batch, cached_context=cached_context)
+    return _logits(out[:, -1, :], params["out_proj"]), context
+
+
 class GenerationCache(NamedTuple):
     """Per-batch-row beam-search state: every decoder block's cross K/V
     (computed once from the encoder output) and the encoder key mask."""
 
-    kv: tuple                  # transformer.cross_kv output, entries (B, Nc, H, Dh)
+    kv: tuple                  # transformer.cross_kv output, entries (B, Nc, local heads, Dh)
     ctx_mask: torch.Tensor     # (B, Nc) bool
 
 

@@ -15,8 +15,19 @@ entry point computes H / m heads (the attention kernels see only those, and
 the generation caches hold only those), copies the whole input of each
 column-parallel projection to the model group and all-reduces each
 row-parallel output, the FFN likewise (``models/mlp``). The decoder's
-context is copied once for all its cross-attention blocks. Heads that do not
-divide over the model axis raise ``ValueError``.
+context is copied once for all its cross-attention blocks.
+
+Heads that do not divide over the model axis (``tp.heads_split`` false: 6
+heads on 4 ranks) keep every attention leaf whole on every rank
+(``parallel/mesh.leaf_spec``) and each rank computes all H heads, the
+kernels and the generation caches included; the FFN, the embeddings and the
+projections around the transformer keep their Megatron layout. JAX takes the
+same layout there (its ``attend`` sends such heads to the dense ``sdpa`` on
+replicated weights); the port keeps the kernel routes. Such attention takes
+its input without ``copy_to_model`` (whose backward would all-reduce a dx
+every rank already holds whole, scaling it by m) and returns its output
+without ``reduce_from_model`` (which would sum m whole outputs); its
+weights' gradients are whole and equal on every rank of a model group.
 """
 from __future__ import annotations
 
@@ -77,31 +88,39 @@ def init(gen: torch.Generator, cfg: TransformerConfig, *, device=None):
     }
 
 
-def _out_proj(p, out, dtype):
-    """The row-parallel output projection of the local heads, reduced."""
-    return tp.reduce_from_model(attn_ops.merge_heads(out) @ p["proj"].to(dtype))
+def _to_heads(x, num_heads):
+    """The input of a column-parallel attention projection: copied to the
+    model group when the heads split over it, as it is when they stay whole."""
+    return tp.copy_to_model(x) if tp.heads_split(num_heads) else x
+
+
+def _out_proj(p, out, dtype, num_heads):
+    """The output projection of the local heads: row-parallel and reduced
+    when the heads split, whole otherwise."""
+    y = attn_ops.merge_heads(out) @ p["proj"].to(dtype)
+    return tp.reduce_from_model(y) if tp.heads_split(num_heads) else y
 
 
 def _self_attention(p, x, num_heads, *, causal, k_mask, q_spans=None):
     heads = tp.local_heads(num_heads)
-    q, k, v = torch.chunk(tp.copy_to_model(x) @ p["wqkv"].to(x.dtype), 3, dim=-1)
+    q, k, v = torch.chunk(_to_heads(x, num_heads) @ p["wqkv"].to(x.dtype), 3, dim=-1)
     out = attn_ops.attend(
         attn_ops.split_heads(q, heads), attn_ops.split_heads(k, heads),
         attn_ops.split_heads(v, heads), causal=causal, k_mask=k_mask, q_spans=q_spans,
     )
-    return _out_proj(p, out, x.dtype)
+    return _out_proj(p, out, x.dtype, num_heads)
 
 
 def _cross_attention(p, x, context, num_heads, *, k_mask, q_spans=None):
     """``context`` is already copied to the model group (``decode``)."""
     heads = tp.local_heads(num_heads)
-    q = tp.copy_to_model(x) @ p["wq"].to(x.dtype)
+    q = _to_heads(x, num_heads) @ p["wq"].to(x.dtype)
     k, v = torch.chunk(context @ p["wkv"].to(x.dtype), 2, dim=-1)
     out = attn_ops.attend(
         attn_ops.split_heads(q, heads), attn_ops.split_heads(k, heads),
         attn_ops.split_heads(v, heads), causal=False, k_mask=k_mask, q_spans=q_spans,
     )
-    return _out_proj(p, out, x.dtype)
+    return _out_proj(p, out, x.dtype, num_heads)
 
 
 def _block_apply(p, cfg: TransformerConfig, x, *, causal: bool, self_k_mask=None,
@@ -143,7 +162,7 @@ def decode(params, cfg: TransformerConfig, x: torch.Tensor, context: torch.Tenso
     training passes ``self_spans`` (causality within a segment as hi = own
     position + 1) and ``cross_spans`` (the segment's encoder window) in place
     of plain causality and the key mask."""
-    context = tp.copy_to_model(context)
+    context = _to_heads(context, cfg.num_heads)
     for block in params["decoder"]:
         x = _block_apply(block, cfg, x, causal=self_spans is None, context=context,
                          cross_k_mask=None if cross_spans is not None else context_mask,
@@ -168,8 +187,9 @@ def apply(params, cfg: TransformerConfig, x, context_in, context_mask, *,
 
 def cross_kv(params, cfg: TransformerConfig, context: torch.Tensor):
     """Every decoder block's cross-attention (k, v), each (B, Nc, H, Dh)
-    (H / m local heads under tensor parallelism), computed once from the
-    encoder output: the generation loop's cache."""
+    (``tp.local_heads``: H / m under tensor parallelism, H when the heads
+    do not divide), computed once from the encoder output: the generation
+    loop's cache."""
     heads = tp.local_heads(cfg.num_heads)
     out = []
     for block in params["decoder"]:
@@ -195,7 +215,7 @@ def _cross_from_cache(block, hc, ck, cv, context_mask, num_heads, beams, dtype):
     heads = tp.local_heads(num_heads)
     qf = _fold_beams(attn_ops.split_heads(hc @ p["wq"].to(hc.dtype), heads), beams)
     of = attn_ops.attend(qf, ck, cv, causal=False, k_mask=context_mask)
-    return _out_proj(p, _unfold_beams(of, beams), dtype)
+    return _out_proj(p, _unfold_beams(of, beams), dtype, num_heads)
 
 
 def decode_with_kv(params, cfg: TransformerConfig, x: torch.Tensor, kv,
@@ -216,9 +236,9 @@ def decode_step_with_kv(params, cfg: TransformerConfig, x_new: torch.Tensor, sel
     """Single-token decoder step with a growing self-attention KV cache.
 
     ``x_new`` (B*beams, 1, d_model) is the newest token; ``self_kv`` is None
-    (first token) or per block (k, v), each (B*beams, T, H, Dh) (H / m
-    local heads under tensor parallelism). The newest position attends every
-    cached one, so causality needs no mask.
+    (first token) or per block (k, v), each (B*beams, T, H, Dh)
+    (``tp.local_heads`` of them under tensor parallelism). The newest
+    position attends every cached one, so causality needs no mask.
     Returns (x_out, new self_kv with T+1 entries)."""
     x = x_new
     new_kv = []
@@ -235,7 +255,8 @@ def decode_step_with_kv(params, cfg: TransformerConfig, x_new: torch.Tensor, sel
             k_full = torch.cat([pk, k1], dim=1)
             v_full = torch.cat([pv, v1], dim=1)
         new_kv.append((k_full, v_full))
-        attn_out = x + _out_proj(p, attn_ops.attend(q1, k_full, v_full, causal=False), x.dtype)
+        attn_out = x + _out_proj(p, attn_ops.attend(q1, k_full, v_full, causal=False), x.dtype,
+                                 cfg.num_heads)
         hc = rms_norm(x, block["cross_attn_norm"])  # quirk: block input x
         attn_out = attn_out + _cross_from_cache(block, hc, ck, cv, context_mask,
                                                 cfg.num_heads, beams, x.dtype)

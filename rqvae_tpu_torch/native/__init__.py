@@ -67,6 +67,19 @@ def _build() -> Path:
     return out
 
 
+def available() -> bool:
+    """Whether ``subsample_batch`` can run: the switch is on (``enabled``)
+    and the library builds and loads. The one place a failed build becomes
+    a value (``_load`` raises); no path picks its route by it."""
+    if not enabled():
+        return False
+    try:
+        _load()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 @functools.lru_cache(maxsize=None)
 def _load() -> ctypes.CDLL:
     """The library, built if needed, its entry point typed."""

@@ -32,7 +32,10 @@ the ranks of a group split every large matrix by JAX's Megatron rules
   as JAX's ``opt_state_shardings`` makes them). ``wqkv`` and ``wkv``, whose
   columns are [q | k | v] and [k | v], are carved by heads: each rank takes
   its columns of every block (JAX shards the same dimension contiguously,
-  which GSPMD may; an explicit rank needs whole heads).
+  which GSPMD may; an explicit rank needs whole heads). A retrieval model
+  whose heads do not divide over the model axis keeps its attention leaves
+  whole on every rank (``leaf_spec``); every function that carves or gathers
+  the retrieval tree takes its ``heads`` for that.
 
 No counterpart: ``shard_batch``, ``batch_sharding``, ``replicated`` and
 ``replicate_host_array``: each process holds its own rows, so there is no
@@ -325,6 +328,22 @@ def path_str(path: tuple) -> str:
     return "/".join(parts)
 
 
+ATTENTION_LEAVES = ("/attn/", "/cross_attn/")
+
+
+def leaf_spec(spec_fn: "SpecFn", path: str, x, heads: Optional[int], m: int) -> tuple:
+    """The layout of one leaf on a model axis of ``m``: ``spec_fn``'s (JAX's
+    rule), except that a retrieval model's attention leaves (self-attention
+    ``wqkv`` / ``proj``, cross-attention ``wq`` / ``wkv`` / ``proj``) stay
+    whole (``()``) when its ``heads`` do not divide over ``m``: each rank
+    then computes every head (``parallel/tensor.heads_split``), as JAX's
+    GSPMD does with attention it sends to the dense ``sdpa``. Every carve,
+    gather, checkpoint and export reads its layout here."""
+    if heads is not None and heads % m and any(k in f"/{path}" for k in ATTENTION_LEAVES):
+        return ()
+    return spec_fn(path, x)
+
+
 def _blocks(path: str) -> int:
     """Column blocks carved separately: [q | k | v] and [k | v]."""
     return 3 if "wqkv" in path else 2 if "wkv" in path else 1
@@ -333,13 +352,16 @@ def _blocks(path: str) -> int:
 SpecFn = Callable[[str, torch.Tensor], tuple]
 
 
-def _splits(tree, spec_fn: SpecFn):
+def _splits(tree, spec_fn: SpecFn, heads: Optional[int], m: int):
     """(path string, leaf, split dim or None, blocks) of every leaf, in
-    ``tree_leaves_with_path`` order. The rules read only paths and ranks,
-    so a tree of shards gives its whole tree's answers."""
+    ``tree_leaves_with_path`` order (``leaf_spec``). The rules read only
+    paths and ranks, so a tree of shards gives its whole tree's answers."""
+    if spec_fn is retrieval_tp_spec and heads is None:
+        raise ValueError("the retrieval layout needs the model's heads: whole attention "
+                         "leaves when they do not divide over the model axis")
     for path, x in tree_leaves_with_path(tree):
         p = path_str(path)
-        spec = spec_fn(p, x)
+        spec = leaf_spec(spec_fn, p, x, heads, m)
         dim = spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
         yield p, x, dim, (_blocks(p) if dim == 1 else 1)
 
@@ -361,18 +383,18 @@ def _tp_mesh() -> Optional[Mesh]:
 def shard_params(tree, spec_fn: SpecFn, heads: Optional[int] = None):
     """This rank's shards of a whole tree (every rank holds the whole tree):
     the split dimension of each leaf cut into the model axis's parts, the
-    rank's part kept; other leaves as they are. ``heads`` (the retrieval
-    model's) and every split dimension must divide over the axis, else
-    ``ValueError`` with the numbers. The tree itself when the registered
-    mesh splits nothing."""
+    rank's part kept; other leaves as they are. ``heads`` is the retrieval
+    model's (required with ``retrieval_tp_spec``): heads that do not divide
+    over the axis keep the attention leaves whole (``leaf_spec``). Every
+    split dimension must divide over the axis, else ``ValueError`` with the
+    numbers, as JAX's ``device_put`` refuses an uneven shard. The tree itself
+    when the registered mesh splits nothing."""
     mesh = _tp_mesh()
     if mesh is None:
         return tree
     m, j = mesh.tp, mesh.model_index
-    if heads is not None and heads % m:
-        raise ValueError(f"{heads} attention heads do not divide over a model axis of {m}")
     out = []
-    for p, x, dim, blocks in _splits(tree, spec_fn):
+    for p, x, dim, blocks in _splits(tree, spec_fn, heads, m):
         if dim is not None and x.shape[dim] % (blocks * m):
             raise ValueError(f"{p} {tuple(x.shape)}: dim {dim} of {x.shape[dim]}"
                              f"{f' ({blocks} blocks)' if blocks > 1 else ''} does not divide "
@@ -381,15 +403,16 @@ def shard_params(tree, spec_fn: SpecFn, heads: Optional[int] = None):
     return tree_unflatten(tree, out)
 
 
-def gather_params(tree, spec_fn: SpecFn):
-    """The whole tree from every rank's shards: one list ``all_gather`` over
-    the model group per dtype of the split leaves, then each leaf uncarved.
-    A collective: every rank of the model group calls it. The tree itself
-    when the registered mesh splits nothing."""
+def gather_params(tree, spec_fn: SpecFn, heads: Optional[int] = None):
+    """The whole tree from every rank's shards (``heads`` as for
+    ``shard_params``): one list ``all_gather`` over the model group per
+    dtype of the split leaves, then each leaf uncarved; whole leaves are
+    kept as they are. A collective: every rank of the model group calls it.
+    The tree itself when the registered mesh splits nothing."""
     mesh = _tp_mesh()
     if mesh is None:
         return tree
-    splits = list(_splits(tree, spec_fn))
+    splits = list(_splits(tree, spec_fn, heads, mesh.tp))
     out = [x for _, x, _, _ in splits]
     by_dtype = {}
     for i, (_, x, dim, _) in enumerate(splits):
@@ -424,15 +447,16 @@ def shard_state(state: dict, spec_fn: SpecFn, heads: Optional[int] = None) -> di
     return _map_state(state, lambda t: shard_params(t, spec_fn, heads))
 
 
-def gather_state(state: dict, spec_fn: SpecFn) -> dict:
+def gather_state(state: dict, spec_fn: SpecFn, heads: Optional[int] = None) -> dict:
     """``gather_params`` over ``{"params", "opt_state"}``; a collective."""
-    return _map_state(state, lambda t: gather_params(t, spec_fn))
+    return _map_state(state, lambda t: gather_params(t, spec_fn, heads))
 
 
-def fetch_to_host(tree, spec_fn: Optional[SpecFn] = None):
+def fetch_to_host(tree, spec_fn: Optional[SpecFn] = None, heads: Optional[int] = None):
     """Host copy of a device tree, whole: tensor-parallel shards are gathered
-    first (``spec_fn`` names the layout), so this is a collective then, as
-    JAX's is in multi-process mode; every rank of the model group calls it."""
+    first (``spec_fn`` and ``heads`` name the layout), so this is a
+    collective then, as JAX's is in multi-process mode; every rank of the
+    model group calls it."""
     if spec_fn is not None:
-        tree = gather_params(tree, spec_fn)
+        tree = gather_params(tree, spec_fn, heads)
     return tree_map(lambda t: t.detach().cpu() if isinstance(t, torch.Tensor) else t, tree)

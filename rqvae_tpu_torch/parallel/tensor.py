@@ -17,6 +17,9 @@ every activation between the partitioned layers. The models call:
   ``all_gather``: a whole activation fed to a row-parallel layer;
 
 and ``argmin_over_model`` / ``max_over_model`` for the sharded codebook.
+``heads_split`` / ``local_heads`` say how attention splits: by heads when
+the heads divide over the model axis, else not at all (whole heads on every
+rank).
 Only ``all_reduce`` and the list form of ``all_gather`` are used: gloo
 takes both on CUDA tensors, so two ranks can share one card.
 
@@ -148,14 +151,23 @@ def own_slice(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return _own(x, dim % x.dim(), m, index()) if m > 1 else x
 
 
-def local_heads(num_heads: int) -> int:
-    """The heads each rank computes: ``num_heads`` / the model axis. Raises
-    when they do not divide (the port carves whole heads; JAX's GSPMD falls
-    back to dense attention there)."""
+def heads_split(num_heads: int) -> bool:
+    """Whether attention is split by heads over the model axis: a model axis
+    above 1 that ``num_heads`` divides. When the heads do not divide, every
+    attention leaf stays whole on every rank and each rank computes all the
+    heads (``parallel/mesh.leaf_spec``), the layout JAX takes there:
+    ``attend`` sends such heads to the dense ``sdpa``, which GSPMD computes
+    on replicated weights (``rqvae_tpu/ops/attention.py`` ``_shardable``).
+    The port keeps the attention kernels on the whole heads instead; the
+    result is the same."""
     m = size()
-    if num_heads % m:
-        raise ValueError(f"{num_heads} attention heads do not divide over a model axis of {m}")
-    return num_heads // m
+    return m > 1 and num_heads % m == 0
+
+
+def local_heads(num_heads: int) -> int:
+    """The heads each rank computes: ``num_heads`` / the model axis when they
+    split over it (``heads_split``), else all ``num_heads``."""
+    return num_heads // size() if heads_split(num_heads) else num_heads
 
 
 def max_over_model(x: torch.Tensor) -> torch.Tensor:

@@ -53,6 +53,37 @@ class CorpusIndex:
         return self.cached_ids.shape[0]
 
 
+def sem_ids_dim(cfg: rqvae_lib.RqVaeConfig) -> int:
+    """Tokens an item takes: the RQ-VAE's levels plus the dedup column."""
+    return cfg.n_layers + 1
+
+
+def pack_prefix(prefix: torch.Tensor, bases) -> torch.Tensor:
+    """Mixed-radix Horner packing of the last axis into one int64 key (JAX's
+    ``pack_prefix``, whose keys are uint32, uint64 under x64: the same
+    integers). ``bases`` is one int (a uniform radix) or a radix a dim, of
+    which the first ``prefix.shape[-1]`` are read. Raises ``ValueError``
+    when the radices need more than int64's 63 value bits."""
+    dim = prefix.shape[-1]
+    if isinstance(bases, int):
+        bases = (bases,) * dim
+    bases = tuple(int(b) for b in bases)[:dim]
+    bits = sum(max(1, math.ceil(math.log2(b))) for b in bases)
+    if bits > 63:
+        raise ValueError(f"prefix keys need {bits} bits for bases {bases}: beyond int64")
+    key = torch.zeros(prefix.shape[:-1], dtype=KEY_DTYPE, device=prefix.device)
+    for i in range(dim):
+        key = key * bases[i] + prefix[..., i].to(KEY_DTYPE)
+    return key
+
+
+def tokenize_items_fresh(params, cfg: rqvae_lib.RqVaeConfig, x: torch.Tensor) -> torch.Tensor:
+    """The fresh-encode path (no corpus cache): raw item features (B, D_in)
+    to their ``n_layers``-tuple ids (B, L) int32, through
+    ``rqvae.encode_and_tokenize`` (``rq_tokenize`` on the GPU)."""
+    return rqvae_lib.encode_and_tokenize(params, cfg, x)
+
+
 def _check_key_range(n_items: int, bases) -> None:
     span = n_items * max(int(b) for b in bases)
     if span >= 2**63 - 1:  # strict: the dtype max is the padding sentinel

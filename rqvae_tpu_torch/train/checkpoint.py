@@ -12,7 +12,8 @@ rank waits at a barrier before ``save`` returns and before ``restore`` reads,
 and every rank restores. With one rank the barriers are identities. A
 checkpoint always holds the whole layout: under tensor parallelism ``save``
 gathers the shards of the params and the Adam moments over the model group
-first (``spec_fn``; a collective every rank calls), and the loops shard what
+first (``spec_fn`` and, for the retrieval model, its ``heads``; a
+collective every rank calls), and the loops shard what
 ``restore`` returns, so a checkpoint restores into any mesh.
 """
 from __future__ import annotations
@@ -68,13 +69,13 @@ def _write_text(path: str, text: str) -> None:
 
 
 def save(root: str, step: int, state: Any, meta: Optional[dict] = None,
-         spec_fn: Optional[Callable] = None) -> str:
+         spec_fn: Optional[Callable] = None, heads: Optional[int] = None) -> str:
     """``state``: e.g. ``{"params": ..., "opt_state": AdamWState}``; written
-    by rank 0, every rank returns after it is on disk. ``spec_fn`` (a
-    ``parallel/mesh`` layout) gathers tensor-parallel shards to the whole
-    layout first."""
+    by rank 0, every rank returns after it is on disk. ``spec_fn`` and
+    ``heads`` (a ``parallel/mesh`` layout) gather tensor-parallel shards to
+    the whole layout first."""
     if spec_fn is not None:
-        state = mesh_lib.gather_state(state, spec_fn)
+        state = mesh_lib.gather_state(state, spec_fn, heads)
     path = _step_dir(root, step)
     if mesh_lib.rank() == 0:
         os.makedirs(path, exist_ok=True)

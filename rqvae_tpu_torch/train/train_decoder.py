@@ -44,8 +44,9 @@ reduced over it, and rank 0 writes the checkpoints. With
 ``tensor_parallel=True`` and a model axis above 1 the parameters and their
 Adam moments are split by JAX's Megatron rules (``mesh.retrieval_tp_spec``)
 after init or restore, every step and eval runs on the shards
-(``parallel/tensor``), and checkpoints are gathered to the whole layout, so
-they restore into any mesh. ``profile_dir`` traces a step window
+(``parallel/tensor``; heads that do not divide over the model axis keep the
+attention whole on every rank, ``mesh.leaf_spec``), and checkpoints are
+gathered to the whole layout, so they restore into any mesh. ``profile_dir`` traces a step window
 (``utils/profiling``), ``metrics_sink="tensorboard"`` adds an event stream
 and ``debug_nans`` raises ``FloatingPointError`` at the first non-finite
 step.
@@ -612,7 +613,7 @@ def train(cfg: DecoderTrainConfig, *, logger: Optional[MetricsLogger] = None, de
         if _every(it, cfg.save_model_every) or last:
             ckpt_lib.save(cfg.save_dir_root, it, {"params": params, "opt_state": opt_state},
                           meta={"config": config_lib.config_to_dict(cfg)},
-                          spec_fn=mesh_lib.retrieval_tp_spec)
+                          spec_fn=mesh_lib.retrieval_tp_spec, heads=model_cfg.num_heads)
     profiler.close()
     return params
 

@@ -224,6 +224,73 @@ def test_rq_quantize_train_twin_matches_pallas_kernel(mode):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4, atol=5e-5)
 
 
+@pytest.mark.parametrize("mode", MODES)
+def test_rq_quantize_train_gradients_are_the_chains_on_codeword_values(mode):
+    """The fused Function's value of a level is its codeword, as the JAX
+    kernel's is; the per-level ``quantize.apply`` chain's rotation-trick
+    value is the codeword times |res| / (|res| + 1e-6), the scale's eps.
+    With small deep residuals, as in a trained model, that eps moves the
+    chain's later residuals and codebook gradients past rounding; with each
+    level's value set to its codeword (its gradients unchanged), the chain's
+    gradients are the Function's to 1e-6 of each leaf's max-abs; as it is,
+    its codebook gradient is more than 1e-5 off."""
+    rng = np.random.RandomState(6)
+    cbs = (rng.randn(L, K, D) * np.array([1.0, 0.03, 0.01])[:, None, None]).astype(np.float32)
+    picks = rng.randint(0, K, (L, 48))
+    x = (cbs[0][picks[0]] + cbs[1][picks[1]] + 0.7 * cbs[2][picks[2]]
+         + 0.002 * rng.randn(48, D)).astype(np.float32)
+    w = rng.randn(D, 4).astype(np.float32)
+
+    def readout(embs, q_loss):
+        z = torch.sum(embs, dim=-1) @ torch.from_numpy(w)
+        return torch.mean(torch.sum(z * z, dim=-1)) + torch.mean(q_loss)
+
+    def fused(x, cbs):
+        out = quantize_kernels.rq_quantize_train(x, cbs, mode, 0.25)
+        fused.ids = out.sem_ids
+        return readout(out.embeddings, out.quantize_loss)
+
+    def chain(snap):
+        def fn(x, cbs):
+            res, embs, q_loss, fn.rows = x, [], 0.0, []
+            for level in range(L):
+                q = tq.apply({"codebook": cbs[level]}, res, mode=tq.QuantizeForwardMode[mode],
+                             commitment_weight=0.25, training=True)
+                codeword = cbs[level][q.ids.long()].detach()
+                fn.rows.append((res.detach(), codeword, q.embeddings.detach()))
+                out = q.embeddings + (codeword - q.embeddings).detach() if snap else q.embeddings
+                q_loss = q_loss + q.loss
+                res = res - out
+                embs.append(out)
+            return readout(torch.stack(embs, dim=-1), q_loss)
+        return fn
+
+    _, got = grads_of(fused, x, cbs)
+    snapped, plain = chain(True), chain(False)
+    _, want = grads_of(snapped, x, cbs)
+    _, as_is = grads_of(plain, x, cbs)
+    ids = fused.ids.numpy()
+    assert not near_tie_rows(x, cbs, ids).any()
+    assert len(np.unique(ids[:, 2])) > 8
+    gaps = []
+    for a, b, c in zip(got, want, as_is):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-6 * scale
+        gaps.append(float((a - c).abs().max()) / scale)
+    res, codeword, value = plain.rows[2]
+    norm = torch.linalg.vector_norm(res, dim=-1, keepdim=True)
+    if mode == "STE":
+        torch.testing.assert_close(value, codeword, rtol=1e-6, atol=1e-6)
+        assert max(gaps) <= 1e-6
+    else:
+        # the level's value is the codeword scaled by the eps, and the gap it
+        # leaves in the codebook gradient is ten times the tolerance above
+        predicted = codeword * (norm / (norm + 1e-6) - 1.0)
+        off = torch.linalg.vector_norm(value - codeword - predicted, dim=-1)
+        assert bool((off <= 0.1 * torch.linalg.vector_norm(predicted, dim=-1)).all())
+        assert gaps[1] > 1e-5
+
+
 def test_rq_quantize_train_refuses_bad_modes_shapes_and_devices():
     x, cbs = torch.zeros(4, 8), torch.zeros(2, 16, 8)
     with pytest.raises(ValueError):

@@ -27,7 +27,17 @@ at once, against JAX's unsharded functions and the port's one process.
   into one process with its leaves; at (2, 2) the logs equal the port's
   (2, 1) data-parallel run (the same data blocks); a one-process checkpoint
   restores into the (1, 2) shards; ``run_eval`` at (2, 2) equals one
-  process with exhaustive candidates to 1e-6.
+  process with exhaustive candidates to 1e-6;
+* heads that do not divide over the model axis: the four ranks then run a
+  6-head decoder at mesh (1, 4), whose attention leaves stay whole on every
+  rank (every other leaf on JAX's dimension): shard and gather round-trip
+  bit for bit, flat and packed gradients against JAX's unsharded ones at
+  ``rtol=2e-5, atol=1e-6``, the beam search equal to one process, the
+  collectives of a flat step by the formula with no attention collective,
+  ``train()`` equal to one process (``rtol=1e-5``) with a whole checkpoint
+  that restores into one process, and ``run_eval`` equal to one process; an
+  uneven leaf dimension still raises ``ValueError``, as JAX's
+  ``device_put`` does.
 
 Run alone: ``python -m pytest tests/test_torch_tensor_parallel.py -q``.
 """
@@ -72,6 +82,9 @@ CFG_FIELDS = dict(embedding_dim=16, attn_dim=32, dropout=0.0, num_heads=4, n_lay
                   num_embeddings=K, sem_id_dim=D, max_pos=CAP * D, input_dropout=0.0,
                   mlp_hidden_dim=64)
 TCFG = tret.RetrievalConfig(**CFG_FIELDS)
+H6_FIELDS = dict(CFG_FIELDS, attn_dim=48, num_heads=6)   # 6 heads of 8: whole on 4 ranks
+H6CFG = tret.RetrievalConfig(**H6_FIELDS)
+H6_MESH = (1, 4)
 RQ_FIELDS = dict(input_dim=16, embed_dim=8, hidden_dims=(16,), codebook_size=16, n_layers=3,
                  n_cat_feats=0)
 RQ_MODES = {"STE": dict(codebook_sim_vq=True, codebook_normalize=True),
@@ -95,7 +108,7 @@ def _rq_cfg(mode):
     return trq.RqVaeConfig(codebook_mode=mode, **RQ_FIELDS, **RQ_MODES[mode])
 
 
-def _flat_step_collectives(enc_layers: int, dec_layers: int) -> dict:
+def _flat_step_collectives(enc_layers: int, dec_layers: int, heads_split: bool = True) -> dict:
     """The collectives of one flat forward and backward on a model axis
     above 1. Forward: the two vocab-parallel lookups (history, future) and
     the row-parallel outputs (2 an encoder layer: attention and FFN; 3 a
@@ -103,9 +116,15 @@ def _flat_step_collectives(enc_layers: int, dec_layers: int) -> dict:
     gathered input projections all-gather. Backward: each copied input of a
     column-parallel projection all-reduces (2 an encoder layer, 3 a decoder
     layer: self, cross query, FFN; the decoder's context once; the two input
-    projections), and ``out_proj``'s scattered input all-gathers."""
-    fwd = 2 + 2 * enc_layers + 3 * dec_layers + 1
-    bwd = 2 * enc_layers + 3 * dec_layers + 1 + 2
+    projections), and ``out_proj``'s scattered input all-gathers. With whole
+    heads (``heads_split`` false) attention issues none: only the FFN's
+    remain of the layers' collectives."""
+    if not heads_split:
+        fwd = 2 + enc_layers + dec_layers + 1
+        bwd = enc_layers + dec_layers + 2
+    else:
+        fwd = 2 + 2 * enc_layers + 3 * dec_layers + 1
+        bwd = 2 * enc_layers + 3 * dec_layers + 1 + 2
     return {"all_reduce": fwd + bwd, "all_gather": 2 + 1}
 
 
@@ -175,7 +194,7 @@ def _worker_steps(inp, shape, out):
     params = inp["params"]
     spec = mesh.retrieval_tp_spec
     sharded = mesh.shard_params(params, spec, TCFG.num_heads)
-    res["roundtrip"] = mesh.gather_params(sharded, spec)
+    res["roundtrip"] = mesh.gather_params(sharded, spec, TCFG.num_heads)
     rq_sharded = mesh.shard_params(inp["rq_params"]["STE"], mesh.rqvae_tp_spec)
     res["rq_roundtrip"] = mesh.gather_params(rq_sharded, mesh.rqvae_tp_spec)
     model_io.save_pretrained(str(out / "export"), rq_sharded, _rq_cfg("STE"))   # whole
@@ -191,7 +210,7 @@ def _worker_steps(inp, shape, out):
     mesh.all_reduce_(tree_leaves(grads), "mean")
     res["flat_data_calls"] = mesh.collective_calls
     res["flat"] = (float(mesh.all_reduce_([loss.clone()], "mean")[0]),
-                   mesh.gather_params(grads, spec))
+                   mesh.gather_params(grads, spec, TCFG.num_heads))
 
     # packed: the replica's packed rows (all of them on one data replica),
     # the loss over the global valid slots, gradients summed
@@ -202,7 +221,7 @@ def _worker_steps(inp, shape, out):
                          sharded)
     mesh.all_reduce_(tree_leaves(grads), "sum")
     res["packed"] = (float(mesh.all_reduce_([loss.clone()], "sum")[0]),
-                     mesh.gather_params(grads, spec))
+                     mesh.gather_params(grads, spec, TCFG.num_heads))
 
     # stage 1 in each mode; the Gumbel estimator reads JAX's uniforms
     fused = []
@@ -268,7 +287,7 @@ def _stage1_cfg(root, name, **kw):
 
 
 def _decoder_cfg(root, name, **kw):
-    return tconfig.from_dict(ttd.DecoderTrainConfig, dict(
+    return tconfig.from_dict(ttd.DecoderTrainConfig, dict(dict(
         dataset="SYNTHETIC", vae_input_dim=16, vae_hidden_dims=(16,), vae_embed_dim=8,
         vae_codebook_size=16, vae_n_cat_feats=0, vae_n_layers=3,
         vae_codebook_mode="ROTATION_TRICK", synthetic_n_items=300, seed=0, iterations=6,
@@ -276,7 +295,10 @@ def _decoder_cfg(root, name, **kw):
         save_dir_root=str(root / name), synthetic_n_users=120, attn_embed_dim=32,
         attn_heads=4, attn_layers=4, decoder_embed_dim=16, dropout_p=0.1, log_every=3,
         partial_eval_every=6, full_eval_every=6, eval_batches=2, warmup_steps=10,
-        generation_top_k=4, generation_candidates=16, amp=False, **kw))
+        generation_top_k=4, generation_candidates=16, amp=False), **kw))
+
+
+H6_TRAIN = dict(attn_embed_dim=48, attn_heads=6)   # the 6-head decoder's train() fields
 
 
 def _worker_train(root, shape):
@@ -310,6 +332,55 @@ def _worker_train(root, shape):
     return {"logs": logs, "eval": ev}
 
 
+def _worker_whole_heads(inp, root):
+    """The 6-head decoder at mesh (1, 4): its heads do not divide over the
+    model axis, so the attention leaves stay whole on every rank."""
+    mesh.make_mesh(H6_MESH, tensor_parallel=True)
+    params = inp["params6"]
+    spec = mesh.retrieval_tp_spec
+    res = {"tp": ttp.size(), "split": ttp.heads_split(H6CFG.num_heads),
+           "local_heads": ttp.local_heads(H6CFG.num_heads)}
+    sharded = mesh.shard_params(params, spec, H6CFG.num_heads)
+    res["local_shapes"] = tree_shapes(sharded)
+    res["roundtrip"] = mesh.gather_params(sharded, spec, H6CFG.num_heads)
+    st = mesh.shard_state({"params": params, "opt_state": optim.adamw(1e-3).init(params)}, spec,
+                          H6CFG.num_heads)
+    res["moment_shapes"] = tree_shapes(st["opt_state"].mu)
+
+    ttp.calls.clear()
+    loss, grads = _grads(lambda p: tret.forward(p, H6CFG, inp["flat"]).loss, sharded)
+    res["flat_calls"] = dict(ttp.calls)
+    res["flat"] = (float(loss), mesh.gather_params(grads, spec, H6CFG.num_heads))
+    ptok = _cat(inp["packed"])
+    loss, grads = _grads(lambda p: tret.forward_packed(p, H6CFG, ptok).loss, sharded)
+    res["packed"] = (float(loss), mesh.gather_params(grads, spec, H6CFG.num_heads))
+
+    index = tsem.build_index(torch.from_numpy(inp["cached"]), K)
+    beam = tgen.generate_next_sem_ids(sharded, H6CFG, index, inp["flat"]._replace(
+        sem_ids_fut=None, token_type_ids_fut=None), k=4, n_candidates=K)
+    res["beam"] = (beam.sem_ids, beam.log_probas)
+
+    # an uneven leaf still raises, and the retrieval layout needs the heads
+    res["raises"] = []
+    for fn in (lambda: mesh.shard_params({"layers": [{"codebook": torch.zeros(18, 8)}]},
+                                         mesh.rqvae_tp_spec),
+               lambda: mesh.shard_params(params, spec)):
+        try:
+            fn()
+            res["raises"].append(None)
+        except ValueError as e:
+            res["raises"].append(str(e))
+
+    cap = _Capture()
+    ttd.train(_decoder_cfg(root, "dec_h6_tp", mesh_shape=H6_MESH, tensor_parallel=True,
+                           **H6_TRAIN), logger=cap, device="cpu")
+    res["train"] = cap.records
+    res["eval"] = run_eval.evaluate_checkpoint(
+        _decoder_cfg(root, "dec_h6_tp", mesh_shape=H6_MESH, tensor_parallel=True, **H6_TRAIN),
+        split="eval", device="cpu")
+    return res
+
+
 def _worker(kind_dir: pathlib.Path):
     torch.set_num_threads(1)
     world = mesh.maybe_init_distributed("cpu")
@@ -317,6 +388,8 @@ def _worker(kind_dir: pathlib.Path):
     inp = torch.load(kind_dir / "inputs.pt", weights_only=False)
     res = {"steps": _worker_steps(inp, shape, kind_dir),
            "train": _worker_train(kind_dir.parent, shape)}
+    if world == 4:
+        res["whole_heads"] = _worker_whole_heads(inp, kind_dir.parent)
     torch.save(res, kind_dir / f"r{mesh.rank()}.pt")
 
 
@@ -366,6 +439,8 @@ def _jax_inputs():
 
     jcfg = jret.RetrievalConfig(**CFG_FIELDS)
     jp = jax.device_get(jax.jit(lambda key: jret.init(key, jcfg))(jax.random.PRNGKey(0)))
+    jcfg6 = jret.RetrievalConfig(**H6_FIELDS)
+    jp6 = jax.device_get(jax.jit(lambda key: jret.init(key, jcfg6))(jax.random.PRNGKey(6)))
     rq = {}
     for mode in RQ_MODES:
         jrc = jrq.RqVaeConfig(codebook_mode=jrq.QuantizeForwardMode[mode], **RQ_FIELDS,
@@ -380,12 +455,13 @@ def _jax_inputs():
         uniforms.append(np.asarray(jax.random.uniform(sub, (RQ_ROWS, K), dtype=np.float32)))
     inputs = {
         "params": convert.from_numpy(jp, device="cpu"),
+        "params6": convert.from_numpy(jp6, device="cpu"),
         "rq_params": {m: convert.from_numpy(p, device="cpu") for m, p in rq.items()},
         "flat": flat, "packed": _packed_tok(cached), "cached": cached,
         "rq_x": torch.from_numpy(np.random.RandomState(5).randn(RQ_ROWS, 16).astype(np.float32)),
         "uniforms": [torch.from_numpy(u.copy()) for u in uniforms],
     }
-    return inputs, jp, rq, key
+    return inputs, {"4": jp, "6": jp6}, rq, key
 
 
 @pytest.fixture(scope="module")
@@ -407,14 +483,19 @@ def runs(tmp_path_factory):
         # meanwhile: the one-process references
         one["dec_one"] = _Capture()
         ttd.train(_decoder_cfg(root, "dec_one"), logger=one["dec_one"], device="cpu")
+        one["dec_h6_one"] = _Capture()
+        ttd.train(_decoder_cfg(root, "dec_h6_one", **H6_TRAIN), logger=one["dec_h6_one"],
+                  device="cpu")
         ranks = {world: _wait(procs[world], dirs[world]) for world in WORLDS}
-        # the (2, 2) run's checkpoint scored by one process
+        # the (2, 2) and the 6-head (1, 4) runs' checkpoints scored by one process
         one_eval = run_eval.evaluate_checkpoint(_decoder_cfg(root, "dec_tp2x2"), split="eval",
                                                 device="cpu")
+        one_eval_h6 = run_eval.evaluate_checkpoint(_decoder_cfg(root, "dec_h6_tp", **H6_TRAIN),
+                                                   split="eval", device="cpu")
     finally:
         dispatch.set_execution_mesh(saved)
-    return dict(root=root, inputs=inputs, jp=jp, jrq=jrq_params, one=one, one_eval=one_eval,
-                ranks=ranks)
+    return dict(root=root, inputs=inputs, jp=jp["4"], jp6=jp["6"], jrq=jrq_params, one=one,
+                one_eval=one_eval, one_eval_h6=one_eval_h6, ranks=ranks)
 
 
 def _assert_tree_close(got, want, rtol, atol):
@@ -635,6 +716,122 @@ def test_tp_checkpoint_is_whole_and_restores_into_one_process(runs, stage):
 def test_run_eval_on_a_model_axis_equals_one_process(runs):
     one = runs["one_eval"]
     evs = [res["train"]["eval"] for res in runs["ranks"][4]]
+    assert all(ev == evs[0] for ev in evs)
+    assert one["n_users"] == evs[0]["n_users"] > 8
+    for k, v in one.items():
+        if isinstance(v, float):
+            np.testing.assert_allclose(evs[0][k], v, rtol=1e-6, atol=1e-6, err_msg=k)
+
+
+# ---- heads that do not divide over the model axis: 6 heads at (1, 4) ----
+
+def _whole_heads(runs):
+    return [res["whole_heads"] for res in runs["ranks"][4]]
+
+
+def test_whole_heads_layout_and_round_trip(runs):
+    import jax
+
+    from rqvae_tpu.models import retrieval as jret
+    from rqvae_tpu.parallel import mesh as jmesh
+
+    whole = runs["inputs"]["params6"]
+    jcfg = jret.RetrievalConfig(**H6_FIELDS)
+    jtree = jax.eval_shape(lambda: jret.init(jax.random.PRNGKey(0), jcfg))
+    jspecs = {jmesh._path_str(kp): jmesh._retrieval_tp_spec(jmesh._path_str(kp), leaf)
+              for kp, leaf in jax.tree_util.tree_flatten_with_path(jtree)[0]}
+    m = H6_MESH[1]
+    for res in _whole_heads(runs):
+        assert res["tp"] == m and not res["split"] and res["local_heads"] == 6
+        local = dict(res["local_shapes"])
+        n_whole = n_split = 0
+        for path, leaf in tree_leaves_with_path(whole):
+            p = mesh.path_str(path)
+            want = list(leaf.shape)
+            if any(k in f"/{p}" for k in ("/attn/", "/cross_attn/")):
+                n_whole += leaf.ndim == 2     # whole on every rank
+            elif "model" in tuple(jspecs[p]):
+                dim = tuple(jspecs[p]).index("model")   # JAX's dimension, a quarter of it
+                want[dim] //= m
+                n_split += 1
+            assert local[path] == tuple(want), (p, local[path], want)
+        assert n_whole == 2 * 2 + 2 * 5 and n_split >= 8   # encoder 2 a layer, decoder 5
+        assert res["moment_shapes"] == res["local_shapes"]
+        for (p, a), (_, b) in zip(tree_leaves_with_path(res["roundtrip"]),
+                                  tree_leaves_with_path(whole)):
+            assert torch.equal(a, b), p
+
+
+@pytest.mark.parametrize("path", ["flat", "packed"])
+def test_whole_heads_gradients_match_jax_unsharded(runs, path):
+    import jax
+    import jax.numpy as jnp
+
+    from rqvae_tpu.models import retrieval as jret
+    from rqvae_tpu.tokenizer import semids as jsem
+
+    jcfg = jret.RetrievalConfig(**H6_FIELDS)
+    if path == "flat":
+        from rqvae_tpu.data.schemas import TokenizedSeqBatch as JBatch
+
+        jtok = JBatch(**{k: jnp.asarray(v) for k, v in _flat_batch().items()})
+        fn = lambda p: jret.forward(p, jcfg, jtok).loss  # noqa: E731
+    else:
+        tok = _cat(runs["inputs"]["packed"])
+        jtok = jsem.PackedTokenizedBatch(*(jnp.asarray(t.numpy()) for t in tok))
+        fn = lambda p: jret.forward_packed(p, jcfg, jtok).loss  # noqa: E731
+    loss, grads = jax.jit(jax.value_and_grad(fn))(jax.tree.map(jnp.asarray, runs["jp6"]))
+    for res in _whole_heads(runs):
+        tloss, tgrads = res[path]
+        np.testing.assert_allclose(tloss, float(loss), rtol=2e-5)
+        _assert_tree_close(tgrads, jax.device_get(grads), rtol=2e-5, atol=1e-6)
+
+
+def test_whole_heads_collectives_and_beam_search(runs):
+    want = _flat_step_collectives(H6CFG.n_layers // 2, H6CFG.n_layers // 2, heads_split=False)
+    inputs = runs["inputs"]
+    index = tsem.build_index(torch.from_numpy(inputs["cached"]), K)
+    one = tgen.generate_next_sem_ids(inputs["params6"], H6CFG, index, inputs["flat"]._replace(
+        sem_ids_fut=None, token_type_ids_fut=None), k=4, n_candidates=K)
+    lp = one.log_probas.numpy()
+    apart = np.all(np.abs(np.diff(lp, axis=1)) > 1e-4, axis=1)
+    assert apart.sum() >= GLOBAL_ROWS // 2
+    for res in _whole_heads(runs):
+        assert res["flat_calls"] == want
+        ids, logp = res["beam"]
+        np.testing.assert_array_equal(ids.numpy()[apart], one.sem_ids.numpy()[apart])
+        np.testing.assert_allclose(logp.numpy(), lp, rtol=1e-5, atol=1e-5)
+
+
+def test_uneven_leaf_still_raises(runs):
+    for res in _whole_heads(runs):
+        uneven, no_heads = res["raises"]
+        assert uneven is not None and "does not divide over a model axis of 4" in uneven
+        assert no_heads is not None and "heads" in no_heads
+
+
+def test_whole_heads_train_loop_and_checkpoint_equal_one_process(runs):
+    want = runs["one"]["dec_h6_one"].records
+    for res in _whole_heads(runs):
+        common = _common_losses(res["train"], want)
+        assert len(common) >= 10
+        for key, (a, b) in common.items():
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7, err_msg=str(key))
+    root = runs["root"]
+    got, meta = checkpoint.restore(str(root / "dec_h6_tp"), device="cpu")
+    one, wmeta = checkpoint.restore(str(root / "dec_h6_one"), device="cpu")
+    assert meta["step"] == wmeta["step"]
+    assert tree_shapes(got["params"]) == tree_shapes(one["params"])
+    assert tree_shapes(got["opt_state"].mu) == tree_shapes(one["params"])
+    for (p, a), (_, b) in zip(tree_leaves_with_path(got["params"]),
+                              tree_leaves_with_path(one["params"])):
+        scale = max(float(b.abs().max()), 1e-12)
+        assert float((a - b).abs().max()) <= 1e-3 * scale, (p, float((a - b).abs().max()), scale)
+
+
+def test_whole_heads_run_eval_equals_one_process(runs):
+    one = runs["one_eval_h6"]
+    evs = [res["eval"] for res in _whole_heads(runs)]
     assert all(ev == evs[0] for ev in evs)
     assert one["n_users"] == evs[0]["n_users"] > 8
     for k, v in one.items():
