@@ -215,7 +215,14 @@ users and ratings, ML-1M whole). Phase 31 (``_ml_stage1``:
 (``_tp4``: ML-32M's 6 heads on four ranks at mesh (1, 4), whole on every
 rank), phase 32 (``_ml_decoder``: ``configs/decoder_ml32m.json`` as
 shipped through ``train_decoder.train``) and phase 33 (``_ml_branches``:
-``train()``'s packed and accumulating branches).
+``train()``'s packed and accumulating branches); its ML-1M RQ-VAE feeds
+phase 34 (``_ml1m_decoder``: ``configs/decoder_ml1m.json`` as shipped
+through ``train_decoder.train``). Every shipped decoder config trains in
+fp32, so phases 32-34 run the fp32 tensor-core route of the flat and span
+kernels (three TF32 products): each checks that every flat / span launch of
+its ``train()`` took that route and holds and times those kernels on its
+own layer-0 operands (``_fp32_row``), beside the twin, fp32
+``F.scaled_dot_product_attention`` and both bounds.
 
 TF32 is switched off for matmuls and cuDNN, so fp32 work runs in fp32.
 ``RQVAE_TPU_SHORT_FLASH`` is unset for phases 1-19, so they take
@@ -227,11 +234,11 @@ Amazon decoder under ``amazon``), a ``{"train_rqvae": {...}}`` line, a
 ``{"wide": {...}}`` line (phase 24), an ``{"offline": {...}}`` line (phase
 25), the ``{"dispatch"}``, ``{"distributed"}``, ``{"observability"}`` and
 ``{"tensor_parallel"}`` lines (phases 26-29), a ``{"movielens": {...}}``
-line (phases 30-33), the nvidia-smi line again, a ``{"kernels": [...]}``
+line (phases 30-34), the nvidia-smi line again, a ``{"kernels": [...]}``
 line (nine entries; rq_tokenize's and children_window's also carry phase
-25's launches as ``offline_launches``; phases 30, 31 and 33's shapes are
-added to the entries' ``at_shapes``) and, last, ``{"ok": true, "device":
-{...}}``.
+25's launches as ``offline_launches``; phases 30-34's shapes are added to
+the entries' ``at_shapes``, the fp32 kernels' rows under an ``fp32`` key)
+and, last, ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before the last line; so does a machine without
 a GPU. Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -283,6 +290,8 @@ OFFLINE_CPU_USERS = 64  # phase 25's fp32 eval on the card and on the CPU
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32, outside the tensor cores
 BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
+TF32_FLOP_PER_S = 495e12    # H100 SXM TF32 tensor cores, dense
+FP32_FLOP_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 EXP_PER_S = 132 * 16 * 1.98e9   # H100 SXM ex2 on the special-function units, 1.98 GHz boost
 
 
@@ -541,15 +550,18 @@ def main() -> int:
         # points; phase 31 runs first, since its ML-32M RQ-VAE feeds the others ----
         roots = {}
         roots["ml32m"], roots["ml1m"], ml_data = _movielens_data(work)
-        ml_stage1, rq32_ckpt, rq_shapes = _ml_stage1(dev, work, roots)
+        ml_stage1, rq32_ckpt, rq1m_ckpt, rq_shapes = _ml_stage1(dev, work, roots)
         torch.cuda.empty_cache()
         tp4 = _tp4(dev, work, roots, rq32_ckpt, smi)
         torch.cuda.empty_cache()
-        ml_decoder = _ml_decoder(dev, work, roots, rq32_ckpt)
+        ml_decoder, long_row = _ml_decoder(dev, work, roots, rq32_ckpt)
         torch.cuda.empty_cache()
-        ml_branches, span_shape = _ml_branches(dev, work, roots, rq32_ckpt)
+        ml_branches, span_shape, packed_row = _ml_branches(dev, work, roots, rq32_ckpt)
+        torch.cuda.empty_cache()
+        # ---- phase 34: decoder_ml1m.json through train() ----
+        ml1m_decoder, ml1m_row = _ml1m_decoder(dev, work, roots, rq1m_ckpt)
     movielens = dict(data=ml_data, tp_1x4=tp4, stage1=ml_stage1, decoder_ml32m=ml_decoder,
-                     branches=ml_branches)
+                     branches=ml_branches, decoder_ml1m=ml1m_decoder)
     by_name = {e["name"]: e for e in kernels}
     for name, shapes in rq_shapes.items():
         by_name[name]["at_shapes"].update(shapes)
@@ -558,6 +570,18 @@ def main() -> int:
             dt: tp4["ranks"][0]["ml32m"][dt]["twins"] for dt in ("fp32", "bf16")}
         by_name[f"flash_attention_spans_{d}"].setdefault("at_shapes", {})[
             "ml32m_packed_train_layer0"] = span_shape
+    # the fp32 tensor-core kernels at the shipped decoder configs' shapes:
+    # each direction's own numbers beside the phase's operands and bounds
+    for name, shape, row in (("flash_attention", "ml1m_flat_layer0", ml1m_row),
+                             ("flash_attention", "ml32m_long_bucket_layer0", long_row),
+                             ("flash_attention_spans", "ml32m_packed_layer0", packed_row)):
+        for d in ("fwd", "bwd"):
+            fp32 = {k: v for k, v in row[d].items()}
+            fp32.update(route=row["routes"][d], launches_per_step=row["launches_per_step"],
+                        max_abs_err=row["max_abs_err"], shape=row["shape"],
+                        **{k: v for k, v in row["bounds"][d].items()},
+                        pairs=row["bounds"]["pairs"], dense_pairs=row["bounds"]["dense_pairs"])
+            by_name[f"{name}_{d}"].setdefault("at_shapes", {})[shape] = {"fp32": fp32}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"train_rqvae": train_rqvae}), flush=True)
@@ -940,7 +964,14 @@ def _ml32m(dev):
             got = fa.flash_attention_bwd(*a, mm, inv, k_mask=case_mask, causal=causal)
             want = fa.flash_attention_bwd_plain(*a, k_mask=case_mask, causal=causal)
             torch.cuda.synchronize()
-            row = {"dtype": str(dtype)[6:], "case": case, "tol": tol}
+            row = {"dtype": str(dtype)[6:], "case": case, "tol": tol,
+                   "routes": [fa.kernel_route(fa.flash_attention_fwd, *a[:3], out),
+                              fa.kernel_route(fa.flash_attention_bwd, *a)]}
+            # Dh = 64 on aligned rows takes the tensor cores: bf16 on wgmma, fp32 as
+            # three TF32 products; the unaligned views the CUDA cores
+            want_route = ("cuda_cores" if case == "unaligned" else
+                          "wgmma_bf16" if dtype == torch.bfloat16 else "tf32x3")
+            check(row["routes"] == [want_route] * 2, f"flash {case} {dtype} routes {row['routes']}")
             row.update(_hold_stats(f"flash {case} {dtype}", dtype, mm, inv, ref_m, ref_inv))
             for name, x, y in (("out", out, ref), ("dq", got[0], want[0]), ("dk", got[1], want[1]),
                                ("dv", got[2], want[2])):
@@ -1271,7 +1302,11 @@ def _packed(dev):
             got = fa.flash_attention_spans_bwd(*a[:3], *spans, a[3], mm, inv)
             want = fa.flash_attention_spans_bwd_plain(*a[:3], *spans, a[3])
             torch.cuda.synchronize()
-            row = {"dtype": str(dtype)[6:], "case": case, "nq": nq, "tol": tol}
+            row = {"dtype": str(dtype)[6:], "case": case, "nq": nq, "tol": tol,
+                   "routes": [fa.kernel_route(fa.flash_attention_spans_fwd, *a[:3], out),
+                              fa.kernel_route(fa.flash_attention_spans_bwd, *a)]}
+            want_route = "wgmma_bf16" if dtype == torch.bfloat16 else "tf32x3"
+            check(row["routes"] == [want_route] * 2, f"spans {case} {dtype} routes {row['routes']}")
             row.update(_hold_stats(f"spans {case} {dtype}", dtype, mm, inv, ref_m, ref_inv))
             for name, x, y in (("out", out, ref), ("dq", got[0], want[0]), ("dk", got[1], want[1]),
                                ("dv", got[2], want[2])):
@@ -2740,6 +2775,119 @@ def _hold_stats(what, dtype, m, inv, ref_m, ref_inv) -> dict:
     return row
 
 
+def _fp32_flash_bounds(kind, q, k, mask) -> dict:
+    """The least time of the fp32 flat or span kernels' work on these
+    operands, two ways: operations over the allowed (q, k) pairs (4 Dh
+    forward, 10 Dh backward, the TPU cost estimate's count) at the fp32
+    CUDA-core peak, and as three TF32 products at the TF32 tensor peak; each
+    beside the bytes (q, out, g and the gradients for every row, K and V for
+    the keys some row attends, the statistics and the mask) at the HBM rate."""
+    import torch
+
+    from rqvae_tpu_torch.ops import flash_attention as fa
+
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
+    if kind == "flat":
+        valid = (torch.ones((b, nk), dtype=torch.bool, device=q.device) if mask.get("k_mask") is None
+                 else mask["k_mask"].reshape(b, nk))
+        allowed = valid[:, None, :].expand(b, nq, nk)
+        if mask.get("causal"):
+            allowed = allowed & torch.ones((nq, nk), dtype=torch.bool, device=q.device).tril()
+        mask_bytes = 4 * b * nk
+    else:
+        allowed = fa.span_mask((mask["lo"], mask["hi"], mask["extra"]), nk)
+        mask_bytes = 12 * b * nq
+    pairs = h * int(allowed.sum())
+    kv_bytes = 4 * 2 * h * dh * int(allowed.any(dim=1).sum())
+    row_bytes = 4 * b * h * nq * dh
+    out = {"pairs": pairs, "dense_pairs": b * h * nq * nk}
+    for d, ops, nbytes in (
+            ("fwd", 4 * dh * pairs, 2 * row_bytes + kv_bytes + mask_bytes + 8 * b * h * nq),
+            ("bwd", 10 * dh * pairs, 3 * row_bytes + 8 * b * h * nk * dh + kv_bytes + mask_bytes
+             + 12 * b * h * nq)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_simt, t_tf32 = ops / FP32_FLOP_PER_S * 1e3, 3 * ops / TF32_FLOP_PER_S * 1e3
+        out[d] = dict(ops=ops, bytes=nbytes, bound_simt_ms=max(t_simt, t_bytes),
+                      bound_simt_by="operations" if t_simt > t_bytes else "bytes",
+                      bound_tf32x3_ms=max(t_tf32, t_bytes),
+                      bound_tf32x3_by="operations" if t_tf32 > t_bytes else "bytes")
+    return out
+
+
+def _sdpa_backend(fn) -> dict:
+    """The device kernels one call of ``fn`` runs, by device time, and the
+    backend of ``F.scaled_dot_product_attention`` they name."""
+    top = _profile(fn, top=4)["top_device_ops"]
+    names = " ".join(t[0] for t in top).lower()
+    backend = ("efficient" if "fmha" in names or "efficient" in names
+               else "flash" if "flash" in names else "math" if top else "not traced")
+    return dict(backend=backend, top_kernels=top)
+
+
+def _fp32_flash_times(kind, q, k, v, g, *, sdpa: bool = True, **mask) -> dict:
+    """The fp32 flat (``kind`` "flat": ``k_mask``, ``causal``) or span
+    ("spans": ``lo``, ``hi``, ``extra``) kernels on these operands: each
+    direction's route, CUDA-event ms, profiler device ms and the twin's ms;
+    with ``sdpa``, ``F.scaled_dot_product_attention``'s fp32 ms with the mask
+    as an additive bias and its backend; the bounds of
+    ``_fp32_flash_bounds``."""
+    import torch
+    import torch.nn.functional as F
+
+    from rqvae_tpu_torch.ops import flash_attention as fa
+
+    if kind == "flat":
+        km, causal = mask.get("k_mask"), bool(mask.get("causal", False))
+        wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd)
+        fwd = lambda: fa.flash_attention_fwd(q, k, v, k_mask=km, causal=causal)   # noqa: E731
+        out, m, inv = fwd()
+        bwd = lambda: fa.flash_attention_bwd(q, k, v, g, m, inv, k_mask=km, causal=causal)  # noqa: E731
+        plain = (lambda: fa.flash_attention_plain(q, k, v, k_mask=km, causal=causal),
+                 lambda: fa.flash_attention_bwd_plain(q, k, v, g, k_mask=km, causal=causal))
+        bias = fa._key_masker(fa.mask_bias(km, q.shape[0], k.shape[2], q.device), causal)(
+            torch.zeros((q.shape[0], 1, q.shape[2] if causal else 1, k.shape[2]), device=q.device))
+    else:
+        sp = (mask["lo"], mask["hi"], mask["extra"])
+        wrappers = (fa.flash_attention_spans_fwd, fa.flash_attention_spans_bwd)
+        fwd = lambda: fa.flash_attention_spans_fwd(q, k, v, *sp)   # noqa: E731
+        out, m, inv = fwd()
+        bwd = lambda: fa.flash_attention_spans_bwd(q, k, v, *sp, g, m, inv)   # noqa: E731
+        plain = (lambda: fa.flash_attention_spans_plain(q, k, v, *sp),
+                 lambda: fa.flash_attention_spans_bwd_plain(q, k, v, *sp, g))
+        bias = torch.where(fa.span_mask(sp, k.shape[2])[:, None], 0.0, fa.NEG_INF).float()
+    res = {"routes": {"fwd": fa.kernel_route(wrappers[0], q, k, v, out),
+                      "bwd": fa.kernel_route(wrappers[1], q, k, v, g)}}
+    for d, fn, tw in (("fwd", fwd, plain[0]), ("bwd", bwd, plain[1])):
+        # a late profiler trace can drop device records (PERF.md §7): 0 is
+        # recorded as not measured, and the CUDA events are the time
+        res[d] = dict(ms=cuda_ms(fn, 10 if d == "fwd" else 5, warmup=2),
+                      device_ms=_device_ms(fn, 3, "flash") or None,
+                      plain_ms=cuda_ms(tw, 2, warmup=1),
+                      kernels=[k for k in _profile(fn, top=6)["top_device_ops"] if "flash" in k[0]])
+        torch.cuda.empty_cache()
+    if sdpa:
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+
+        def lib_both():
+            torch.autograd.backward(lib_fwd(), g)
+
+        with torch.no_grad():
+            res["fwd"]["sdpa_ms"] = cuda_ms(lib_fwd, 5, warmup=2)
+            res["fwd"]["sdpa"] = _sdpa_backend(lib_fwd)
+        both = cuda_ms(lib_both, 5, warmup=2)
+        res["bwd"]["sdpa_ms"] = both - res["fwd"]["sdpa_ms"]
+        res["bwd"]["sdpa_fwd_bwd_ms"] = both
+        res["bwd"]["sdpa"] = _sdpa_backend(lib_both)
+        del leaves
+        torch.cuda.empty_cache()
+    res["bounds"] = _fp32_flash_bounds(kind, q, k, mask)
+    return res
+
+
 @contextlib.contextmanager
 def _record_children_window(semids, name: str = "children_window_mask"):
     """Record the operands of every call the beam search makes through
@@ -3973,6 +4121,95 @@ ML_DEC_EXTRA = ()          # overrides after the decoder config's (a CPU rehears
 ML_PACK_ROWS = 16          # phase 33 (a): packed rows a step (the config packs none)
 ML_BRANCH_ITERS = 10       # phase 33's steps a branch
 ML_CPU_USERS = 2           # phase 32's fp32 steps held against the CPU
+ML1M_DEC_ITERS = 30        # phase 34's steps (decoder_ml1m.json: 100,000)
+
+
+def _flat_span_wrappers() -> dict:
+    """The flat and span wrappers, whose launches are also counted by route."""
+    from rqvae_tpu_torch.ops import flash_attention as fa
+
+    return {w.__name__: w for w in (fa.flash_attention_fwd, fa.flash_attention_bwd,
+                                    fa.flash_attention_spans_fwd, fa.flash_attention_spans_bwd)}
+
+
+def _zero_routes() -> None:
+    for w in _flat_span_wrappers().values():
+        w.route_launches = dict.fromkeys(w.route_launches, 0)
+
+
+def _routes_used() -> dict:
+    """Each flat / span wrapper's launches by route since ``_zero_routes``
+    (the routes it took)."""
+    return {name: {r: n for r, n in w.route_launches.items() if n}
+            for name, w in _flat_span_wrappers().items() if w.launches}
+
+
+@contextlib.contextmanager
+def _flash_recorder(min_len: int):
+    """Record the first differentiable ``attend`` flat flash call whose keys
+    number ``min_len`` or more (encoder layer 0 of the first such step): q,
+    k, v, the key mask and, once the backward has run, its upstream g."""
+    from rqvae_tpu_torch.ops import attention as attn_ops
+
+    rec, real = {}, attn_ops.flash_attention
+
+    def record(q, k, v, *, k_mask=None, causal=False):
+        out = real(q, k, v, k_mask=k_mask, causal=causal)
+        if not rec and q.requires_grad and k.shape[2] >= min_len:
+            rec.update(q=q.detach(), k=k.detach(), v=v.detach(), k_mask=k_mask, causal=causal)
+            out.register_hook(lambda g: rec.__setitem__("g", g.detach()))
+        return out
+
+    attn_ops.flash_attention = record
+    try:
+        yield rec
+    finally:
+        attn_ops.flash_attention = real
+
+
+def _fp32_held(kind, q, k, v, g, **mask) -> dict:
+    """The flat or span wrappers' out, dq, dk, dv against the twins'
+    (``_fp32_flash_times``' arguments): {name: (max |err|, within 1e-4)}."""
+    import torch
+
+    from rqvae_tpu_torch.ops import flash_attention as fa
+
+    if kind == "flat":
+        out, m, inv = fa.flash_attention_fwd(q, k, v, **mask)
+        got = (out,) + fa.flash_attention_bwd(q, k, v, g, m, inv, **mask)
+        want = (fa.flash_attention_plain(q, k, v, **mask),) + fa.flash_attention_bwd_plain(
+            q, k, v, g, **mask)
+    else:
+        sp = (mask["lo"], mask["hi"], mask["extra"])
+        out, m, inv = fa.flash_attention_spans_fwd(q, k, v, *sp)
+        got = (out,) + fa.flash_attention_spans_bwd(q, k, v, *sp, g, m, inv)
+        want = (fa.flash_attention_spans_plain(q, k, v, *sp),) + \
+            fa.flash_attention_spans_bwd_plain(q, k, v, *sp, g)
+    held = {name: (float((x - y).abs().max()), bool(torch.allclose(x, y, rtol=1e-4, atol=1e-4)))
+            for name, x, y in zip(("out", "dq", "dk", "dv"), got, want)}
+    del got, want, out
+    torch.cuda.empty_cache()
+    return held
+
+
+def _fp32_row(kind, q, k, v, g, per_step: int, **mask) -> dict:
+    """The fp32 kernels on a phase's own operands (the upstream gradient
+    scaled to unit RMS), held against the twins (1e-4) and timed
+    (``_fp32_flash_times``), with the phase's launches a step: an
+    ``at_shapes`` entry's ``fp32`` key."""
+    import torch
+
+    from rqvae_tpu_torch.ops import flash_attention as fa
+
+    check(q.dtype == torch.float32, f"fp32 row on {q.dtype} operands")
+    g = g / g.pow(2).mean().sqrt()   # the loss's upstream gradient at unit RMS, as in phase 7
+    held = _fp32_held(kind, q, k, v, g, **mask)
+    errs = {name: err for name, (err, _) in held.items()}
+    for name, (err, ok) in held.items():
+        check(ok, f"fp32 {kind} kernels {name} differ from the twin by {err}")
+    res = _fp32_flash_times(kind, q, k, v, g, **mask)
+    check(res["routes"] == {"fwd": "tf32x3", "bwd": "tf32x3"}, f"fp32 routes {res['routes']}")
+    return dict(shape=list(q.shape), max_abs_err=errs, launches_per_step=per_step, **res)
 
 
 def _ml_config(cls, name: str, overrides) -> object:
@@ -4026,8 +4263,8 @@ def _ml_stage1(dev, work: str, roots: dict) -> tuple:
     D = 64 on the run's own operands; one fp32 step of each config on the
     card against the CPU on a batch of the config's 64 rows, the Gumbel
     uniforms injected (the card's and the CPU's generators draw other
-    streams). Returns (result, ML-32M checkpoint, at_shapes entries for the
-    two quantizer kernels)."""
+    streams). Returns (result, ML-32M checkpoint, ML-1M checkpoint, at_shapes
+    entries for the two quantizer kernels)."""
     import torch
 
     from rqvae_tpu_torch.data import dataset as dataset_lib
@@ -4038,7 +4275,7 @@ def _ml_stage1(dev, work: str, roots: dict) -> tuple:
     from rqvae_tpu_torch.train import train_rqvae as tr
     from rqvae_tpu_torch.utils.tree import tree_map
 
-    res, at_shapes = {}, {}
+    res, at_shapes, ckpts = {}, {}, {}
     for name, dataset in (("rqvae_ml32m", "ml32m"), ("rqvae_ml1m", "ml1m")):
         cfg = _ml_config(tr.RqVaeTrainConfig, name, [
             f"data_path={roots[dataset]}", f"iterations={ML_RQ_ITERS}",
@@ -4129,10 +4366,10 @@ def _ml_stage1(dev, work: str, roots: dict) -> tuple:
                                    worst_grad_leaf=_grads_close(
                                        gg, gc, 1e-3, f"phase 31 {name} GPU vs CPU gradients"))
         res[name] = entry
+        ckpts[name] = cfg.save_dir_root
         log(f"phase 31, {name}: {entry}")
 
         if name == "rqvae_ml32m":
-            rq32_ckpt = cfg.save_dir_root
             xs, cbs = fused["x"], fused["cbs"]
             check(tuple(xs.shape) == (cfg.batch_size, 64), f"recorded operands {tuple(xs.shape)}")
             with torch.no_grad():
@@ -4169,7 +4406,7 @@ def _ml_stage1(dev, work: str, roots: dict) -> tuple:
                 timed, rows_differ=held[0], near_tie_rows=held[1], max_abs_err=held[3])}
         del state
         torch.cuda.empty_cache()
-    return res, rq32_ckpt, at_shapes
+    return res, ckpts["rqvae_ml32m"], ckpts["rqvae_ml1m"], at_shapes
 
 
 def _ml_decoder_cfg(roots: dict, rq_ckpt: str, save: str, iterations: int, *extra):
@@ -4230,7 +4467,10 @@ def _ml_decoder(dev, work: str, roots: dict, rq_ckpt: str) -> dict:
     the loss finite and falling; ``children_window_mask`` and
     ``rq_tokenize`` in the generative eval; two fp32 bucketed steps at
     dropout 0 on ML_CPU_USERS users, the card against the CPU, each from the
-    card's state (loss 1e-4 relative, gradients ``_grads_close``)."""
+    card's state (loss 1e-4 relative, gradients ``_grads_close``); every flat
+    launch of the run on the fp32 tensor-core route, and those kernels held
+    and timed on the long bucket's layer-0 operands (``_fp32_row``).
+    Returns (result, that row)."""
     import numpy as np
     import torch
 
@@ -4249,10 +4489,17 @@ def _ml_decoder(dev, work: str, roots: dict, rq_ckpt: str) -> dict:
     buckets, record, real_slices = _bucket_recorder(td)
     td.bucket_slices = record
     try:
-        records, launches, wall_s, _ = _ml_train(cfg, dev)
+        _zero_routes()
+        with _flash_recorder(256) as rec:
+            records, launches, wall_s, _ = _ml_train(cfg, dev)
+        routes = _routes_used()
         resumed = _ml_train(_ml_decoder_cfg(roots, rq_ckpt, save, ML_DEC_RESUME_ITERS), dev)[0]
     finally:
         td.bucket_slices = real_slices
+    # every flat launch of the run (steps and evals) on the fp32 tensor-core route
+    check(routes == {n: {"tf32x3": launches.get(n, 0)} for n in ("flash_attention_fwd",
+                                                          "flash_attention_bwd")},
+          f"phase 32 routes {routes}, launches {launches}")
     logs = [r for r in records if "total_loss" in r]
     losses = [r["total_loss"] for r in logs]
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
@@ -4290,7 +4537,12 @@ def _ml_decoder(dev, work: str, roots: dict, rq_ckpt: str) -> dict:
                eval={k: v for k, v in evals[0].items() if k != "t" and "launches" not in k},
                generative_eval={k: v for k, v in gen_evals[0].items()
                                 if k != "t" and "launches" not in k},
-               resumed_first_step=resumed_steps[0])
+               resumed_first_step=resumed_steps[0], routes=routes)
+    row = _fp32_row("flat", rec["q"], rec["k"], rec["v"], rec["g"].contiguous(), 4,
+                    k_mask=rec["k_mask"], causal=rec["causal"])
+    log(f"phase 32 fp32 kernels on the long bucket's layer-0 operands: {row}")
+    del rec
+    torch.cuda.empty_cache()
 
     # two fp32 bucketed steps at dropout 0, the card against the CPU
     bundle = registry.load(registry.RecDataset.ML_32M, roots["ml32m"])
@@ -4342,7 +4594,7 @@ def _ml_decoder(dev, work: str, roots: dict, rq_ckpt: str) -> dict:
         start = nxt
     out["gpu_vs_cpu"] = dict(users=ML_CPU_USERS, steps=steps)
     log(f"phase 32, decoder_ml32m.json through train(): {out}")
-    return out
+    return out, row
 
 
 def _ml_branches(dev, work: str, roots: dict, rq_ckpt: str) -> tuple:
@@ -4354,7 +4606,10 @@ def _ml_branches(dev, work: str, roots: dict, rq_ckpt: str) -> tuple:
     (b) ``gradient_accumulate_every`` = 2: 8 + 8 flat flash launches a step,
     and on the card the accumulating step's first update equals one flat
     step on the whole batch at dropout 0 (fp32, leaves 1e-3 of max-abs).
-    Returns (result, at_shapes entries of the span kernels)."""
+    Every flat and span launch of both runs takes the fp32 tensor-core
+    route; the span kernels are held and timed on (a)'s layer-0 operands
+    (``_fp32_row``). Returns (result, at_shapes entries of the span kernels,
+    that row)."""
     import numpy as np
     import torch
 
@@ -4385,7 +4640,9 @@ def _ml_branches(dev, work: str, roots: dict, rq_ckpt: str) -> tuple:
     try:
         cfg = _ml_decoder_cfg(roots, rq_ckpt, f"{work}/packed", ML_BRANCH_ITERS,
                               "length_buckets=1", f"packed_rows={ML_PACK_ROWS}", "log_every=2")
+        _zero_routes()
         records, launches, wall_s, _ = _ml_train(cfg, dev)
+        routes = _routes_used()
     finally:
         attn_ops.flash_attention_spans = real_spans
         attn_ops.flash_attention_spans_plain = real_plain
@@ -4397,6 +4654,11 @@ def _ml_branches(dev, work: str, roots: dict, rq_ckpt: str) -> tuple:
                   "flash_attention_fwd": 0, "flash_attention_bwd": 0},
           f"phase 33 packed launches a step {per}")
     check(all(math.isfinite(x) for x in losses), f"phase 33 packed losses {losses}")
+    # every span launch of the run on the fp32 tensor-core route (the flat
+    # ones: the evals' unpacked batches)
+    check(all(r == {"tf32x3": launches.get(n, 0)} for n, r in routes.items())
+          and {"flash_attention_spans_fwd", "flash_attention_spans_bwd"} <= set(routes),
+          f"phase 33 packed routes {routes}, launches {launches}")
     q, k, v, lo, hi, extra = seen[0]
     g = torch.randn(q.shape, generator=torch.Generator(device=q.device).manual_seed(SEED + 33),
                     device=q.device).to(q.dtype)
@@ -4412,17 +4674,26 @@ def _ml_branches(dev, work: str, roots: dict, rq_ckpt: str) -> tuple:
     span_shape = {"shape": list(q.shape), "dtype": str(q.dtype), "rel_err": errs}
     out["packed"] = dict(rows=ML_PACK_ROWS, slots=cfg.pack_slots, iterations=ML_BRANCH_ITERS,
                          wall_s=wall_s, step_ms=_step_ms(records), losses=losses,
-                         launches_per_step=per, twins=span_shape)
+                         launches_per_step=per, twins=span_shape, routes=routes)
+    row = _fp32_row("spans", q, k, v, g, 4, lo=lo, hi=hi, extra=extra)
+    log(f"phase 33 fp32 span kernels on the packed step's layer-0 operands: {row}")
+    del q, k, v, g, outs
+    torch.cuda.empty_cache()
 
     # ---- (b) gradient accumulation ----
     cfg = _ml_decoder_cfg(roots, rq_ckpt, f"{work}/accum", ML_BRANCH_ITERS,
                           "length_buckets=1", "gradient_accumulate_every=2", "log_every=2")
+    _zero_routes()
     records, launches, wall_s, _ = _ml_train(cfg, dev)
+    accum_routes = _routes_used()
     per = {k: _per_step(records, k) for k in ("flash_attention_fwd", "flash_attention_bwd")}
     losses = [r["total_loss"] for r in records if "total_loss" in r]
     check(per == {"flash_attention_fwd": 8, "flash_attention_bwd": 8}
           and all(math.isfinite(x) for x in losses),
           f"phase 33 accumulation: launches a step {per}, losses {losses}")
+    check(accum_routes == {n: {"tf32x3": launches.get(n, 0)} for n in ("flash_attention_fwd",
+                                                                "flash_attention_bwd")},
+          f"phase 33 accumulation routes {accum_routes}, launches {launches}")
     # the first update of the accumulating step against one flat step on the whole batch
     bundle = registry.load(registry.RecDataset.ML_32M, roots["ml32m"])
     model_cfg = dataclasses.replace(cfg.retrieval_config(bundle.max_seq_len), dropout=0.0,
@@ -4458,13 +4729,123 @@ def _ml_branches(dev, work: str, roots: dict, rq_ckpt: str) -> tuple:
         worst, skipped = max(worst, err / scale if scale else 0.0), skipped + int((~live).sum())
     out["accumulate"] = dict(gradient_accumulate_every=2, iterations=ML_BRANCH_ITERS,
                              wall_s=wall_s, step_ms=_step_ms(records), losses=losses,
-                             launches_per_step=per,
+                             launches_per_step=per, routes=accum_routes,
                              first_update_vs_flat=dict(rows=32, loss_rel_err=loss_rel,
                                                        worst_grad_leaf=grad_rel,
                                                        worst_leaf_rel_err=worst,
                                                        near_zero_gradient_entries=skipped))
     log(f"phase 33, train()'s packed and accumulating branches: {out}")
-    return out, span_shape
+    return out, span_shape, row
+
+
+def _ml1m_decoder(dev, work: str, roots: dict, rq_ckpt: str) -> tuple:
+    """Phase 34: ``configs/decoder_ml1m.json`` as shipped (batch 128, 8 heads
+    x 64, 512 wide, 4 + 4 layers, 801 tokens, fp32, dropout 0.3) through
+    ``train_decoder.train`` on the ML-1M fixture's artifacts over phase 31's
+    Gumbel RQ-VAE: ML1M_DEC_ITERS steps, an eval batch, a checkpoint. The
+    loss finite and falling; 4 + 4 flat flash launches a step, every flat
+    launch of the run on the fp32 tensor-core route; the kernels held and
+    timed on the first step's layer-0 encoder operands (``_fp32_row``); one
+    traced step from the checkpoint (device busy time, idle share); one fp32
+    step at dropout 0 on ML_CPU_USERS eval rows, the card against the CPU
+    from the card's state (loss 1e-4 relative, gradients ``_grads_close``
+    1e-3). Returns (result, the kernels' row)."""
+    import numpy as np
+    import torch
+
+    from rqvae_tpu_torch.data import dataset as dataset_lib
+    from rqvae_tpu_torch.data import registry
+    from rqvae_tpu_torch.tokenizer import semids
+    from rqvae_tpu_torch.train import checkpoint, optim
+    from rqvae_tpu_torch.train import train_decoder as td
+    from rqvae_tpu_torch.utils.tree import tree_map
+
+    save = f"{work}/decoder_ml1m"
+    cfg = _ml_config(td.DecoderTrainConfig, "decoder_ml1m", [
+        f"data_path={roots['ml1m']}", f"pretrained_rqvae_path={rq_ckpt}", f"save_dir_root={save}",
+        f"iterations={ML1M_DEC_ITERS}", f"seed={SEED}", "log_every=5",
+        f"partial_eval_every={ML1M_DEC_ITERS}", f"full_eval_every={ML1M_DEC_ITERS}",
+        f"save_model_every={ML1M_DEC_ITERS}", "eval_batches=1", *ML_DEC_EXTRA])
+    check((cfg.batch_size, cfg.length_buckets, cfg.dropout_p, cfg.attn_embed_dim, cfg.attn_heads,
+           cfg.attn_layers, cfg.amp) == (128, 1, 0.3, 512, 8, 8, False),
+          f"decoder_ml1m.json is not as shipped: {cfg}")
+    _zero_routes()
+    with _flash_recorder(256) as rec:
+        records, launches, wall_s, _ = _ml_train(cfg, dev)
+    routes = _routes_used()
+    logs = [r for r in records if "total_loss" in r]
+    losses = [r["total_loss"] for r in logs]
+    check(all(math.isfinite(x) for x in losses) and sum(losses[-2:]) / 2 < losses[0],
+          f"phase 34 losses {losses}")
+    per = {k: _per_step(records, k) for k in ("flash_attention_fwd", "flash_attention_bwd")}
+    check(per == {"flash_attention_fwd": 4, "flash_attention_bwd": 4},
+          f"phase 34 flash launches a step {per}")
+    check(routes == {n: {"tf32x3": launches.get(n, 0)} for n in ("flash_attention_fwd",
+                                                          "flash_attention_bwd")},
+          f"phase 34 routes {routes}, launches {launches}")
+    evals = [r for r in records if "eval_loss" in r]
+    gen_evals = [r for r in records if "ndcg@10" in r]
+    check(len(evals) == len(gen_evals) == 1 and math.isfinite(evals[0]["eval_loss"])
+          and all(0.0 <= v <= 1.0 for k, v in gen_evals[0].items() if k.startswith(("h@", "ndcg")))
+          and checkpoint.latest_step(save) == ML1M_DEC_ITERS - 1,
+          f"phase 34 evals {evals} {gen_evals}, checkpoint {checkpoint.latest_step(save)}")
+    out = dict(batch=cfg.batch_size, iterations=ML1M_DEC_ITERS, wall_s=wall_s, losses=losses,
+               step_ms=_step_ms(records), launches=launches, flash_launches_per_step=per,
+               routes=routes,
+               eval={k: v for k, v in evals[0].items() if k != "t" and "launches" not in k},
+               generative_eval={k: v for k, v in gen_evals[0].items()
+                                if k != "t" and "launches" not in k})
+    row = _fp32_row("flat", rec["q"], rec["k"], rec["v"], rec["g"].contiguous(), 4,
+                    k_mask=rec["k_mask"], causal=rec["causal"])
+    log(f"phase 34 fp32 kernels on the first step's layer-0 operands: {row}")
+    del rec
+    torch.cuda.empty_cache()
+
+    # one traced step of the config from the checkpoint, and one fp32 step at
+    # dropout 0, the card against the CPU
+    bundle = registry.load(registry.RecDataset.ML_1M, roots["ml1m"])
+    model_cfg = cfg.retrieval_config(bundle.max_seq_len)
+    vae_params, vae_cfg = td.load_frozen_rqvae(cfg, device=dev)
+    index = semids.precompute_corpus_ids(vae_params, vae_cfg, torch.from_numpy(
+        dataset_lib.features_for_model(bundle.items.x, vae_cfg.input_dim)).to(dev))
+    state, _ = checkpoint.restore(save, device=dev)
+    opt = optim.adamw(optim.inv_sqrt_schedule(cfg.learning_rate, cfg.warmup_steps),
+                      cfg.weight_decay)
+    rows = np.arange(min(cfg.batch_size, len(bundle.train_seqs)))
+    batch = dataset_lib.to_device(dataset_lib.make_seq_batch(
+        bundle.train_seqs.batch_at(rows), bundle.items.x, with_features=False), dev)
+    batch = type(batch)(*(t[None] for t in batch))
+    step = td.make_train_step(model_cfg, opt, index, 1, torch.float32, model_cfg.sem_id_dim)
+    traced = [tree_map(lambda t: t.clone(), state["params"])]
+    traced.append(opt.init(traced[0]))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+
+    def one_step():
+        traced[0], traced[1], _ = step(traced[0], traced[1], batch, gen)
+
+    out["step_profile"] = _profile(one_step, top=8)
+    del traced, batch
+    torch.cuda.empty_cache()
+    cfg0 = dataclasses.replace(model_cfg, dropout=0.0, input_dropout=0.0)
+    raw = bundle.eval_seqs.batch_at(np.arange(ML_CPU_USERS))
+    res = {}
+    for where in (dev, torch.device("cpu")):
+        idx = semids.CorpusIndex(index.cached_ids.to(where), index.sorted_keys.to(where),
+                                 index.bases, index.codebook_size, index.n_distinct)
+        rec_opt = _Recorded(opt)
+        p = tree_map(lambda t: t.to(where).clone(), state["params"])
+        one = td.make_train_step(cfg0, rec_opt, idx, 1, torch.float32, cfg0.sem_id_dim)
+        b1 = dataset_lib.to_device(dataset_lib.make_seq_batch(raw, bundle.items.x,
+                                                              with_features=False), where)
+        _, _, m = one(p, rec_opt.init(p), type(b1)(*(t[None] for t in b1)), None)
+        res[where.type] = (float(m["total_loss"]), rec_opt.grads[0])
+    (lg, gg), (lc, gc) = res[dev.type], res["cpu"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    check(loss_rel <= 1e-4, f"phase 34 GPU vs CPU loss {lg} vs {lc}")
+    out["gpu_vs_cpu"] = dict(users=ML_CPU_USERS, loss_rel_err=loss_rel, worst_grad_leaf=_grads_close(
+        gg, gc, 1e-3, "phase 34 GPU vs CPU gradients"))
+    log(f"phase 34, decoder_ml1m.json through train(): {out}")
+    return out, row
 
 
 def _tp_one_process(dev):

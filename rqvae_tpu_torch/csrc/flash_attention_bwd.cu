@@ -12,6 +12,11 @@
 // (0.85 ms at B = 256, H = 8, N = 801, Dh = 64 and 989 TFLOP/s): operations.
 // The design does 14 (4 for c, 10 in the one pass), on wgmma with the next
 // tile's loads in flight under the current one; see flash_attention_bwd.cuh.
+// In fp32 (flash_bwd_c_tf32_kernel + flash_bwd_tf32_kernel, three TF32
+// products a product, on mma.sync) at decoder_ml1m.json's step (B = 128,
+// H = 8, N = 801, 0.308 of the pairs allowed): 30 Dh tensor flops an
+// allowed pair, 0.785 ms at 495 TFLOP/s: operations. Both passes skip the
+// (q tile, key tile) pairs with nothing to attend (BiasMask::live).
 #include "flash_attention_bwd.cuh"
 
 extern "C" {
@@ -20,7 +25,7 @@ extern "C" {
 // strides: 21 element strides, (batch, head, seq) of q, k, v, g, dq, dk, dv.
 // bias: (B, Nk) fp32; m, inv: the forward's (B, H, Nq) row statistics;
 // c: (B, H, Nq) fp32 scratch; dq_acc: (B, H, Nq, 64) fp32 scratch when
-// flash_bwd_mma_path says 1, else null. Launches on ``stream``; returns the
+// flash_bwd_route says 1 (bf16 on wgmma), else null. Launches on ``stream``; returns the
 // first CUDA error code (0 = ok).
 int flash_bwd_launch(int dtype, const void* q, const void* k, const void* v, const float* bias,
                      const void* g, const float* m, const float* inv, float* c, float* dq_acc,
@@ -30,12 +35,13 @@ int flash_bwd_launch(int dtype, const void* q, const void* k, const void* v, con
                              dq_acc, dq, dk, dv, strides, B, H, Nq, Nk, Dh, scale, device, stream);
 }
 
-// 1 when flash_bwd_launch takes the tensor-core path for these
-// operands (it then needs dq_acc), else 0; strides: the 12 element strides
-// of q, k, v, g, as flash_bwd_launch takes them.
-int flash_bwd_mma_path(int dtype, const void* q, const void* k, const void* v, const void* g,
-                       const long long* strides, int Dh) {
-  return flash::bwd_mma_path(dtype, q, k, v, g, strides, Dh) ? 1 : 0;
+// The kernels flash_bwd_launch takes for these operands: 0 the CUDA cores,
+// 1 bf16 on wgmma (it then needs dq_acc), 2 fp32 as three TF32 products;
+// strides: the 12 element strides of q, k, v, g, as flash_bwd_launch
+// takes them.
+int flash_bwd_route(int dtype, const void* q, const void* k, const void* v, const void* g,
+                    const long long* strides, int Dh) {
+  return flash::bwd_route(dtype, q, k, v, g, strides, Dh);
 }
 
 const char* flash_bwd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -53,11 +53,15 @@
 // ML-32M step's operands failed by 0.125). In the one-pass kernel no block
 // sees a whole row, so c takes a sweep of its own.
 //
-// fp32, other head sizes (<= 128) and unaligned views take fp32 FMAs on the
-// CUDA cores: a dq kernel (one block per 64-row q tile; pass 1 over the key
-// tiles sums c into a (B, H, Nq) fp32 scratch, pass 2 recomputes s and dp
-// and accumulates dq) and a dk / dv kernel (one block per 64-key tile,
-// walking the q tiles), no atomics, 18 flops per element.
+// fp32 at Dh = 64 on 16-byte rows takes the same two passes on the tensor
+// cores, every product as three TF32 products (flash_bwd_c_tf32_kernel,
+// flash_bwd_tf32_kernel; see "fp32 variant" below): 14 flops per element,
+// 42 on the tensor cores. Other head sizes (<= 128) and unaligned views
+// take fp32 FMAs on the CUDA cores: a dq kernel (one block per 64-row q
+// tile; pass 1 over the key tiles sums c into a (B, H, Nq) fp32 scratch,
+// pass 2 recomputes s and dp and accumulates dq) and a dk / dv kernel (one
+// block per 64-key tile, walking the q tiles), no atomics, 18 flops per
+// element.
 //
 // A (q tile, key tile) pair that the mask policy rejects is skipped: its e is
 // exactly 0 for a row with a finite max and its ds and g * inv are 0 for a
@@ -652,6 +656,340 @@ flash_bwd_dq_cast_kernel(const float* __restrict__ acc, __nv_bfloat16* __restric
 }
 
 
+// ---- fp32 variant: Dh = 64, three TF32 products on mma.sync ----
+//
+// TF32 wgmma takes both shared-memory operands K-major, so the backward's
+// products would need q, g, k and ds staged twice (as they are and
+// transposed), each as a big and a small half: 256 KB a block for the one
+// pass, more than an SM has. mma.sync reads its fragments from fp32 tiles
+// staged as they are (frag_a / frag_b_rows / frag_b_pairs) in either
+// orientation and splits them in registers, so a block stages each tile
+// once, raw: ~105 KB, two blocks an SM. The kernels are the bf16 design's
+// on that footing: a c sweep that also zeroes dq, then one pass a key
+// tile that adds dq with 8-byte fp32 atomics straight into the output
+// (run-to-run sum order varies, as for bf16); pairs with nothing to attend
+// (Mask::live) are skipped in both. ptxas (sm_90a): 229 registers (the one
+// pass) / 153 (c), no spills; two blocks an SM by shared memory.
+
+// Shared memory of flash_bwd_c_tf32_kernel: Q, G, two buffers of K and V
+// (raw tiles), two of the mask policy's per-pair state.
+template <typename Mask>
+constexpr size_t c_tf32_smem_bytes() {
+  return sizeof(float) * 6 * kRawTile + 2 * sizeof(typename Mask::Smem);
+}
+
+// c = rowsum(dp * e) * inv of a 64-row q tile over the key tiles it
+// attends, and the tile's rows of dq zeroed. Warp w: rows 16 w .. 16 w + 15.
+template <typename Mask>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+flash_bwd_c_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const Mask mask, const float* __restrict__ g,
+                        const float* __restrict__ m_in, const float* __restrict__ inv_in,
+                        float* __restrict__ c_out, float* __restrict__ dq, Strides sq, Strides sk,
+                        Strides sv, Strides sg, Strides sdq, int H, int Nq, int Nk, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Gs = Qs + kRawTile;
+  float* Ks = Gs + kRawTile;       // [2]
+  float* Vs = Ks + 2 * kRawTile;   // [2]
+  typename Mask::Smem* msm = reinterpret_cast<typename Mask::Smem*>(Vs + 2 * kRawTile);   // [2]
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int c = lane & 3;
+  const int n_qt = (Nq + kBQ - 1) / kBQ;
+  const int n_kt = (Nk + kBK - 1) / kBK;
+  const int qt = blockIdx.x % n_qt;
+  const int bh = blockIdx.x / n_qt;
+  const int h = bh % H;
+  const int b = bh / H;
+  const int q0 = qt * kBQ;
+  const Mask mk = mask.at(b);
+  const float* kp = k + b * sk.b + h * sk.h;
+  const float* vp = v + b * sv.b + h * sv.h;
+  const long long stat0 = ((long long)b * H + h) * Nq;
+
+  auto next_needed = [&](int t) {   // the first key tile from t on with a score to compute
+    for (; t < n_kt; ++t)
+      if (mk.live(q0, t * kBK)) break;
+    return t;
+  };
+  auto fetch = [&](int t, int buf) {
+    load_raw_async(Ks + buf * kRawTile, kp, sk.n, t * kBK, Nk);
+    load_raw_async(Vs + buf * kRawTile, vp, sv.n, t * kBK, Nk);
+    cp_async_commit();
+  };
+
+  load_raw_async(Qs, q + b * sq.b + h * sq.h, sq.n, q0, Nq);
+  load_raw_async(Gs, g + b * sg.b + h * sg.h, sg.n, q0, Nq);
+  cp_async_commit();
+  int t = next_needed(0);
+  if (t < n_kt) fetch(t, 0);
+  float* dqp = dq + b * sdq.b + h * sdq.h;
+  for (int e = threadIdx.x; e < kBQ * kMD / 2; e += kMmaThreads) {
+    const int row = q0 + e / (kMD / 2);
+    if (row < Nq)
+      *reinterpret_cast<float2*>(dqp + (long long)row * sdq.n + 2 * (e % (kMD / 2))) =
+          make_float2(0.f, 0.f);
+  }
+  const int rl[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};
+  const int row[2] = {q0 + rl[0], q0 + rl[1]};
+  float m[2], cr[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) m[r] = row[r] < Nq ? m_in[stat0 + row[r]] : 0.f;
+
+  for (int buf = 0; t < n_kt; buf ^= 1) {
+    const int k0 = t * kBK;
+    mk.stage(msm[buf], q0, k0);   // msm[buf] was last read two tiles ago
+    const int tn = next_needed(t + 1);
+    cp_async_wait_all();
+    __syncthreads();   // tile t has landed; the previous tile is done
+    if (tn < n_kt) fetch(tn, buf ^ 1);
+    const float* Kb = Ks + buf * kRawTile;
+    const float* Vb = Vs + buf * kRawTile;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) s[j][x] = dp[j][x] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t qb[4], qs[4], gb[4], gs[4];
+      frag_a(Qs, warp * 16, 8 * kk, qb, qs);
+      frag_a(Gs, warp * 16, 8 * kk, gb, gs);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t bb[2], bs[2];
+        frag_b_rows(Kb, 8 * j, 8 * kk, bb, bs);
+        mma_tf32x3(s[j], qb, qs, bb, bs);
+        frag_b_rows(Vb, 8 * j, 8 * kk, bb, bs);
+        mma_tf32x3(dp[j], gb, gs, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int col = 8 * j + 2 * c + (x & 1);
+        const int r = x >> 1;
+        const float e =
+            __expf(mk.score(msm[buf], s[j][x], scale, rl[r], col, row[r], k0 + col) - m[r]);
+        cr[r] = fmaf(dp[j][x], e, cr[r]);
+      }
+    t = tn;
+  }
+  cp_async_wait_all();   // a block that met no key tile still has copies in flight
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    cr[r] += __shfl_xor_sync(kFull, cr[r], 1);
+    cr[r] += __shfl_xor_sync(kFull, cr[r], 2);
+    if (c == 0 && row[r] < Nq) c_out[stat0 + row[r]] = cr[r] * inv_in[stat0 + row[r]];
+  }
+}
+
+// Shared memory of flash_bwd_tf32_kernel: K, V, two buffers of Q and G
+// (raw tiles; ds takes the place of the current G once dv has read it), two
+// of the q tile's m / inv / c, two of the mask policy's per-pair state.
+template <typename Mask>
+constexpr size_t bwd_tf32_smem_bytes() {
+  return sizeof(float) * (6 * kRawTile + 2 * 3 * kBQ) + 2 * sizeof(typename Mask::Smem);
+}
+
+// The one pass over (key tile, q tile) pairs: one block a 64-key tile
+// walking the q tiles, warp w on keys 16 w .. 16 w + 15. s^T = k q^T and
+// dp^T = v g^T once; e and ds in registers; dv += e^T (g inv) and
+// dk += ds^T q with the accumulators as A operands (frag_a_acc) against q
+// and g read in pairs of rows (frag_b_pairs); ds written to shared memory in
+// key_pos order for dq = ds k of the warp's 16 q rows, added to dq with
+// 8-byte atomics. The next q tile's Q, G and statistics load under the
+// current one.
+template <typename Mask>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+flash_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const Mask mask, const float* __restrict__ g,
+                      const float* __restrict__ m_in, const float* __restrict__ inv_in,
+                      const float* __restrict__ c_in, float* __restrict__ dq,
+                      float* __restrict__ dk, float* __restrict__ dv, Strides sq, Strides sk,
+                      Strides sv, Strides sg, Strides sdq, Strides sdk, Strides sdv, int H,
+                      int Nq, int Nk, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);
+  float* Vs = Ks + kRawTile;
+  float* Qs = Vs + kRawTile;       // [2]
+  float* Gs = Qs + 2 * kRawTile;   // [2]; ds in the current buffer after dv
+  float* Ss = Gs + 2 * kRawTile;   // [2][m, inv, c][kBQ]
+  typename Mask::Smem* msm = reinterpret_cast<typename Mask::Smem*>(Ss + 2 * 3 * kBQ);   // [2]
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int c = lane & 3;
+  const int n_kt = (Nk + kBK - 1) / kBK;
+  const int n_qt = (Nq + kBQ - 1) / kBQ;
+  const int kt = blockIdx.x % n_kt;
+  const int bh = blockIdx.x / n_kt;
+  const int h = bh % H;
+  const int b = bh / H;
+  const int k0 = kt * kBK;
+  const Mask mk = mask.at(b);
+  const float* qp = q + b * sq.b + h * sq.h;
+  const float* gp = g + b * sg.b + h * sg.h;
+  float* dqp = dq + b * sdq.b + h * sdq.h;
+  const long long stat0 = ((long long)b * H + h) * Nq;
+
+  // the q tiles in walking order: this key tile's own index first
+  auto qtile = [&](int t) { return (t + kt) % n_qt; };
+  auto next_needed = [&](int t) {   // the first walked q tile from t on with a score to compute
+    for (; t < n_qt; ++t)
+      if (mk.live(qtile(t) * kBQ, k0)) break;
+    return t;
+  };
+  auto fetch = [&](int t, int buf) {   // Q, G and the statistics of walked tile t into buf
+    const int q0 = qtile(t) * kBQ;
+    load_raw_async(Qs + buf * kRawTile, qp, sq.n, q0, Nq);
+    load_raw_async(Gs + buf * kRawTile, gp, sg.n, q0, Nq);
+    for (int i = threadIdx.x; i < 3 * kBQ; i += kMmaThreads) {
+      const int which = i / kBQ;
+      const int row = q0 + i % kBQ;
+      const float* src = which == 0 ? m_in : (which == 1 ? inv_in : c_in);
+      const bool ok = row < Nq;   // rows past Nq: m = inv = c = 0, they weigh nothing
+      cp_async4(Ss + buf * 3 * kBQ + i, ok ? src + stat0 + row : src, ok ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+
+  load_raw_async(Ks, k + b * sk.b + h * sk.h, sk.n, k0, Nk);
+  load_raw_async(Vs, v + b * sv.b + h * sv.h, sv.n, k0, Nk);
+  cp_async_commit();
+  int t = next_needed(0);
+  if (t < n_qt) fetch(t, 0);
+
+  const int kl[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};
+  const int key[2] = {k0 + kl[0], k0 + kl[1]};
+  float dk_acc[8][4], dv_acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) dk_acc[j][x] = dv_acc[j][x] = 0.f;
+
+  for (int buf = 0; t < n_qt; buf ^= 1) {
+    const int q0 = qtile(t) * kBQ;
+    mk.stage(msm[buf], q0, k0);   // msm[buf] was last read two tiles ago
+    const int tn = next_needed(t + 1);
+    cp_async_wait_all();
+    __syncthreads();   // tile t has landed; the previous tile (its ds in the other buffer) is done
+    if (tn < n_qt) fetch(tn, buf ^ 1);
+    const float* Qb = Qs + buf * kRawTile;
+    float* Gb = Gs + buf * kRawTile;
+    const float* Mb = Ss + buf * 3 * kBQ;
+    const float* Ib = Mb + kBQ;
+    const float* Cb = Ib + kBQ;
+
+    // s^T and dp^T: the warp's 16 keys x the tile's 64 queries
+    float st[8][4], dpt[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) st[j][x] = dpt[j][x] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t kb[4], ks[4], vb[4], vs[4];
+      frag_a(Ks, warp * 16, 8 * kk, kb, ks);
+      frag_a(Vs, warp * 16, 8 * kk, vb, vs);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t bb[2], bs[2];
+        frag_b_rows(Qb, 8 * j, 8 * kk, bb, bs);
+        mma_tf32x3(st[j], kb, ks, bb, bs);
+        frag_b_rows(Gb, 8 * j, 8 * kk, bb, bs);
+        mma_tf32x3(dpt[j], vb, vs, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int qc = 8 * j + 2 * c;
+      const float2 mq = *reinterpret_cast<const float2*>(Mb + qc);
+      const float2 iq = *reinterpret_cast<const float2*>(Ib + qc);
+      const float2 cq = *reinterpret_cast<const float2*>(Cb + qc);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int o = x & 1;
+        const float ev = __expf(mk.score(msm[buf], st[j][x], scale, qc + o, kl[x >> 1], q0 + qc + o,
+                                         key[x >> 1]) - (o ? mq.y : mq.x));
+        st[j][x] = ev;
+        dpt[j][x] = ev * ((dpt[j][x] - (o ? cq.y : cq.x)) * (o ? iq.y : iq.x));
+      }
+    }
+    // dv += e^T (g inv), dk += ds^T q: k-step u is the tile's queries 8 u ..
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      uint32_t eb[4], es[4], db[4], ds[4];
+      frag_a_acc(st[u], eb, es);
+      frag_a_acc(dpt[u], db, ds);
+      const float2 iq = *reinterpret_cast<const float2*>(Ib + 8 * u + 2 * c);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t bb[2], bs[2];
+        frag_b_pairs(Gb, 8 * u, 8 * j, iq.x, iq.y, bb, bs);
+        mma_tf32x3(dv_acc[j], eb, es, bb, bs);
+        frag_b_pairs(Qb, 8 * u, 8 * j, 1.f, 1.f, bb, bs);
+        mma_tf32x3(dk_acc[j], db, ds, bb, bs);
+      }
+    }
+    __syncthreads();   // every warp is done with g: ds takes its buffer
+    float* Ds = Gb;    // [q][key_pos(key)]
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        Ds[(8 * u + 2 * c + (x & 1)) * kRP + key_pos(kl[x >> 1])] = dpt[u][x];
+    __syncthreads();
+    // dq of the tile's rows 16 w .. over the block's keys (k-step u: key
+    // positions 8 u .., keys 8 u + 2 c (+1) as frag_b_pairs reads them)
+    float dqa[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) dqa[j][x] = 0.f;
+#pragma unroll 2
+    for (int u = 0; u < 8; ++u) {
+      uint32_t ab[4], as[4];
+      frag_a(Ds, warp * 16, 8 * u, ab, as);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t bb[2], bs[2];
+        frag_b_pairs(Ks, 8 * u, 8 * j, 1.f, 1.f, bb, bs);
+        mma_tf32x3(dqa[j], ab, as, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
+      if (row >= Nq) continue;
+      float* dst = dqp + (long long)row * sdq.n + 2 * c;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        atomicAdd(reinterpret_cast<float2*>(dst + 8 * j),
+                  make_float2(dqa[j][2 * r] * scale, dqa[j][2 * r + 1] * scale));
+    }
+    t = tn;
+  }
+  cp_async_wait_all();   // a block that met no q tile still has copies in flight
+
+  float* dkp = dk + b * sdk.b + h * sdk.h;
+  float* dvp = dv + b * sdv.b + h * sdv.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= Nk) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<float2*>(dkp + (long long)key[r] * sdk.n + 8 * j + 2 * c) =
+          make_float2(dk_acc[j][2 * r] * scale, dk_acc[j][2 * r + 1] * scale);
+      *reinterpret_cast<float2*>(dvp + (long long)key[r] * sdv.n + 8 * j + 2 * c) =
+          make_float2(dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
+    }
+  }
+}
+
 // strides: 21 element strides, (batch, head, seq) of q, k, v, g, dq, dk, dv
 struct BwdStrides {
   Strides q, k, v, g, dq, dk, dv;
@@ -690,6 +1028,32 @@ int launch_bwd_mma(const Mask& mask, const void* q, const void* k, const void* v
   if (e != cudaSuccess) return (int)e;
   flash_bwd_dq_cast_kernel<<<(unsigned)((pairs + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
       dq_acc, (__nv_bfloat16*)dq, s.dq, H, Nq, scale, pairs);
+  return (int)cudaGetLastError();
+}
+
+template <typename Mask>
+int launch_bwd_tf32(const Mask& mask, const void* q, const void* k, const void* v, const void* g,
+                    const float* m, const float* inv, float* c, void* dq, void* dk, void* dv,
+                    const BwdStrides& s, int B, int H, int Nq, int Nk, float scale, int device,
+                    cudaStream_t stream) {
+  const long long c_blocks = (long long)B * H * ((Nq + kBQ - 1) / kBQ);
+  const long long kv_blocks = (long long)B * H * ((Nk + kBK - 1) / kBK);
+  if (c_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  typedef const float* P;
+  auto c_kernel = flash_bwd_c_tf32_kernel<Mask>;
+  cudaError_t e = prepare(c_kernel, c_tf32_smem_bytes<Mask>(), device);
+  if (e != cudaSuccess) return (int)e;
+  c_kernel<<<(unsigned)c_blocks, kMmaThreads, c_tf32_smem_bytes<Mask>(), stream>>>(
+      (P)q, (P)k, (P)v, mask, (P)g, m, inv, c, (float*)dq, s.q, s.k, s.v, s.g, s.dq, H, Nq, Nk,
+      scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  auto kernel = flash_bwd_tf32_kernel<Mask>;
+  e = prepare(kernel, bwd_tf32_smem_bytes<Mask>(), device);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)kv_blocks, kMmaThreads, bwd_tf32_smem_bytes<Mask>(), stream>>>(
+      (P)q, (P)k, (P)v, mask, (P)g, m, inv, c, (float*)dq, (float*)dk, (float*)dv, s.q, s.k, s.v,
+      s.g, s.dq, s.dk, s.dv, H, Nq, Nk, scale);
   return (int)cudaGetLastError();
 }
 
@@ -742,27 +1106,31 @@ int launch_bwd_dp(int DP, const Mask& mask, const void* q, const void* k, const 
   return (int)cudaErrorInvalidValue;
 }
 
-// Whether bwd_dispatch takes the tensor-core path: bf16, Dh = 64, the rows
-// of q, k, v, g 16-byte aligned (strides: their 12 element strides). The one
-// place this rule lives: the *_bwd_mma_path exports hand it to the caller,
-// which allocates the path's dq accumulator exactly when it holds.
-inline bool bwd_mma_path(int dtype, const void* q, const void* k, const void* v, const void* g,
-                         const long long* strides, int Dh) {
-  if (dtype != 1 || Dh != kMD) return false;
+// The kernels bwd_dispatch takes (Route), the one place the rule lives; the
+// *_bwd_route exports hand it to the caller, which allocates the (B, H, Nq,
+// 64) fp32 dq accumulator exactly when it is kRouteWgmmaBf16. Dh = 64 with
+// the rows of q, k, v, g 16-byte aligned: bf16 on wgmma, fp32 as three TF32
+// products; anything else on the CUDA cores. strides: the 12 element
+// strides of q, k, v, g.
+inline int bwd_route(int dtype, const void* q, const void* k, const void* v, const void* g,
+                     const long long* strides, int Dh) {
+  if (Dh != kMD || (dtype != 0 && dtype != 1)) return kRouteCudaCores;
   const void* in[4] = {q, k, v, g};
   for (int i = 0; i < 4; ++i)
-    if (!mma_aligned(in[i], strides + 3 * i)) return false;
-  return true;
+    if (!(dtype == 1 ? mma_aligned(in[i], strides + 3 * i) : tf32_aligned(in[i], strides + 3 * i)))
+      return kRouteCudaCores;
+  return dtype == 1 ? kRouteWgmmaBf16 : kRouteTf32x3;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, g, dq, dk, dv share it).
 // strides: 21 element strides, (batch, head, seq) of q, k, v, g, dq, dk, dv.
 // m, inv: the forward's (B, H, Nq) row statistics; c: (B, H, Nq) fp32
 // scratch; dq_acc: a (B, H, Nq, 64) fp32 scratch, given exactly when
-// bwd_mma_path holds. That path writes dq, dk, dv in bf16 pairs, so their
-// rows must be 4-byte aligned; it returns an error without dq_acc or with
-// unaligned outputs. Launches the path's kernels on ``stream``; returns the
-// first CUDA error code (0 = ok).
+// bwd_route is kRouteWgmmaBf16. The tensor-core routes write dq, dk, dv in
+// pairs (bf16: 4 bytes, fp32: 8 bytes, the fp32 dq by atomics), so their
+// rows must be aligned to that; they return an error on unaligned outputs,
+// and the bf16 route without dq_acc. Launches the route's kernels on
+// ``stream``; returns the first CUDA error code (0 = ok).
 template <typename Mask>
 int bwd_dispatch(const Mask& mask, int dtype, const void* q, const void* k, const void* v,
                  const void* g, const float* m, const float* inv, float* c, float* dq_acc,
@@ -775,15 +1143,23 @@ int bwd_dispatch(const Mask& mask, int dtype, const void* q, const void* k, cons
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   const BwdStrides s(strides);
-  if (bwd_mma_path(dtype, q, k, v, g, strides, Dh)) {
+  const int route = bwd_route(dtype, q, k, v, g, strides, Dh);
+  if (route != kRouteCudaCores) {
     const void* out[3] = {dq, dk, dv};
-    for (int i = 0; i < 3; ++i)
-      if ((uintptr_t)out[i] % 4 != 0 || strides[12 + 3 * i] % 2 != 0 ||
-          strides[13 + 3 * i] % 2 != 0 || strides[14 + 3 * i] % 2 != 0)
-        return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < 3; ++i) {
+      const long long* so = strides + 12 + 3 * i;
+      const bool ok = dtype == 1 ? (uintptr_t)out[i] % 4 == 0 && so[0] % 2 == 0 &&
+                                       so[1] % 2 == 0 && so[2] % 2 == 0
+                                 : pair_aligned(out[i], so);
+      if (!ok) return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (route == kRouteWgmmaBf16) {
     if (dq_acc == nullptr) return (int)cudaErrorInvalidValue;
     return launch_bwd_mma<Mask>(mask, q, k, v, g, m, inv, c, dq_acc, dq, dk, dv, s, B, H, Nq, Nk, scale, device, st);
   }
+  if (route == kRouteTf32x3)
+    return launch_bwd_tf32<Mask>(mask, q, k, v, g, m, inv, c, dq, dk, dv, s, B, H, Nq, Nk, scale, device, st);
   if (dtype == 0)
     return launch_bwd_dp<Mask, float>(DP, mask, q, k, v, g, m, inv, c, dq, dk, dv, s, B, H, Nq, Nk, Dh, scale, device, st);
   return launch_bwd_dp<Mask, __nv_bfloat16>(DP, mask, q, k, v, g, m, inv, c, dq, dk, dv, s, B, H, Nq, Nk, Dh, scale, device, st);

@@ -174,6 +174,18 @@ struct BiasMask {
     const float s = dot * scale + sm.bias[cl];
     return (causal && col > row) ? kNegInf : s;
   }
+  // live: need() that also rules out a pair with nothing to attend, for
+  // the fp32 tensor-core backward: a key tile whose every key has a bias
+  // <= -5e29 or, under the causal cut, lies past the q tile's last row.
+  // Exact: each of its scores weighs exp(-1e30 - m) = 0 against a row with
+  // a valid key, and a row with none has inv = 0. A barrier, alike in every
+  // thread.
+  __device__ __forceinline__ bool live(int q0, int k0) const {
+    const int key = k0 + (int)threadIdx.x;
+    const bool ok = threadIdx.x < kBK && key < Nk && bias[key] > 0.5f * kNegInf &&
+                    (!causal || key <= q0 + kBQ - 1);
+    return __syncthreads_or(ok) != 0;
+  }
 
   // ---- the wgmma forward (see above) ----
   // A key tile every key of which has a bias <= -5e29 is skipped (exact for
@@ -299,6 +311,7 @@ struct SpanMask {
   __device__ __forceinline__ bool need(int tq0, int k0) const {
     return __syncthreads_or(row_bits(tq0, k0) != 0ull) != 0;
   }
+  __device__ __forceinline__ bool live(int tq0, int k0) const { return need(tq0, k0); }
   __device__ __forceinline__ void stage(Smem& sm, int tq0, int k0) const {
     if (threadIdx.x < kBQ) sm.allow[threadIdx.x] = row_bits(tq0, k0);
   }
@@ -496,9 +509,10 @@ __device__ __forceinline__ void fence_acc(float d[8][4]) {
 
 // keeps a register A operand's registers from reuse until a wait has retired
 // the wgmma that reads them
-__device__ __forceinline__ void fence_frags(uint32_t a[4][4]) {
+template <int N = 4>
+__device__ __forceinline__ void fence_frags(uint32_t a[N][4]) {
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
+  for (int t = 0; t < N; ++t)
 #pragma unroll
     for (int x = 0; x < 4; ++x) asm volatile("" : "+r"(a[t][x])::"memory");
 }
@@ -591,6 +605,177 @@ __device__ __forceinline__ void wg_tn(float d[8][4], const __nv_bfloat16* at,
 // Whether a (B, H, N, 64) bf16 operand can be staged with 16-byte copies.
 inline bool mma_aligned(const void* p, const long long* st) {
   return ((uintptr_t)p % 16 == 0) && st[0] % 8 == 0 && st[1] % 8 == 0 && st[2] % 8 == 0;
+}
+
+// ---- fp32 on the tensor cores: three TF32 products (Dh = 64) ----
+//
+// A TF32 product keeps 11 significant bits of each operand, too few for the
+// fp32 kernels' 1e-4 against their twins. Each operand x is split as
+// big = tf32(x) (cvt.rna: round to nearest, ties away, on the 13 dropped
+// bits) and small = tf32(x - big), and a product a b is taken as
+// a_small b_big + a_big b_small + a_big b_big with fp32 accumulation: the
+// dropped a_small b_small term is ~2^-22 of a b
+// (tests/test_torch_flash_fp32_tc.py emulates the order of operations).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// Whether a (B, H, N, 64) fp32 operand can be copied 16 bytes at a time,
+// or (pair_aligned) written 8 bytes at a time.
+inline bool tf32_aligned(const void* p, const long long* st) {
+  return ((uintptr_t)p % 16 == 0) && st[0] % 4 == 0 && st[1] % 4 == 0 && st[2] % 4 == 0;
+}
+inline bool pair_aligned(const void* p, const long long* st) {
+  return ((uintptr_t)p % 8 == 0) && st[0] % 2 == 0 && st[1] % 2 == 0 && st[2] % 2 == 0;
+}
+
+// The kernels a flat or span call takes (the *_route exports): fp32 or
+// bf16 FMAs on the CUDA cores, bf16 wgmma, or fp32 as three TF32 products.
+enum Route { kRouteCudaCores = 0, kRouteWgmmaBf16 = 1, kRouteTf32x3 = 2 };
+
+// wgmma on TF32 (the forward). A 64 x 64 fp32 tile whose rows hold the
+// product's K dimension (K-major, the only layout wgmma takes for TF32) is
+// two 64 x 32 halves of 8 KB, each in the 128-byte swizzle: 16-byte chunk
+// ch of row r at chunk ch ^ (r % 8). Byte for byte a half is a bf16 64 x 64
+// tile, so sw_desc reads it: k-step t (8 values, 32 bytes) of a tile starts
+// (t / 4) halves and 32 (t % 4) bytes in.
+constexpr int kF32Tile = 64 * 64;   // floats of an fp32 tile (16 KB)
+
+__device__ __forceinline__ uint32_t sw32_offset(int r, int col) {   // bytes
+  return (uint32_t)((col >> 5) * 8192 + r * 128 + ((((col >> 2) & 7) ^ (r & 7)) << 4) +
+                    (col & 3) * 4);
+}
+__device__ __forceinline__ uint32_t tf32_kstep(int t) { return (uint32_t)((t >> 2) * 8192 + 32 * (t & 3)); }
+
+// The column of key j of a 64-key tile in a V^T tile: within each 8, the
+// even keys first. An accumulator holds keys 2c, 2c + 1 of each 8 in thread
+// c of a quad, where a TF32 A operand in registers wants k-indices c and
+// c + 4; the permutation lets the score accumulator be the A operand of
+// e V as it stands (the sum over keys is the same in any order).
+__device__ __forceinline__ int key_pos(int j) { return (j & ~7) | ((j & 1) << 2) | ((j & 7) >> 1); }
+
+// d (64 x 64 fp32, this thread's 32) = or += A B^T, both K-major TF32
+// tiles by descriptor
+__device__ __forceinline__ void wgmma_tf32_ss(float d[8][4], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B^T, A (the warp's 16 rows x 8) from registers in the mma.sync
+// m16n8k8 TF32 A layout (a0 (g, c), a1 (g + 8, c), a2 (g, c + 4), a3
+// (g + 8, c + 4)), B a K-major TF32 tile by descriptor
+__device__ __forceinline__ void wgmma_tf32_rs(float d[8][4], const uint32_t a[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// mma.sync on TF32 (the backward): fragments read from fp32 tiles staged
+// as they are, [64 rows][kRP], and split in registers. The pitch of 68
+// floats keeps 16-byte rows for cp.async and puts the fragment reads of
+// both orientations in distinct banks: (row g, column c) at 4 g + c, and
+// (row 2 c (+1), column g) at 8 c (+4) + g.
+constexpr int kRP = 68;
+constexpr int kRawTile = 64 * kRP;   // floats
+
+// d += a b, m16n8k8, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d += a b as three TF32 products, the small terms first
+__device__ __forceinline__ void mma_tf32x3(float d[4], const uint32_t ab[4], const uint32_t as[4],
+                                           const uint32_t bb[2], const uint32_t bs[2]) {
+  mma_tf32(d, as, bb);
+  mma_tf32(d, ab, bs);
+  mma_tf32(d, ab, bb);
+}
+__device__ __forceinline__ void split4(const float x[4], uint32_t b[4], uint32_t s[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(x[i], b[i], s[i]);
+}
+// A fragment (16 x 8) at rows m0.., columns k0.. of a staged tile
+__device__ __forceinline__ void frag_a(const float* t, int m0, int k0, uint32_t b[4], uint32_t s[4]) {
+  const int g = (threadIdx.x & 31) >> 2, c = threadIdx.x & 3;
+  const float* p = t + (m0 + g) * kRP + k0 + c;
+  const float x[4] = {p[0], p[8 * kRP], p[4], p[8 * kRP + 4]};
+  split4(x, b, s);
+}
+// B fragment (8 x 8, k x n) whose n runs along the tile's rows n0..:
+// (k c, n g) and (k c + 4, n g) at row n0 + g, columns k0 + c, k0 + c + 4
+__device__ __forceinline__ void frag_b_rows(const float* t, int n0, int k0, uint32_t b[2],
+                                            uint32_t s[2]) {
+  const int g = (threadIdx.x & 31) >> 2, c = threadIdx.x & 3;
+  const float* p = t + (n0 + g) * kRP + k0 + c;
+  split_tf32(p[0], b[0], s[0]);
+  split_tf32(p[4], b[1], s[1]);
+}
+// B fragment whose k runs along the tile's rows in the accumulator's
+// order: k-index c is row k0 + 2 c, c + 4 is row k0 + 2 c + 1 (times
+// ``w0`` / ``w1``), n is column n0 + g
+__device__ __forceinline__ void frag_b_pairs(const float* t, int k0, int n0, float w0, float w1,
+                                             uint32_t b[2], uint32_t s[2]) {
+  const int g = (threadIdx.x & 31) >> 2, c = threadIdx.x & 3;
+  const float* p = t + (k0 + 2 * c) * kRP + n0 + g;
+  split_tf32(p[0] * w0, b[0], s[0]);
+  split_tf32(p[kRP] * w1, b[1], s[1]);
+}
+// the A fragment of k-step j of a 16 x 64 accumulator (x[j][0..3] at
+// rows g, g, g + 8, g + 8 and columns 8 j + 2 c, + 1), in the order of
+// frag_b_pairs: k-index c is column 8 j + 2 c, c + 4 is 8 j + 2 c + 1
+__device__ __forceinline__ void frag_a_acc(const float x[4], uint32_t b[4], uint32_t s[4]) {
+  const float y[4] = {x[0], x[2], x[1], x[3]};
+  split4(y, b, s);
+}
+
+// Stage rows [r0, r0 + 64) of a (n_rows, 64) fp32 slice into a [64][kRP]
+// tile by cp.async (started, not waited for); rows past n_rows become zeros.
+__device__ __forceinline__ void load_raw_async(float* dst, const float* src, long long row_stride,
+                                               int r0, int n_rows) {
+  for (int e = threadIdx.x; e < 64 * 16; e += kMmaThreads) {
+    const int r = e >> 4, ch = e & 15;
+    const bool ok = r0 + r < n_rows;
+    cp_async16(dst + r * kRP + 4 * ch, ok ? src + (long long)(r0 + r) * row_stride + 4 * ch : src,
+               ok ? 16 : 0);
+  }
 }
 
 // ---- per-library launch state ----

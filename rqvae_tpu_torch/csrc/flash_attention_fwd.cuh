@@ -23,7 +23,7 @@
 // Query rows past Nq are computed on zeros and not stored (no padding copy,
 // unlike the TPU wrappers).
 //
-// Two variants compute the same function:
+// Three variants compute the same function:
 //   * flash_fwd_wg_kernel, for bf16 operands with Dh = 64 whose rows can be
 //     copied 16 bytes at a time (the model's case). Its bound on an H100 is
 //     the largest of three: 4 Dh tensor flops a computed score over 989
@@ -52,10 +52,23 @@
 //     no allowed key), inv = 0 exactly where m <= -5e29. ptxas (sm_90a): 128
 //     registers (key bias) / 122 (spans), no spills, 2 blocks an SM by
 //     registers, 67 KB of shared memory a block.
-//   * flash_fwd_kernel, for fp32 operands, other head sizes (Dh <= 128) and
-//     unaligned views: fp32 FMAs on the CUDA cores (67 TFLOP/s) from
-//     shared-memory tiles, bound by fp32 operations and shared-memory
-//     bandwidth.
+//   * flash_fwd_tf32_kernel, for fp32 operands with Dh = 64 whose rows can
+//     be copied 16 bytes at a time (every shipped decoder config trains in
+//     fp32). One TF32 product misses the fp32 bound of 1e-4 against the
+//     twin, so each product is three (flash_attention_common.cuh:
+//     split_tf32): 12 Dh tensor flops a computed score over 495 TFLOP/s,
+//     the bound on the model's operands (the bytes and the exp are below
+//     it). TF32 wgmma takes both shared-memory operands K-major, so V is
+//     staged transposed, which neither cp.async nor TMA can do: each
+//     thread loads its chunks of the next key tile's K and V into
+//     registers while the current tile's products run and writes their
+//     TF32 halves itself (K as it stands, V^T with keys in key_pos order,
+//     so the score accumulator is e V's register A operand as it stands).
+//     One warpgroup a block, the serial schedule, 96 KB of split tiles,
+//     two blocks an SM (ptxas: 254 registers, no spills).
+//   * flash_fwd_kernel, for other head sizes (Dh <= 128) and unaligned
+//     views: fp32 FMAs on the CUDA cores (67 TFLOP/s) from shared-memory
+//     tiles, bound by fp32 operations and shared-memory bandwidth.
 #pragma once
 
 #include "flash_attention_common.cuh"
@@ -433,6 +446,275 @@ flash_fwd_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
 }
 
+// ---- fp32 variant: Dh = 64, three TF32 products on wgmma (see the header) ----
+
+constexpr int kF32Blocks = 2;   // blocks an SM (launch bounds)
+
+// Shared memory of flash_fwd_tf32_kernel: Q, K and V^T, each as its big
+// and small TF32 halves (swizzled, K-major), the tile words, two mask stages.
+template <typename Mask>
+constexpr size_t fwd_tf32_smem_bytes() {
+  return sizeof(float) * 6 * kF32Tile + sizeof(unsigned) * 4 + 2 * sizeof(typename Mask::Stage) +
+         kSmemSlack;
+}
+
+// 16-byte chunk e (row e / 16, columns 4 (e % 16)..) of rows [r0, r0 + 64)
+// of a (n_rows, 64) fp32 slice; zeros past n_rows
+__device__ __forceinline__ float4 ld_chunk(const float* src, long long row_stride, int r0,
+                                           int n_rows, int e) {
+  if (r0 + (e >> 4) >= n_rows) return make_float4(0.f, 0.f, 0.f, 0.f);
+  return __ldg(reinterpret_cast<const float4*>(src + (long long)(r0 + (e >> 4)) * row_stride +
+                                               4 * (e & 15)));
+}
+// chunk e's big and small parts into two K-major tiles of the same rows
+__device__ __forceinline__ void st_split_chunk(float* big, float* small, int e, float4 x) {
+  uint4 b, s;
+  split_tf32(x.x, b.x, s.x);
+  split_tf32(x.y, b.y, s.y);
+  split_tf32(x.z, b.z, s.z);
+  split_tf32(x.w, b.w, s.w);
+  const uint32_t off = sw32_offset(e >> 4, 4 * (e & 15));
+  *reinterpret_cast<uint4*>(reinterpret_cast<char*>(big) + off) = b;
+  *reinterpret_cast<uint4*>(reinterpret_cast<char*>(small) + off) = s;
+}
+
+// One warpgroup a block, 64 query rows; two blocks an SM. Q is split into
+// TF32 halves once. For each key tile the block computes, every thread
+// holds the raw K and V of 8 chunks each in registers, loaded while the
+// previous tile's products ran, and writes their halves: K as it stands,
+// V transposed (V^T, keys in key_pos order, so that the score accumulator
+// is the A operand of e V). s = q k^T is 3 x 8 wgmma (m64n64k8) from
+// shared memory, o += e V 3 x 8 with e from registers; the softmax is the
+// bf16 kernel's, in log2 units. Key tiles are skipped as there (the mask
+// policy's words, one warpgroup's), in the serial schedule.
+template <typename Mask>
+__global__ void __launch_bounds__(kMmaThreads, kF32Blocks)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const Mask mask, float* __restrict__ o,
+                      float* __restrict__ m_out, float* __restrict__ inv_out, Strides sq,
+                      Strides sk, Strides sv, Strides so, int H, int Nq, int Nk, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qb = reinterpret_cast<float*>(smem_base(smem_raw));
+  float* Qs = Qb + kF32Tile;
+  float* Kb = Qs + kF32Tile;
+  float* Ks = Kb + kF32Tile;
+  float* Vb = Ks + kF32Tile;   // V^T
+  float* Vs = Vb + kF32Tile;
+  unsigned* words = reinterpret_cast<unsigned*>(Vs + kF32Tile);   // need, mixed, rows
+  typename Mask::Stage* mst = reinterpret_cast<typename Mask::Stage*>(words + 4);   // [2]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int c = lane & 3;
+  const int n_qt = (Nq + kBQ - 1) / kBQ;
+  const int n_kt = (Nk + kBK - 1) / kBK;
+  const int qt = blockIdx.x % n_qt;
+  const int bh = blockIdx.x / n_qt;
+  const int h = bh % H;
+  const int b = bh / H;
+  const int q0 = qt * kBQ;
+  const int w0 = q0 + warp * 16;   // the warp's first row
+  const int row[2] = {w0 + (lane >> 2), w0 + (lane >> 2) + 8};
+  const Mask mk = mask.at(b);
+  const typename Mask::Rows rw = mk.rows(row[0], row[1], Nq);
+  const float* kp = k + b * sk.b + h * sk.h;
+  const float* vp = v + b * sv.b + h * sv.h;
+
+  {
+    const float* qp = q + b * sq.b + h * sq.h;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int e = tid + kMmaThreads * i;
+      st_split_chunk(Qb, Qs, e, ld_chunk(qp, sq.n, q0, Nq, e));
+    }
+  }
+
+  unsigned need = 0u, mixed = 0u;
+  int word_end = 0;
+  auto load_words = [&](int t0) {   // alike in every thread
+    __syncthreads();                // the previous word has been read
+    if (tid < 3) words[tid] = 0u;
+    __syncthreads();
+    unsigned mix;
+    const unsigned kn = __reduce_or_sync(kFull, mk.key_need(t0, tid, kMmaThreads, mix));
+    mix = __reduce_or_sync(kFull, mix);
+    const unsigned rn = __reduce_or_sync(kFull, mk.row_need(rw, t0));
+    if (lane == 0) {
+      atomicOr(&words[0], kn);
+      atomicOr(&words[1], mix);
+      atomicOr(&words[2], rn);
+    }
+    __syncthreads();
+    need = words[0] & words[2];
+    mixed = words[1];
+    word_end = t0 + 32;
+  };
+  auto next_needed = [&](int t) {   // the first key tile from t on that the block computes
+    while (t < n_kt) {
+      if (t >= word_end) load_words(t & ~31);
+      const unsigned rest = need >> (t & 31);
+      if (rest) return t + __ffs(rest) - 1;
+      t = word_end;
+    }
+    return n_kt;
+  };
+
+  // key tile t's raw K (chunks tid + 128 i) and V (key tid % 64, 8 columns
+  // from 8 (tid / 64 + 2 i)) into registers, its mask stage by cp.async
+  float4 rk[8], rv[8];
+  auto fetch = [&](int t, int st) {
+    const int k0 = t * kBK;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) rk[i] = ld_chunk(kp, sk.n, k0, Nk, tid + kMmaThreads * i);
+    const int key = tid & 63;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = 8 * ((tid >> 6) + 2 * i);
+      if (k0 + key < Nk) {
+        const float4* p = reinterpret_cast<const float4*>(vp + (long long)(k0 + key) * sv.n + d);
+        rv[2 * i] = __ldg(p);
+        rv[2 * i + 1] = __ldg(p + 1);
+      } else {
+        rv[2 * i] = rv[2 * i + 1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    mk.fetch(mst[st], k0, tid);
+    cp_async_commit();
+  };
+  // the registers' halves into the K and V^T tiles (a warp's 32 keys of one
+  // V column fill one 128-byte row of the swizzle: no bank conflict)
+  auto stage = [&]() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) st_split_chunk(Kb, Ks, tid + kMmaThreads * i, rk[i]);
+    const int col = key_pos(tid & 63);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = 8 * ((tid >> 6) + 2 * i);
+      const float x[8] = {rv[2 * i].x, rv[2 * i].y, rv[2 * i].z, rv[2 * i].w,
+                          rv[2 * i + 1].x, rv[2 * i + 1].y, rv[2 * i + 1].z, rv[2 * i + 1].w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t hb, hs;
+        split_tf32(x[j], hb, hs);
+        const uint32_t off = sw32_offset(d + j, col);
+        *reinterpret_cast<uint32_t*>(reinterpret_cast<char*>(Vb) + off) = hb;
+        *reinterpret_cast<uint32_t*>(reinterpret_cast<char*>(Vs) + off) = hs;
+      }
+    }
+  };
+
+  const float sl2 = scale * kLog2e;
+  float acc[8][4], m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[j][x] = 0.f;
+
+  int t = next_needed(0);
+  if (t < n_kt) fetch(t, 0);
+  for (int st = 0; t < n_kt; st ^= 1) {
+    const int k0 = t * kBK;
+    const bool mix = (mixed >> (t & 31)) & 1u;   // read before the word moves on
+    const int tn = next_needed(t + 1);
+    __syncthreads();   // the previous tile's products are done (each warp waited for them)
+    stage();
+    cp_async_wait_all();   // tile t's mask stage
+    if (tn < n_kt) fetch(tn, st ^ 1);   // its loads run under this tile's products
+    fence_proxy_async();
+    __syncthreads();   // the tiles and the mask stage are complete
+
+    float s[8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t off = tf32_kstep(kk);
+      wgmma_tf32_ss(s, sw_desc(Qs, off), sw_desc(Kb, off), kk > 0);
+      wgmma_tf32_ss(s, sw_desc(Qb, off), sw_desc(Ks, off), 1);
+      wgmma_tf32_ss(s, sw_desc(Qb, off), sw_desc(Kb, off), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+
+    const bool raw = mk.scores(rw, mst[st], mix, s, k0, w0, sl2, c);
+    if (!raw && k0 + kBK > Nk) {   // the ragged tail weighs nothing
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          if (k0 + 8 * j + 2 * c + (x & 1) >= Nk) s[j][x] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY}, alpha[2], nm[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) mx[x >> 1] = fmaxf(mx[x >> 1], s[j][x]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      const float mn = fmaxf(m2[r], raw ? mx[r] * sl2 : mx[r]);
+      alpha[r] = ex2(m2[r] - mn);
+      m2[r] = mn;
+      nm[r] = -mn;
+    }
+    uint32_t eb[8][4], es[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        s[j][x] = ex2(raw ? fmaf(s[j][x], sl2, nm[x >> 1]) : s[j][x] + nm[x >> 1]);
+        rs[x >> 1] += s[j][x];
+      }
+      frag_a_acc(s[j], eb[j], es[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[j][x] *= alpha[x >> 1];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t off = tf32_kstep(j);
+      wgmma_tf32_rs(acc, es[j], sw_desc(Vb, off));
+      wgmma_tf32_rs(acc, eb[j], sw_desc(Vs, off));
+      wgmma_tf32_rs(acc, eb[j], sw_desc(Vb, off));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_frags<8>(eb);
+    fence_frags<8>(es);
+    t = tn;
+  }
+  cp_async_wait_all();   // a block that computed no tile still has copies in flight
+
+  float* op = o + b * so.b + h * so.h;
+  const long long stat0 = ((long long)b * H + h) * Nq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= Nq) continue;
+    const bool any = m2[r] > 0.5f * kNegInf2;   // the row met an allowed key
+    const float inv = any ? 1.f / l[r] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(op + (long long)row[r] * so.n + 8 * j + 2 * c) =
+          make_float2(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+    if (c == 0 && m_out != nullptr) {
+      m_out[stat0 + row[r]] = any ? m2[r] * kLn2 : kNegInf;
+      inv_out[stat0 + row[r]] = inv;
+    }
+  }
+}
+
 template <int DP>
 constexpr size_t fwd_smem_bytes() {
   return sizeof(float) * (size_t)(kBQ * (DP + 1) + kBK * (DP + 1) + kBK * DP + kBQ * kSP);
@@ -486,6 +768,40 @@ int launch_fwd_wg(const Mask& mask, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+template <typename Mask>
+int launch_fwd_tf32(const Mask& mask, const void* q, const void* k, const void* v, void* o,
+                    float* m, float* inv, const long long* st, int B, int H, int Nq, int Nk,
+                    float scale, int device, cudaStream_t stream) {
+  const long long blocks = (long long)B * H * ((Nq + kBQ - 1) / kBQ);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = flash_fwd_tf32_kernel<Mask>;
+  constexpr size_t smem = fwd_tf32_smem_bytes<Mask>();
+  cudaError_t err = prepare(kernel, smem, device);
+  if (err != cudaSuccess) return (int)err;
+  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]},
+      so{st[9], st[10], st[11]};
+  kernel<<<(unsigned)blocks, kMmaThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, mask, (float*)o, m, inv, sq, sk, sv, so,
+      H, Nq, Nk, scale);
+  return (int)cudaGetLastError();
+}
+
+// The kernel fwd_dispatch takes (Route), the one place the rule lives; the
+// *_fwd_route exports hand it to the caller. Dh = 64 with q, k, v rows
+// 16-byte aligned: bf16 on wgmma (o in 4-byte pairs), fp32 as three TF32
+// products (o in 8-byte pairs); anything else on the CUDA cores.
+inline int fwd_route(int dtype, const void* q, const void* k, const void* v, const void* o,
+                     const long long* st, int Dh) {
+  if (Dh != kMD) return kRouteCudaCores;
+  if (dtype == 1 && mma_aligned(q, st) && mma_aligned(k, st + 3) && mma_aligned(v, st + 6) &&
+      st[9] % 2 == 0 && st[10] % 2 == 0 && st[11] % 2 == 0 && (uintptr_t)o % 4 == 0)
+    return kRouteWgmmaBf16;
+  if (dtype == 0 && tf32_aligned(q, st) && tf32_aligned(k, st + 3) && tf32_aligned(v, st + 6) &&
+      pair_aligned(o, st + 9))
+    return kRouteTf32x3;
+  return kRouteCudaCores;
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it). strides: 12
 // element strides, (batch, head, seq) of q, k, v, o. m, inv: (B, H, Nq) fp32
 // or both null. Returns the CUDA error code of the launch (0 = ok). The
@@ -497,17 +813,18 @@ int fwd_dispatch(const Mask& mask, int dtype, const void* q, const void* k, cons
                  int Dh, float scale, int device, void* stream) {
   if (B <= 0 || H <= 0 || Nq <= 0) return 0;
   const int DP = dp_for(Dh);
-  if (Nk <= 0 || Dh <= 0 || DP == 0) return (int)cudaErrorInvalidValue;
+  if (Nk <= 0 || Dh <= 0 || DP == 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
+  switch (fwd_route(dtype, q, k, v, o, strides, Dh)) {
+    case kRouteWgmmaBf16:
+      return launch_fwd_wg<Mask>(mask, q, k, v, o, m, inv, strides, B, H, Nq, Nk, scale, device, s);
+    case kRouteTf32x3:
+      return launch_fwd_tf32<Mask>(mask, q, k, v, o, m, inv, strides, B, H, Nq, Nk, scale, device, s);
+  }
   if (dtype == 0)
     return launch_fwd_dp<Mask, float>(DP, mask, q, k, v, o, m, inv, strides, B, H, Nq, Nk, Dh, scale, device, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (Dh == kMD && mma_aligned(q, strides) && mma_aligned(k, strides + 3) &&
-      mma_aligned(v, strides + 6) && strides[9] % 2 == 0 && strides[10] % 2 == 0 &&
-      strides[11] % 2 == 0 && (uintptr_t)o % 4 == 0)
-    return launch_fwd_wg<Mask>(mask, q, k, v, o, m, inv, strides, B, H, Nq, Nk, scale, device, s);
   return launch_fwd_dp<Mask, __nv_bfloat16>(DP, mask, q, k, v, o, m, inv, strides, B, H, Nq, Nk, Dh, scale, device, s);
 }
 

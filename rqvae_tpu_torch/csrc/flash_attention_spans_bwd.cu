@@ -17,7 +17,9 @@
 // tokens, 8 heads, Dh = 64, bf16) 0.64 of the dense pairs, ~0.21 ms at 989
 // TFLOP/s: operations. Both the c sweep and the one pass skip every
 // (q tile, key tile) pair that the spans rule out (exact: it adds 0), so the
-// computed tiles follow the allowed pairs up to tile granularity.
+// computed tiles follow the allowed pairs up to tile granularity. In fp32
+// (decoder_ml32m.json's packed branch: three TF32 products a product on
+// mma.sync) 30 Dh tensor flops an allowed pair at 495 TFLOP/s bound it.
 #include "flash_attention_bwd.cuh"
 
 extern "C" {
@@ -26,7 +28,7 @@ extern "C" {
 // lo, hi, extra: (B, Nq) int32, contiguous. strides: 21 element strides,
 // (batch, head, seq) of q, k, v, g, dq, dk, dv. m, inv: the forward's
 // (B, H, Nq) row statistics; c: (B, H, Nq) fp32 scratch; dq_acc: (B, H, Nq,
-// 64) fp32 scratch when flash_spans_bwd_mma_path says 1, else null.
+// 64) fp32 scratch when flash_spans_bwd_route says 1, else null.
 // Launches on ``stream``; returns the first CUDA error code (0 = ok).
 int flash_spans_bwd_launch(int dtype, const void* q, const void* k, const void* v, const int* lo,
                            const int* hi, const int* extra, const void* g, const float* m,
@@ -37,12 +39,13 @@ int flash_spans_bwd_launch(int dtype, const void* q, const void* k, const void* 
                              dq_acc, dq, dk, dv, strides, B, H, Nq, Nk, Dh, scale, device, stream);
 }
 
-// 1 when flash_spans_bwd_launch takes the tensor-core path for these
-// operands (it then needs dq_acc), else 0; strides: the 12 element strides
-// of q, k, v, g, as flash_spans_bwd_launch takes them.
-int flash_spans_bwd_mma_path(int dtype, const void* q, const void* k, const void* v, const void* g,
-                             const long long* strides, int Dh) {
-  return flash::bwd_mma_path(dtype, q, k, v, g, strides, Dh) ? 1 : 0;
+// The kernels flash_spans_bwd_launch takes for these operands (as
+// flash_bwd_route: 0 the CUDA cores, 1 bf16 on wgmma, which needs dq_acc,
+// 2 fp32 as three TF32 products); strides: the 12 element strides of q, k,
+// v, g.
+int flash_spans_bwd_route(int dtype, const void* q, const void* k, const void* v, const void* g,
+                          const long long* strides, int Dh) {
+  return flash::bwd_route(dtype, q, k, v, g, strides, Dh);
 }
 
 const char* flash_spans_bwd_error_string(int code) {

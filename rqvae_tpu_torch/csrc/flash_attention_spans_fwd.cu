@@ -26,7 +26,9 @@
 // segment's window is contiguous and every extra column (a user token)
 // sits in key tile 0. A warp whose rows may attend a whole tile takes no
 // per-score select; within the other computed tiles the masked pairs still
-// cost their products.
+// cost their products. In fp32 (decoder_ml32m.json's packed branch:
+// flash_fwd_tf32_kernel, three TF32 products a product) 12 Dh tensor flops
+// an allowed pair at 495 TFLOP/s bound it.
 #include "flash_attention_fwd.cuh"
 
 extern "C" {
@@ -41,6 +43,14 @@ int flash_spans_fwd_launch(int dtype, const void* q, const void* k, const void* 
                            float scale, int device, void* stream) {
   return flash::fwd_dispatch(flash::SpanMask{lo, hi, extra, Nq, Nk}, dtype, q, k, v, o, m, inv,
                              strides, B, H, Nq, Nk, Dh, scale, device, stream);
+}
+
+// The kernel flash_spans_fwd_launch takes for these operands: 0 the CUDA cores,
+// 1 bf16 on wgmma, 2 fp32 as three TF32 products; strides: the 12 element
+// strides of q, k, v, o.
+int flash_spans_fwd_route(int dtype, const void* q, const void* k, const void* v, const void* o,
+                          const long long* strides, int Dh) {
+  return flash::fwd_route(dtype, q, k, v, o, strides, Dh);
 }
 
 const char* flash_spans_fwd_error_string(int code) {

@@ -52,18 +52,24 @@ the (B, N, H, Dh) layout and returned as (B, H, N, Dh) views, so the caller's
 ``merge_heads`` is a reshape without a copy.
 
 The TPU kernel's ``block_q`` is a detail of its VMEM tiling and is not an
-argument here: the CUDA kernels tile 64 rows x 64 keys. For bf16 operands
-with Dh = 64 whose rows are 16-byte aligned (the model's case) the flat and
-span kernels run on the tensor cores with wgmma: the forward with two
-64-row warpgroups a block sharing each key tile and its softmax in log2
-units (exp2 of one FMA, m converted back to natural units once), the
-backward adding dq into a (B, H, Nq, 64) fp32 accumulator with atomics, so
-its fp32 sum order varies from run to run; fp32 operands, other head sizes
-up to 128 and unaligned views run an fp32 CUDA-core variant of the same
-function. The kernels take no Dh above ``MAX_DH`` and raise on it;
-``attend`` routes such heads to its dense path. The span kernels skip every
-(query tile, key tile) pair in which no row may attend any key, and the bf16
-flat forward every key tile whose keys are all masked; that adds exactly
+argument here: the CUDA kernels tile 64 rows x 64 keys. At Dh = 64 with
+16-byte aligned rows (the model's case) the flat and span kernels run on the
+tensor cores (``kernel_route``; each wrapper counts its launches by route in
+``route_launches``): bf16 on wgmma, the forward with two 64-row warpgroups
+a block sharing each key tile and its softmax in log2 units (exp2 of one
+FMA, m converted back to natural units once), the backward adding dq into a
+(B, H, Nq, 64) fp32 accumulator with atomics; fp32 (every shipped MovieLens
+decoder config trains in fp32) as three TF32 products a product (each
+operand split into a TF32 big and small half, the small x small term
+dropped), the forward on wgmma, the backward on mma.sync adding dq into its
+output with atomics. Either backward's fp32 sum order for dq varies from
+run to run. Other head sizes up to 128 and unaligned views run a CUDA-core
+variant of the same function. The kernels take no Dh above ``MAX_DH`` and
+raise on it; ``attend`` routes such heads to its dense path. The span
+kernels skip every (query tile, key tile) pair in which no row may attend
+any key, the tensor-core flat forwards every key tile whose keys are all
+masked and the fp32 flat backward every pair of such keys or past the
+causal cut; that adds exactly
 nothing to the sums (a fully masked row still gives zeros, m = -1e30 and
 inv = 0), so only the order of the fp32 sums differs from the twin's.
 """
@@ -186,10 +192,11 @@ def _c_function(wrapper, suffix: str):
     return getattr(_cuda_build.load(name), f"{_C_FUNCTIONS[name][0]}_{suffix}")
 
 
-def _launch(wrapper, *args) -> None:
+def _launch(wrapper, *args, route: Optional[str] = None) -> None:
     """Launch the kernel(s) of ``csrc/<wrapper.__name__>.cu`` with ``args``
     (built at first use), raise on the CUDA error code it returns, and count
-    the launch on ``wrapper.launches``."""
+    the launch on ``wrapper.launches`` and, for the flat and span wrappers,
+    on ``wrapper.route_launches[route]``."""
     name = wrapper.__name__
     argtypes = _C_FUNCTIONS[name][1]
     launch, error = _c_function(wrapper, "launch"), _c_function(wrapper, "error_string")
@@ -200,6 +207,26 @@ def _launch(wrapper, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {error(err).decode()}")
     wrapper.launches += 1
+    if route is not None:
+        wrapper.route_launches[route] += 1
+
+
+# The kernels a flat or span wrapper's call takes, as the C dispatchers gate
+# them (csrc/flash_attention_common.cuh: Route): fp32 or bf16 FMAs on the
+# CUDA cores, bf16 on wgmma (Dh = 64), fp32 as three TF32 products (Dh = 64).
+ROUTES = ("cuda_cores", "wgmma_bf16", "tf32x3")
+
+
+def kernel_route(wrapper, q, k, v, x) -> str:
+    """The route (``ROUTES``) of ``csrc/<wrapper.__name__>.cu`` for these
+    (B, H, N, Dh) operands at these addresses and strides, as its dispatcher
+    decides it; ``x`` is the output o of a forward, the gradient g of a
+    backward (built at first use)."""
+    fn = _c_function(wrapper, "route")
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [_I] + [_P] * 5 + [_I], ctypes.c_int
+    return ROUTES[fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), x.data_ptr(),
+                     _strides(q, k, v, x), q.shape[-1])]
 
 
 def _check_operands(q, k, v, extra=()):
@@ -259,20 +286,18 @@ def _check_bwd_operands(q, g, m, inv):
 
 
 def _bwd_scratch(wrapper, q, k, v, g, m):
-    """The flat and span backward kernels' scratch: c (B, H, Nq) fp32 and,
-    where the C dispatcher takes its tensor-core path for these operands
-    (``<prefix>_mma_path``, the one place that rule lives), the
-    (B, H, Nq, 64) fp32 dq accumulator that its c kernel zeroes, else None.
-    Allocated before the gradients, so that the caching allocator hands each
-    backward call the blocks the previous one freed."""
-    path = _c_function(wrapper, "mma_path")
-    if path.argtypes is None:
-        path.argtypes, path.restype = [_I] + [_P] * 5 + [_I], ctypes.c_int
+    """The flat and span backward kernels' scratch and route: (c, acc,
+    route) with c (B, H, Nq) fp32 and, where the C dispatcher takes bf16 on
+    wgmma for these operands (``kernel_route``, the one place that rule
+    lives), the (B, H, Nq, 64) fp32 dq accumulator that its c kernel zeroes,
+    else None (the fp32 TF32 route adds into dq itself). Allocated before
+    the gradients, so that the caching allocator hands each backward call
+    the blocks the previous one freed."""
+    route = kernel_route(wrapper, q, k, v, g)
     acc = None
-    if path(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            _strides(q, k, v, g), q.shape[-1]):
+    if route == "wgmma_bf16":
         acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    return torch.empty_like(m), acc
+    return torch.empty_like(m), acc, route
 
 
 def _ptr(t) -> Optional[int]:
@@ -301,10 +326,11 @@ def _bias_fwd(wrapper, q, k, v, bias, causal):
     out = _bnhd_empty(b, h, nq, dh, q)
     m = torch.empty((b, h, nq), dtype=torch.float32, device=dev)
     inv = torch.empty_like(m)
+    route = None if wrapper is flash_attention_small_fwd else kernel_route(wrapper, q, k, v, out)
     _launch(wrapper, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr(), out.data_ptr(), m.data_ptr(), inv.data_ptr(), _strides(q, k, v, out),
             b, h, nq, nk, dh, int(causal), 1.0 / math.sqrt(dh), _device_index(q),
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream, route=route)
     return out, m, inv
 
 
@@ -321,7 +347,9 @@ def _bias_bwd(wrapper, q, k, v, g, m, inv, bias, causal):
     _check_kernel_operands((q, k, v, g), ("q", "k", "v", "g"))
     m = m.to(torch.float32).contiguous()
     inv = inv.to(torch.float32).contiguous()
-    scratch = () if wrapper is flash_attention_small_bwd else _bwd_scratch(wrapper, q, k, v, g, m)
+    scratch, route = (), None
+    if wrapper is not flash_attention_small_bwd:
+        *scratch, route = _bwd_scratch(wrapper, q, k, v, g, m)
     dq = _bnhd_empty(b, h, nq, dh, q)
     dk = _bnhd_empty(b, h, nk, dh, k)
     dv = _bnhd_empty(b, h, nk, dh, v)
@@ -329,7 +357,7 @@ def _bias_bwd(wrapper, q, k, v, g, m, inv, bias, causal):
             bias.data_ptr(), g.data_ptr(), m.data_ptr(), inv.data_ptr(), *map(_ptr, scratch),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, g, dq, dk, dv), b, h, nq,
             nk, dh, int(causal), 1.0 / math.sqrt(dh), _device_index(q),
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream, route=route)
     return dq, dk, dv
 
 
@@ -344,6 +372,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
@@ -359,6 +388,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: to
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -564,11 +594,13 @@ def flash_attention_spans_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch(flash_attention_spans_fwd, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), lo.data_ptr(), hi.data_ptr(), extra.data_ptr(), out.data_ptr(),
             m.data_ptr(), inv.data_ptr(), _strides(q, k, v, out), b, h, nq, nk, dh,
-            1.0 / math.sqrt(dh), _device_index(q), torch.cuda.current_stream(dev).cuda_stream)
+            1.0 / math.sqrt(dh), _device_index(q), torch.cuda.current_stream(dev).cuda_stream,
+            route=kernel_route(flash_attention_spans_fwd, q, k, v, out))
     return out, m, inv
 
 
 flash_attention_spans_fwd.launches = 0
+flash_attention_spans_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def flash_attention_spans_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -586,7 +618,7 @@ def flash_attention_spans_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_kernel_operands((q, k, v, g), ("q", "k", "v", "g"))
     m = m.to(torch.float32).contiguous()
     inv = inv.to(torch.float32).contiguous()
-    c, acc = _bwd_scratch(flash_attention_spans_bwd, q, k, v, g, m)
+    c, acc, route = _bwd_scratch(flash_attention_spans_bwd, q, k, v, g, m)
     dq = _bnhd_empty(b, h, nq, dh, q)
     dk = _bnhd_empty(b, h, nk, dh, k)
     dv = _bnhd_empty(b, h, nk, dh, v)
@@ -594,11 +626,13 @@ def flash_attention_spans_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.data_ptr(), lo.data_ptr(), hi.data_ptr(), extra.data_ptr(), g.data_ptr(),
             m.data_ptr(), inv.data_ptr(), c.data_ptr(), _ptr(acc), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _strides(q, k, v, g, dq, dk, dv), b, h, nq, nk, dh,
-            1.0 / math.sqrt(dh), _device_index(q), torch.cuda.current_stream(dev).cuda_stream)
+            1.0 / math.sqrt(dh), _device_index(q), torch.cuda.current_stream(dev).cuda_stream,
+            route=route)
     return dq, dk, dv
 
 
 flash_attention_spans_bwd.launches = 0
+flash_attention_spans_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 class _FlashAttentionSpans(torch.autograd.Function):
