@@ -152,7 +152,11 @@ weights made from a seed and seeded synthetic data:
      off 16-byte alignment: it must take the CUDA-core kernel (the gate
      the library exports, ``flash_attention.small_fwd_kernel_route``),
      match the twin, and leave the context usable (the aligned launch after
-     it is gated to the live kernel and matches);
+     it is gated to the live kernel and matches); every case's routes (the
+     fp32 ones at Dh = 64 on ``tf32x3``, the fp32 tensor-core kernels), and
+     the Python restatement of both libraries' gates (``small_route``)
+     against their own answers on aligned and misaligned views of both
+     dtypes;
  22. a 2-user fp32 Amazon step with the switch on, GPU against CPU;
  23. the switch off / on / on / off in turns: the Amazon train step
      (batch 256) and beam search (256 users, k = 32); one traced step; the
@@ -224,6 +228,14 @@ its ``train()`` took that route and holds and times those kernels on its
 own layer-0 operands (``_fp32_row``), beside the twin, fp32
 ``F.scaled_dot_product_attention`` and both bounds.
 
+Phase 35 (``_amazon_fp32``, after phase 23) runs ``configs/decoder_amazon.json``
+as shipped, in fp32, through ``train_decoder.train`` with the short route
+on, over phase 20's synthetic data and phase 11's RQ-VAE: every short
+launch of the run on the fp32 tensor-core route, the kernels held and
+timed on the first step's layer-0 operands and held on the eval's beam
+search calls, a traced step and a GPU-vs-CPU fp32 step; its rows join the
+short kernels' ``at_shapes`` under an ``fp32`` key.
+
 TF32 is switched off for matmuls and cuDNN, so fp32 work runs in fp32.
 ``RQVAE_TPU_SHORT_FLASH`` is unset for phases 1-19, so they take
 ``attend``'s default routes.
@@ -234,7 +246,7 @@ Amazon decoder under ``amazon``), a ``{"train_rqvae": {...}}`` line, a
 ``{"wide": {...}}`` line (phase 24), an ``{"offline": {...}}`` line (phase
 25), the ``{"dispatch"}``, ``{"distributed"}``, ``{"observability"}`` and
 ``{"tensor_parallel"}`` lines (phases 26-29), a ``{"movielens": {...}}``
-line (phases 30-34), the nvidia-smi line again, a ``{"kernels": [...]}``
+line (phases 30-34; phase 35 is the ``{"train"}`` line's ``amazon_fp32``), the nvidia-smi line again, a ``{"kernels": [...]}``
 line (nine entries; rq_tokenize's and children_window's also carry phase
 25's launches as ``offline_launches``; phases 30-34's shapes are added to
 the entries' ``at_shapes``, the fp32 kernels' rows under an ``fp32`` key)
@@ -527,6 +539,17 @@ def main() -> int:
         # ---- the Amazon decoder through train(), over the flagship's checkpoint ----
         train["amazon"], small_kernels = _amazon_decoder(dev, rq_ckpt, work)
         kernels += small_kernels
+        torch.cuda.empty_cache()
+        # ---- phase 35: decoder_amazon.json as shipped (fp32) through train() ----
+        train["amazon_fp32"], small_rows = _amazon_fp32(dev, rq_ckpt, work)
+        for entry in small_kernels:   # the fp32 tensor-core kernels' rows, as for the flat ones
+            d = entry["name"].rsplit("_", 1)[1]
+            for kind, row in small_rows.items():
+                fp32 = dict(row[d], route=row["routes"][d], launches_per_step=row["launches_per_step"],
+                            max_abs_err=row["max_abs_err"], shape=row["shape"],
+                            **row["bounds"][d], pairs=row["bounds"]["pairs"],
+                            dense_pairs=row["bounds"]["dense_pairs"])
+                entry.setdefault("at_shapes", {})[f"amazon_fp32_{kind}_layer0"] = {"fp32": fp32}
         torch.cuda.empty_cache()
 
         # ---- phase 25: the offline path around training, over the same checkpoint ----
@@ -2073,7 +2096,12 @@ def _amazon_decoder(dev, rq_ckpt, work):
             want = fa.flash_attention_small_bwd_plain(*a, k_mask=km, causal=causal)
             torch.cuda.synchronize()
             row = {"dtype": str(dtype)[6:], "case": case, "shape": list(q.shape),
-                   "nk": k.shape[2], "causal": causal, "tol": tol}
+                   "nk": k.shape[2], "causal": causal, "tol": tol,
+                   "routes": [fa.small_fwd_kernel_route(*a[:3], out),
+                              fa.small_bwd_kernel_gate(*a, *got)]}
+            want_routes = ("cuda_cores" if q.shape[-1] != 64 else
+                           "tf32x3" if dtype == torch.float32 else "mma_bf16")
+            check(row["routes"] == [want_routes] * 2, f"small {case} {dtype} routes {row['routes']}")
             row.update(_hold_stats(f"small {case} {dtype}", dtype, mm, inv, ref_m, ref_inv))
             for name, x, y in (("out", out, ref), ("dq", got[0], want[0]), ("dk", got[1], want[1]),
                                ("dv", got[2], want[2])):
@@ -2103,6 +2131,34 @@ def _amazon_decoder(dev, rq_ckpt, work):
                 check(False, f"small_bwd_route({nq}, {nk}) = {got_route}, the library's {want_route}")
             routes[want_route] = routes.get(want_route, 0) + 1
     log(f"short backward routes over every (Nq, Nk) <= {fa.SMALL_MAX_LEN}: {routes}")
+    # the Python restatement of both libraries' gates (``small_route``, which
+    # the CPU tests read) against the libraries' own answers, on views of
+    # known alignment in both dtypes
+    gates = {}
+    for gdt in (torch.float32, torch.bfloat16):
+        def view(offset=0, pad=0, dh=64):
+            store = torch.zeros(2 * 5 * 3 * (dh + pad) + offset, dtype=gdt, device=dev)
+            return store[offset:].view(2, 5, 3, dh + pad)[..., :dh].transpose(1, 2)
+
+        a = view()
+        for label, ops in (("aligned", (a, a, a, a)), ("o_off_1", (a, a, a, view(1))),
+                           ("k_off_2", (a, view(2), a, a)), ("v_rows_pad_2", (a, a, view(pad=2), a)),
+                           ("dh_32", (view(dh=32),) * 4)):
+            got_gate, want_gate = fa.small_route(*ops), fa.small_fwd_kernel_route(*ops)
+            check(got_gate == want_gate,
+                  f"small_route fwd {gdt} {label} = {got_gate}, the library's {want_gate}")
+            gates[f"{str(gdt)[6:]}_fwd_{label}"] = want_gate
+        for label, outs in (("aligned", (a, a, a)), ("dq_off_1", (view(1), a, a)),
+                            ("dk_off_2", (a, view(2), a)), ("dv_rows_pad_2", (a, a, view(pad=2)))):
+            got_gate = fa.small_route(a, a, a, a, outs)
+            want_gate = fa.small_bwd_kernel_gate(a, a, a, a, *outs)
+            check(got_gate == want_gate,
+                  f"small_route bwd {gdt} {label} = {got_gate}, the library's {want_gate}")
+            gates[f"{str(gdt)[6:]}_bwd_{label}"] = want_gate
+    check(gates["float32_fwd_aligned"] == gates["float32_bwd_aligned"] == "tf32x3"
+          and gates["bfloat16_fwd_aligned"] == gates["bfloat16_bwd_aligned"] == "mma_bf16",
+          f"short gates {gates}")
+    log(f"short kernels' gates, held against small_route: {gates}")
 
     # the forward's C gate: an output whose rows are not 16-byte aligned (a
     # view 4 bytes into its storage), handed to the library directly, must
@@ -2132,7 +2188,7 @@ def _amazon_decoder(dev, rq_ckpt, work):
     after = fa.flash_attention_small_fwd(q, k, v, k_mask=km16)[0]
     torch.cuda.synchronize()
     after_route = fa.small_fwd_kernel_route(q, k, v, after)
-    check(after_route == "live", f"the aligned launch after it gated to the {after_route} kernel")
+    check(after_route == "mma_bf16", f"the aligned launch after it gated to the {after_route} kernel")
     after_err = float((after.float() - ref16.float()).abs().max())
     check(after_err <= 2e-2, f"the launch after the offset output: {after_err} from the twin")
     checks.append({"case": "output_4_bytes_off_16", "shape": list(q.shape), "out": off_err,
@@ -2377,7 +2433,7 @@ def _amazon_decoder(dev, rq_ckpt, work):
     log(f"short kernels at B={b}, H={h}, N={n}, Dh={dh} {q.dtype}: {kernels}; dense sdpa "
         f"{dense_fwd:.4f} / {dense_fwd_bwd - dense_fwd:.4f} ms")
     amazon.update(
-        small_checks=checks, small_bwd_routes=routes,
+        small_checks=checks, small_bwd_routes=routes, small_gates=gates,
         gpu_vs_cpu=dict(users=2, tokens=4 * N_HIST + 1, loss_rel_err=loss_rel,
                         worst_leaf_rel_err=leaf_rel),
         switch_ab=ab, train_profile=profile,   # one traced step, switch off and on
@@ -2387,6 +2443,193 @@ def _amazon_decoder(dev, rq_ckpt, work):
                           serving_fwd=serving_fwd),
         attribute_calls=attribute_calls)
     return amazon, kernels
+
+
+AMAZON_FP32_ITERS = 30   # phase 35's steps (decoder_amazon.json: 200,000)
+AMAZON_FP32_CPU_USERS = 2
+
+
+def _amazon_fp32(dev, rq_ckpt, work) -> tuple:
+    """Phase 35: ``configs/decoder_amazon.json`` as shipped (fp32, batch
+    256, dropout 0.3, 8 heads x 64, 4 + 4 layers, 81 + 5 tokens) through
+    ``train_decoder.train`` with ``RQVAE_TPU_SHORT_FLASH=1`` over phase 20's
+    synthetic data and phase 11's RQ-VAE: AMAZON_FP32_ITERS steps, one
+    beam-search eval batch, a checkpoint. The loss finite and falling; 12
+    short forward and 12 short backward launches a step, every short launch
+    of the run on the fp32 tensor-core route (``route_launches``), no flat
+    flash launch; the kernels held and timed on the first step's layer-0
+    operands (``_fp32_row``: 81 x 81 under the key mask, causal 5 x 5,
+    5 x 81), held on the eval's first 32 x 81 and 1 x T calls and on the
+    encoder's operands with two batch rows that have no valid key (their
+    output and gradients exactly 0); one traced step from the checkpoint
+    (device busy time, idle share); one fp32 step at dropout 0 on
+    AMAZON_FP32_CPU_USERS users, the card against the CPU from the card's
+    state (loss 1e-4 relative, gradients ``_grads_close`` 1e-3). Returns
+    (result, {step shape: the kernels' row})."""
+    import numpy as np
+    import torch
+
+    from rqvae_tpu_torch.data import dataset as dataset_lib
+    from rqvae_tpu_torch.data.synthetic import synthetic_items, synthetic_sequences
+    from rqvae_tpu_torch.ops import attention as attn_ops
+    from rqvae_tpu_torch.ops import flash_attention as fa
+    from rqvae_tpu_torch.tokenizer import semids
+    from rqvae_tpu_torch.train import checkpoint, optim
+    from rqvae_tpu_torch.train import train_decoder as td
+    from rqvae_tpu_torch.utils import config as config_lib
+    from rqvae_tpu_torch.utils.tree import tree_map
+
+    save = f"{work}/decoder_fp32"
+    config = pathlib.Path(__file__).resolve().parent / "configs" / "decoder_amazon.json"
+    cfg = config_lib.load_config(td.DecoderTrainConfig, str(config), [
+        "dataset=SYNTHETIC", f"synthetic_n_items={N_ITEMS}", f"synthetic_n_users={AMAZON_USERS}",
+        f"vae_input_dim={INPUT_DIM}", f"seed={SEED}", f"pretrained_rqvae_path={rq_ckpt}",
+        f"save_dir_root={save}", f"iterations={AMAZON_FP32_ITERS}", "log_every=5",
+        f"partial_eval_every={AMAZON_FP32_ITERS}", f"full_eval_every={AMAZON_FP32_ITERS}",
+        f"save_model_every={AMAZON_FP32_ITERS}", "eval_batches=1"])
+    check((cfg.batch_size, cfg.dropout_p, cfg.attn_embed_dim, cfg.attn_heads, cfg.attn_layers,
+           cfg.amp) == (256, 0.3, 512, 8, 8, False), f"decoder_amazon.json is not as shipped: {cfg}")
+    small = (fa.flash_attention_small_fwd, fa.flash_attention_small_bwd)
+    rec, real = {}, attn_ops.flash_attention_small
+
+    def record(q, k, v, *, k_mask=None, causal=False):
+        out = real(q, k, v, k_mask=k_mask, causal=causal)
+        if out.requires_grad:   # layer 0 of each kind, first step
+            kind = ("decoder_self" if causal else
+                    "encoder_self" if q.shape[2] == k.shape[2] else "cross")
+        else:                   # the eval's beam search
+            kind = (f"eval_{q.shape[2]}x{k.shape[2]}" if q.shape[2] in (1, 32) else None)
+        if kind and kind not in rec:
+            entry = rec[kind] = dict(q=q.detach(), k=k.detach(), v=v.detach(), k_mask=k_mask,
+                                     causal=causal)
+            if out.requires_grad:
+                out.register_hook(lambda g, e=entry: e.__setitem__("g", g.detach()))
+        return out
+
+    for w in small:
+        w.route_launches = dict.fromkeys(w.route_launches, 0)
+    attn_ops.flash_attention_small = record
+    try:
+        with _env(**{SHORT_FLASH_ENV: "1"}):
+            records, launches, wall_s, _ = _ml_train(cfg, dev)
+    finally:
+        attn_ops.flash_attention_small = real
+    routes = {w.__name__: {r: n for r, n in w.route_launches.items() if n} for w in small}
+    logs = [r for r in records if "total_loss" in r]
+    losses = [r["total_loss"] for r in logs]
+    check(all(math.isfinite(x) for x in losses) and sum(losses[-2:]) / 2 < losses[0],
+          f"phase 35 losses {losses}")
+    names = [w.__name__ for w in small] + ["flash_attention_fwd", "flash_attention_bwd"]
+    per = {k: _per_step(records, k) for k in names}
+    check(per == dict(zip(names, (12, 12, 0, 0))),
+          f"phase 35 launches a step {per}: expected 12 short forward and 12 short backward "
+          "(4 encoder self, 4 decoder self, 4 cross) and no flat flash")
+    check(launches.get("flash_attention_fwd", 0) == launches.get("flash_attention_bwd", 0) == 0,
+          f"phase 35 flat flash launches {launches}")
+    check(routes == {w.__name__: {"tf32x3": launches.get(w.__name__, 0)} for w in small}
+          and all(routes.values()), f"phase 35 short routes {routes}, launches {launches}")
+    evals = [r for r in records if "eval_loss" in r]
+    gen_evals = [r for r in records if "ndcg@10" in r]
+    check(len(evals) == len(gen_evals) == 1 and math.isfinite(evals[0]["eval_loss"])
+          and all(0.0 <= v <= 1.0 for k, v in gen_evals[0].items() if k.startswith(("h@", "ndcg")))
+          and checkpoint.latest_step(save) == AMAZON_FP32_ITERS - 1,
+          f"phase 35 evals {evals} {gen_evals}, checkpoint {checkpoint.latest_step(save)}")
+    out = dict(batch=cfg.batch_size, iterations=AMAZON_FP32_ITERS, wall_s=wall_s, losses=losses,
+               step_ms=_step_ms(records), train_examples_per_s=cfg.batch_size / (
+                   _step_ms(records) / 1e3), launches=launches, launches_per_step=per,
+               routes=routes,
+               eval={k: v for k, v in evals[0].items() if k != "t" and "launches" not in k},
+               generative_eval={k: v for k, v in gen_evals[0].items()
+                                if k != "t" and "launches" not in k})
+
+    # the kernels on the run's own operands
+    check({"encoder_self", "decoder_self", "cross"} <= set(rec)
+          and all("g" in rec[k] for k in ("encoder_self", "decoder_self", "cross")),
+          f"phase 35 recorded {sorted(rec)}")
+    rows = {}
+    for kind in ("encoder_self", "decoder_self", "cross"):
+        e = rec[kind]
+        check(e["q"].dtype == torch.float32, f"phase 35 {kind} operands in {e['q'].dtype}")
+        rows[kind] = _fp32_row("small", e["q"], e["k"], e["v"], e["g"].contiguous(), 4,
+                               k_mask=e["k_mask"], causal=e["causal"])
+        log(f"phase 35 fp32 short kernels, {kind}: {rows[kind]}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 35)
+    enc = rec["encoder_self"]
+    holes = enc["k_mask"].clone()
+    holes[:2] = False   # two batch rows with no valid key
+    held = {}
+    for case, e, km in ([(k, rec[k], rec[k]["k_mask"]) for k in sorted(rec) if k.startswith("eval_")]
+                        + [("encoder_no_valid_key", enc, holes)]):
+        q, k, v = e["q"], e["k"], e["v"]
+        g = torch.randn(q.shape, device=dev, generator=gen)
+        res = _fp32_held("small", q, k, v, g, k_mask=km, causal=e["causal"])
+        o = fa.flash_attention_small_fwd(q, k, v, k_mask=km, causal=e["causal"])[0]
+        held[case] = dict(shape=list(q.shape[:3]) + [k.shape[2]],
+                          route=fa.small_fwd_kernel_route(q, k, v, o), **res)
+        for name, (err, ok) in res.items():
+            check(ok, f"phase 35 {case} {name} differs from the twin by {err}")
+        check(held[case]["route"] == "tf32x3", f"phase 35 {case} route {held[case]['route']}")
+    check({"eval_32x81", "encoder_no_valid_key"} <= set(held)
+          and any(c.startswith("eval_1x") for c in held), f"phase 35 eval shapes {sorted(held)}")
+    o, mm, inv = fa.flash_attention_small_fwd(enc["q"], enc["k"], enc["v"], k_mask=holes)
+    grads = fa.flash_attention_small_bwd(enc["q"], enc["k"], enc["v"], enc["g"], mm, inv,
+                                         k_mask=holes)
+    check(all(float(t[:2].abs().max()) == 0.0 for t in (o, inv) + tuple(grads))
+          and bool((mm[:2] == -1e30).all()),
+          "phase 35: rows with no valid key must give zeros, m = -1e30, inv = 0")
+    out["held"] = held
+    del o, mm, inv, grads, rec, enc, holes
+    torch.cuda.empty_cache()
+
+    # one traced step from the checkpoint, and one fp32 step at dropout 0,
+    # the card against the CPU from the card's state
+    model_cfg = cfg.retrieval_config(N_HIST)
+    vae_params, vae_cfg = td.load_frozen_rqvae(cfg, device=dev)
+    items_x = synthetic_items(N_ITEMS, INPUT_DIM, seed=SEED).x
+    index = semids.precompute_corpus_ids(vae_params, vae_cfg, torch.from_numpy(items_x).to(dev))
+    users, _ = synthetic_sequences(N_ITEMS, n_users=BATCH, seed=SEED + 35)
+    raw = users.sample_batch(np.random.default_rng(SEED + 35), BATCH, subsample=True)
+    state, _ = checkpoint.restore(save, device=dev)
+    opt = optim.adamw(optim.inv_sqrt_schedule(cfg.learning_rate, cfg.warmup_steps),
+                      cfg.weight_decay)
+    batch = dataset_lib.to_device(dataset_lib.make_seq_batch(raw, items_x, with_features=False), dev)
+    batch = type(batch)(*(t[None] for t in batch))
+    step = td.make_train_step(model_cfg, opt, index, 1, torch.float32, model_cfg.sem_id_dim)
+    traced = [tree_map(lambda t: t.clone(), state["params"])]
+    traced.append(opt.init(traced[0]))
+    step_gen = torch.Generator(device=dev).manual_seed(SEED + 35)
+
+    def one_step():
+        traced[0], traced[1], _ = step(traced[0], traced[1], batch, step_gen)
+
+    with _env(**{SHORT_FLASH_ENV: "1"}):
+        out["step_profile"] = _profile(one_step, top=10)
+        cfg0 = dataclasses.replace(model_cfg, dropout=0.0, input_dropout=0.0)
+        few = {key: a[:AMAZON_FP32_CPU_USERS] for key, a in raw.items()}
+        res = {}
+        for where in (dev, torch.device("cpu")):
+            idx = semids.CorpusIndex(index.cached_ids.to(where), index.sorted_keys.to(where),
+                                     index.bases, index.codebook_size, index.n_distinct)
+            rec_opt = _Recorded(opt)
+            p = tree_map(lambda t: t.to(where).clone(), state["params"])
+            one = td.make_train_step(cfg0, rec_opt, idx, 1, torch.float32, cfg0.sem_id_dim)
+            b1 = dataset_lib.to_device(dataset_lib.make_seq_batch(few, items_x,
+                                                                  with_features=False), where)
+            _, _, m = one(p, rec_opt.init(p), type(b1)(*(t[None] for t in b1)), None)
+            res[where.type] = (float(m["total_loss"]), rec_opt.grads[0])
+    (lg, gg), (lc, gc) = res[dev.type], res["cpu"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    check(loss_rel <= 1e-4, f"phase 35 GPU vs CPU loss {lg} vs {lc}")
+    out["gpu_vs_cpu"] = dict(users=AMAZON_FP32_CPU_USERS, loss_rel_err=loss_rel,
+                             worst_grad_leaf=_grads_close(gg, gc, 1e-3,
+                                                          "phase 35 GPU vs CPU gradients"))
+    out["attention_ms"] = {kind: {d: {key: r[d][key] for key in ("ms", "device_ms", "plain_ms",
+                                                                  "sdpa_ms")}
+                                  for d in ("fwd", "bwd")} for kind, r in rows.items()}
+    out["attention_device_ms_per_step"] = {d: sum(r[d]["device_ms"] * 4 for r in rows.values())
+                                           for d in ("fwd", "bwd")}
+    log(f"phase 35, decoder_amazon.json as shipped through train(): {out}")
+    return out, rows
 
 
 def _write_beauty_raw(root: str, seed: int) -> int:
@@ -2776,7 +3019,7 @@ def _hold_stats(what, dtype, m, inv, ref_m, ref_inv) -> dict:
 
 
 def _fp32_flash_bounds(kind, q, k, mask) -> dict:
-    """The least time of the fp32 flat or span kernels' work on these
+    """The least time of the fp32 flat, short or span kernels' work on these
     operands, two ways: operations over the allowed (q, k) pairs (4 Dh
     forward, 10 Dh backward, the TPU cost estimate's count) at the fp32
     CUDA-core peak, and as three TF32 products at the TF32 tensor peak; each
@@ -2788,7 +3031,7 @@ def _fp32_flash_bounds(kind, q, k, mask) -> dict:
 
     b, h, nq, dh = q.shape
     nk = k.shape[2]
-    if kind == "flat":
+    if kind in ("flat", "small"):
         valid = (torch.ones((b, nk), dtype=torch.bool, device=q.device) if mask.get("k_mask") is None
                  else mask["k_mask"].reshape(b, nk))
         allowed = valid[:, None, :].expand(b, nq, nk)
@@ -2826,23 +3069,25 @@ def _sdpa_backend(fn) -> dict:
 
 
 def _fp32_flash_times(kind, q, k, v, g, *, sdpa: bool = True, **mask) -> dict:
-    """The fp32 flat (``kind`` "flat": ``k_mask``, ``causal``) or span
-    ("spans": ``lo``, ``hi``, ``extra``) kernels on these operands: each
-    direction's route, CUDA-event ms, profiler device ms and the twin's ms;
-    with ``sdpa``, ``F.scaled_dot_product_attention``'s fp32 ms with the mask
-    as an additive bias and its backend; the bounds of
-    ``_fp32_flash_bounds``."""
+    """The fp32 flat (``kind`` "flat": ``k_mask``, ``causal``), short
+    ("small": the same) or span ("spans": ``lo``, ``hi``, ``extra``) kernels
+    on these operands: each direction's route, CUDA-event ms, profiler
+    device ms and the twin's ms; with ``sdpa``,
+    ``F.scaled_dot_product_attention``'s fp32 ms with the mask as an additive
+    bias and its backend; the bounds of ``_fp32_flash_bounds``."""
     import torch
     import torch.nn.functional as F
 
     from rqvae_tpu_torch.ops import flash_attention as fa
 
-    if kind == "flat":
+    if kind in ("flat", "small"):
         km, causal = mask.get("k_mask"), bool(mask.get("causal", False))
-        wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd)
-        fwd = lambda: fa.flash_attention_fwd(q, k, v, k_mask=km, causal=causal)   # noqa: E731
+        small = kind == "small"
+        wrappers = ((fa.flash_attention_small_fwd, fa.flash_attention_small_bwd) if small
+                    else (fa.flash_attention_fwd, fa.flash_attention_bwd))
+        fwd = lambda: wrappers[0](q, k, v, k_mask=km, causal=causal)   # noqa: E731
         out, m, inv = fwd()
-        bwd = lambda: fa.flash_attention_bwd(q, k, v, g, m, inv, k_mask=km, causal=causal)  # noqa: E731
+        bwd = lambda: wrappers[1](q, k, v, g, m, inv, k_mask=km, causal=causal)  # noqa: E731
         plain = (lambda: fa.flash_attention_plain(q, k, v, k_mask=km, causal=causal),
                  lambda: fa.flash_attention_bwd_plain(q, k, v, g, k_mask=km, causal=causal))
         bias = fa._key_masker(fa.mask_bias(km, q.shape[0], k.shape[2], q.device), causal)(
@@ -2856,15 +3101,21 @@ def _fp32_flash_times(kind, q, k, v, g, *, sdpa: bool = True, **mask) -> dict:
         plain = (lambda: fa.flash_attention_spans_plain(q, k, v, *sp),
                  lambda: fa.flash_attention_spans_bwd_plain(q, k, v, *sp, g))
         bias = torch.where(fa.span_mask(sp, k.shape[2])[:, None], 0.0, fa.NEG_INF).float()
-    res = {"routes": {"fwd": fa.kernel_route(wrappers[0], q, k, v, out),
-                      "bwd": fa.kernel_route(wrappers[1], q, k, v, g)}}
+    if kind == "small":
+        res = {"routes": {"fwd": fa.small_fwd_kernel_route(q, k, v, out),
+                          "bwd": fa.small_bwd_kernel_gate(q, k, v, g, *bwd())}}
+    else:
+        res = {"routes": {"fwd": fa.kernel_route(wrappers[0], q, k, v, out),
+                          "bwd": fa.kernel_route(wrappers[1], q, k, v, g)}}
+    key = "small::" if kind == "small" else "flash"   # the kernels' names in a trace
+    iters = (50, 20) if kind == "small" else (10, 5)
     for d, fn, tw in (("fwd", fwd, plain[0]), ("bwd", bwd, plain[1])):
         # a late profiler trace can drop device records (PERF.md §7): 0 is
         # recorded as not measured, and the CUDA events are the time
-        res[d] = dict(ms=cuda_ms(fn, 10 if d == "fwd" else 5, warmup=2),
-                      device_ms=_device_ms(fn, 3, "flash") or None,
+        res[d] = dict(ms=cuda_ms(fn, iters[0] if d == "fwd" else iters[1], warmup=2),
+                      device_ms=_device_ms(fn, 3 if kind != "small" else 10, key) or None,
                       plain_ms=cuda_ms(tw, 2, warmup=1),
-                      kernels=[k for k in _profile(fn, top=6)["top_device_ops"] if "flash" in k[0]])
+                      kernels=[k for k in _profile(fn, top=6)["top_device_ops"] if key in k[0]])
         torch.cuda.empty_cache()
     if sdpa:
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
@@ -4168,15 +4419,17 @@ def _flash_recorder(min_len: int):
 
 
 def _fp32_held(kind, q, k, v, g, **mask) -> dict:
-    """The flat or span wrappers' out, dq, dk, dv against the twins'
+    """The flat, short or span wrappers' out, dq, dk, dv against the twins'
     (``_fp32_flash_times``' arguments): {name: (max |err|, within 1e-4)}."""
     import torch
 
     from rqvae_tpu_torch.ops import flash_attention as fa
 
-    if kind == "flat":
-        out, m, inv = fa.flash_attention_fwd(q, k, v, **mask)
-        got = (out,) + fa.flash_attention_bwd(q, k, v, g, m, inv, **mask)
+    if kind in ("flat", "small"):
+        fwd, bwd = ((fa.flash_attention_small_fwd, fa.flash_attention_small_bwd) if kind == "small"
+                    else (fa.flash_attention_fwd, fa.flash_attention_bwd))
+        out, m, inv = fwd(q, k, v, **mask)
+        got = (out,) + bwd(q, k, v, g, m, inv, **mask)
         want = (fa.flash_attention_plain(q, k, v, **mask),) + fa.flash_attention_bwd_plain(
             q, k, v, g, **mask)
     else:

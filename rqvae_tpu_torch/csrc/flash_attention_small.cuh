@@ -11,6 +11,11 @@
 // scores, then the causal cut col <= row (query rows counted from 0, no
 // block offset), -inf for the zero-filled keys past Nk.
 //
+// The fp32 tensor-core kernels (Dh = 64) read their fragments as the
+// section at the end of this file sets out: the forward straight from
+// global memory into registers, the backward from fp32 rows it stages (q,
+// g, a strip's K and V, then e and ds).
+//
 // Tensor-core tiles (bf16, Dh = 64): a staged operand of the backward's
 // strip kernel is [rows][kMP] bf16 (flash_attention_common.cuh's 144-byte
 // pitch); the forward and the backward's other kernels use the swizzled
@@ -31,6 +36,12 @@ constexpr int kMaxLen = 255;    // attend's short route: Nq, Nk < 256
 constexpr int kMaxWarps = 8;
 constexpr int kSmsH100 = 132;
 constexpr long long kPairSmemBudget = 110 * 1024;   // a CTA's pairs stay within it: two CTAs an SM
+constexpr long long kOneCtaSmem = 232448;   // the shared memory a CTA may take
+
+// The kernel family a call takes (each library's gate, exported as
+// flash_small_{fwd_route,bwd_gate}): fp32 or bf16 FMAs on the CUDA cores,
+// bf16 on mma.sync, fp32 as three TF32 products on mma.sync (Dh = 64).
+enum Route { kRouteCudaCores = 0, kRouteMmaBf16 = 1, kRouteTf32x3 = 2 };
 
 // Issue the copies of rows [r0, r0 + n_pad) of a (n, 64) bf16 slice into
 // dst[n_pad][kMP]; rows past n become zeros. Every thread of the block takes
@@ -241,6 +252,130 @@ __device__ __forceinline__ void transpose_a(uint32_t t[4], const uint32_t a[4]) 
   t[1] = transpose8x8(a[2]);
   t[2] = transpose8x8(a[1]);
   t[3] = transpose8x8(a[3]);
+}
+
+// The live key tiles of a pair from its (Nk) key bias, staged or in global
+// memory, as one warp:
+// bit t when tile t holds a key with a bias above -5e29 (lanes 0-15 look at
+// tile t0, lanes 16-31 at tile t0 + 1); alike in every lane.
+template <int KT>
+__device__ __forceinline__ unsigned live_mask(const float* bs, int Nk) {
+  const int lane = threadIdx.x & 31;
+  unsigned mask = 0u;
+#pragma unroll
+  for (int t0 = 0; t0 < KT; t0 += 2) {
+    const int key = 16 * t0 + lane;
+    const unsigned live = __ballot_sync(kFull, key < Nk && bs[key] > 0.5f * kNegInf);
+    mask |= ((live & 0xffffu) ? 1u : 0u) << t0;
+    mask |= ((live >> 16) ? 1u : 0u) << (t0 + 1);
+  }
+  return mask;
+}
+
+// The indices of mask's set bits, ascending, 4 bits each.
+template <int KT>
+__device__ __forceinline__ unsigned long long tile_list(unsigned mask) {
+  unsigned long long idx = 0ull;
+  int n = 0;
+#pragma unroll
+  for (int t = 0; t < KT; ++t)
+    if ((mask >> t) & 1u) idx |= (unsigned long long)t << (4 * n++);
+  return idx;
+}
+
+// ---- fp32, Dh = 64: three TF32 products on mma.sync m16n8k8 ----
+//
+// The fp32 kernels (small_fwd_tf32_kernel, small_bwd_tf32_kernel) take each
+// product as flash_attention_common.cuh's three TF32 products (split_tf32,
+// mma_tf32x3). The forward stages nothing: a warp reads its fragments
+// straight from the strided operands, 16 bytes a lane, through the
+// read-only cache, and splits them in registers (the warps of a pair share
+// K and V in L1); the backward reads its staged rows in the same order.
+// Two permutations, free because a product sums over its k dimension in any
+// order and the kernel places the output's columns itself, make every read
+// a float4 of one row:
+//   * the head dimension as a product's k (q k^T, g v^T): lane (g, c) reads
+//     dims 16 kk + 4 c .. + 3 of its rows; k-step 2 kk takes the first two
+//     of them (k indices c, c + 4), k-step 2 kk + 1 the last two;
+//   * the head dimension as a product's n (e v, ds k, ds^T q, e^T (g inv)):
+//     column g of n-tile n is dim 8 g + n, so lane g reads dims 8 g .. 8 g + 7
+//     of a row for all eight n-tiles, and the accumulator's (row, 2 c) /
+//     (row, 2 c + 1) of n-tile n is dim 16 c + n / 16 c + 8 + n: 16
+//     contiguous dims a lane, four float4 stores a row.
+// Keys (e v, ds k) and queries (ds^T q, e^T g) as a product's k are in the
+// accumulator's order (flash_attention_common.cuh: key_pos, frag_a_acc):
+// k index c is row 2 c of the 8, c + 4 row 2 c + 1.
+
+__device__ __forceinline__ float4 ldg4(const float* p, bool ok) {
+  return ok ? __ldg(reinterpret_cast<const float4*>(p)) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// A fragments of k-steps 2 kk and 2 kk + 1 from dims 16 kk + 4 c .. + 3 of
+// rows g (x) and g + 8 (y)
+__device__ __forceinline__ void frag_a_dims(const float4& x, const float4& y, uint32_t ab[2][4],
+                                            uint32_t as[2][4]) {
+  const float a0[4] = {x.x, y.x, x.y, y.y};
+  const float a1[4] = {x.z, y.z, x.w, y.w};
+  split4(a0, ab[0], as[0]);
+  split4(a1, ab[1], as[1]);
+}
+
+// s (16 rows x 8 keys) += A B over the 16 dims of A's two k-steps, B from
+// dims 16 kk + 4 c .. + 3 of key row g (x)
+__device__ __forceinline__ void mma_dims(float s[4], const uint32_t ab[2][4], const uint32_t as[2][4],
+                                         const float4& x) {
+  uint32_t bb[2], bs[2];
+  split_tf32(x.x, bb[0], bs[0]);
+  split_tf32(x.y, bb[1], bs[1]);
+  mma_tf32x3(s, ab[0], as[0], bb, bs);
+  split_tf32(x.z, bb[0], bs[0]);
+  split_tf32(x.w, bb[1], bs[1]);
+  mma_tf32x3(s, ab[1], as[1], bb, bs);
+}
+
+// acc[n] += A B for n-tiles n0 .. n0 + N - 1 of one k-step: A split (ab,
+// as), B's k index c from row values r0 (dims 8 g + n0 ..), c + 4 from r1
+template <int N>
+__device__ __forceinline__ void mma_rows(float (*acc)[4], const uint32_t ab[4], const uint32_t as[4],
+                                         const float r0[N], const float r1[N]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    uint32_t bb[2], bs[2];
+    split_tf32(r0[n], bb[0], bs[0]);
+    split_tf32(r1[n], bb[1], bs[1]);
+    mma_tf32x3(acc[n], ab, as, bb, bs);
+  }
+}
+
+// dims 8 g .. 8 g + 7 of a row (zeros when !ok)
+__device__ __forceinline__ void load8(float r[8], const float* row, bool ok) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const float4 a = ldg4(row + 8 * g, ok), b = ldg4(row + 8 * g + 4, ok);
+  r[0] = a.x, r[1] = a.y, r[2] = a.z, r[3] = a.w, r[4] = b.x, r[5] = b.y, r[6] = b.z, r[7] = b.w;
+}
+
+// Store n-tiles n0 .. n0 + N - 1 (N = 4 or 8) of a warp's 16-row
+// accumulator, times mul[0] / mul[1] (rows g / g + 8), as rows row0 + g and
+// row0 + g + 8 (those < n) of a strided fp32 slice: lane (g, c) writes dims
+// 16 c + n0 .. and 16 c + 8 + n0 .. of its rows.
+template <int N>
+__device__ __forceinline__ void store_dims(float* dst, long long row_stride, int row0, int n, int n0,
+                                           const float (*acc)[4], const float mul[2]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= n) continue;
+    float* p = dst + (long long)row * row_stride + 16 * c + n0;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int n4 = 0; n4 < N; n4 += 4)
+        *reinterpret_cast<float4*>(p + 8 * hh + n4) =
+            make_float4(acc[n4][2 * r + hh] * mul[r], acc[n4 + 1][2 * r + hh] * mul[r],
+                        acc[n4 + 2][2 * r + hh] * mul[r], acc[n4 + 3][2 * r + hh] * mul[r]);
+  }
 }
 
 // Launch a persistent kernel: as many CTAs of ``warps`` warps and ``smem``

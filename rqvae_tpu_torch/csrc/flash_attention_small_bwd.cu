@@ -27,7 +27,8 @@
 // (cp.async groups; in the rows kernel, other warps' pairs), in tiles of
 // 128-byte swizzled rows small enough that two tiles CTAs fit on an SM.
 //
-// Four variants compute the same function:
+// Five variants compute the same function (bwd_gate, then bwd_route for
+// bf16, pick):
 //   * small_bwd_tiles_kernel<KT>: bf16, Dh = 64, 16-byte-aligned rows, Nk <=
 //     96 (KT <= 6 key tiles of 16) and more than 16 queries: the encoder's
 //     81 x 81. Persistent CTAs of 6 warps, two an SM (168 registers), walk
@@ -56,8 +57,11 @@
 //     keys in strips of 32, c in a first pass over the strips, then per
 //     strip ds and dq on query-owner warps, bf16 e and ds staged in shared
 //     memory, dk and dv on key-owner warps.
-//   * small_bwd_kernel<T, DP>: fp32 operands, other head sizes (Dh <= 128)
-//     and unaligned views, fp32 FMAs on the CUDA cores, one CTA a pair: per
+//   * small_bwd_tf32_kernel<kWarp>: fp32 operands with Dh = 64 and 16-byte
+//     aligned rows (every shipped decoder config), every product as three
+//     TF32 mma.sync m16n8k8: see its note below.
+//   * small_bwd_kernel<T, DP>: other head sizes (Dh <= 128) and unaligned
+//     views, fp32 or bf16, FMAs on the CUDA cores, one CTA a pair: per
 //     64-row query tile a pass for c and a pass for ds and dq over the key
 //     tiles, then per 64-key tile dk and dv over the query tiles (the fp32
 //     operands of a pair at Dh = 128 exceed shared memory, so they are
@@ -71,7 +75,6 @@ namespace small {
 constexpr int kRowKT = 6;          // the tiles / rows kernels hold a whole score row: Nk <= 96
 constexpr int kMultiStripKT = 2;   // wider rows: strips of 2 key tiles (32 keys)
 constexpr int kTileWarps = 6;      // and its warps: two CTAs an SM hold 12 at <= 168 registers
-constexpr long long kOneCtaSmem = 232448;   // the shared memory a CTA may take
 
 // e (masked, exponentiated against the stored row max) and dp = g v^T of a
 // warp's 16 query rows (tile qt) against key strip st staged in Ks / Vs.
@@ -732,6 +735,428 @@ small_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// ---- fp32, Dh = 64: three TF32 products on mma.sync m16n8k8 ----
+//
+// small_bwd_tf32_kernel: a CTA a (batch, head) pair, kTf32BwdWarps warps,
+// two CTAs an SM. The pair's query rows go in chunks of kTf32Chunk (a query
+// tile a warp): a chunk's q and g rows, m and inv are staged in shared
+// memory (cp.async, fp32 rows of pitch kTf32Pitch). The live key tiles are
+// the forward's; a strip is up to kTf32Strip of them, packed, and its K and
+// V rows are staged too (read through L1 instead, they missed it: two CTAs'
+// staging leaves L1 ~40 KB, and each of six warps read them again from L2;
+// staged, the 81 x 81 backward took half the time on an H100, PERF.md).
+// Query side (each warp its tile): s and dp over the strip's tiles in
+// registers (flash_attention_small.cuh's permuted float4 fragments), c =
+// rowsum(dp e) inv, ds, dq = ds k; once every warp is done with K and V, e
+// and ds are written over them, [chunk rows][strip keys] (a pitch of 4 mod
+// 8 puts the key side's transposed reads in distinct banks). Key side (a
+// warp a (live tile, dk or dv, half of the dims) item): dk = ds^T q, dv =
+// e^T (g inv) over the chunk's rows. No atomics: a row's dq and a key's dk,
+// dv stay with one warp across strips and chunks (the later ones add to what
+// the first stored), and keys in no live tile get dk = dv = 0. Where a
+// row's live tiles span several strips, its c comes from a first sweep over
+// all of them. At Nq <= 16 the pair is one query tile, so a warp takes a
+// pair over its own slice of shared memory (one chunk, K and V read from
+// global memory: a slice has no room for them).
+constexpr int kTf32Strip = 4;      // live key tiles a strip
+constexpr int kTf32Chunk = 96;     // query rows a chunk
+constexpr int kTf32Pitch = 68;     // floats a staged row (q, g, e, ds)
+constexpr int kTf32BwdWarps = 6;
+constexpr long long kTf32BwdSmem = (4LL * kTf32Chunk * kTf32Pitch + 3 * kTf32Chunk) * 4;
+constexpr int kTf32WarpSlice = 4 * 16 * kTf32Pitch + 3 * 16;   // floats: a warp's 16-row chunk
+static_assert(kTf32BwdWarps * kTf32WarpSlice * 4LL <= kTf32BwdSmem, "warp slices exceed the CTA's");
+static_assert(kTf32Chunk == 16 * kTf32BwdWarps, "a warp owns one query tile of a chunk");
+static_assert(2 * 16 * kTf32Strip <= 2 * kTf32Chunk, "a strip's K and V fit where e and ds go");
+
+// acc (16 query rows of chunk tile qt x the strip's keys) = A B^T for A the
+// staged rows ``As`` (q or g) and B key rows (k or v): staged (kStaged: the
+// strip's live tiles packed at ``Kb``, rows past Nk zeros) or strided in
+// global memory (row stride kn); live-list tiles j0 .. j0 + ns - 1, keys
+// 16 t + 8 u + 2 c (+1) in acc[2 jj + u] (the accumulator layout)
+template <bool kStaged>
+__device__ __forceinline__ void tf32_rows_keys(const float* As, const float* Kb, long long kn,
+                                               int qt, int Nk, unsigned long long idx, int j0,
+                                               int ns, float acc[2 * kTf32Strip][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const int r0 = (16 * qt + g) * kTf32Pitch, r1 = r0 + 8 * kTf32Pitch;
+#pragma unroll
+  for (int j = 0; j < 2 * kTf32Strip; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[j][x] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int d = 16 * kk + 4 * c;
+    uint32_t ab[2][4], as[2][4];
+    frag_a_dims(*reinterpret_cast<const float4*>(As + r0 + d),
+                *reinterpret_cast<const float4*>(As + r1 + d), ab, as);
+#pragma unroll
+    for (int jj = 0; jj < kTf32Strip; ++jj)
+      if (jj < ns) {
+        const int t = (int)((idx >> (4 * (j0 + jj))) & 15ull);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int key = 16 * t + 8 * u + g;
+          mma_dims(acc[2 * jj + u], ab, as,
+                   kStaged ? *reinterpret_cast<const float4*>(Kb + (16 * jj + 8 * u + g) * kTf32Pitch + d)
+                           : ldg4(Kb + key * kn + d, key < Nk));
+        }
+      }
+  }
+}
+
+template <bool kWarp>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (kWarp) __syncwarp(); else __syncthreads();
+}
+
+// The backward of pair bh by a group: the CTA (kWarp false: kTf32BwdWarps
+// warps, chunks of kTf32Chunk query rows, each strip's K and V staged) or
+// one warp (kWarp true, Nq <= 16: one chunk of 16 rows, K and V read from
+// global memory), over ``sm``, its shared memory. A warp owns one query
+// tile of a chunk (``warp``), so it keeps e and ds in registers while the
+// group reads the strip's K / V, then writes them over it. gtid / gthreads:
+// the thread's index in the group and the group's size.
+template <bool kWarp>
+__device__ __forceinline__ void tf32_bwd_pair(float* sm, int warp, int gtid, int gthreads, int bh,
+                                              const float* __restrict__ q,
+                                              const float* __restrict__ k,
+                                              const float* __restrict__ v,
+                                              const float* __restrict__ bias,
+                                              const float* __restrict__ g,
+                                              const float* __restrict__ m_in,
+                                              const float* __restrict__ inv_in,
+                                              float* __restrict__ dq, float* __restrict__ dk,
+                                              float* __restrict__ dv, const Strides& sq,
+                                              const Strides& sk, const Strides& sv,
+                                              const Strides& sg, const Strides& sdq,
+                                              const Strides& sdk, const Strides& sdv, int H, int Nq,
+                                              int Nk, int causal, float scale) {
+  constexpr bool kStaged = !kWarp;
+  constexpr int chunk = kWarp ? 16 : kTf32Chunk;
+  float* Qs = sm;                         // [chunk][kTf32Pitch] the chunk's q rows
+  float* Gs = Qs + chunk * kTf32Pitch;    // g rows
+  float* Us = Gs + chunk * kTf32Pitch;    // the strip's K, V [64][kTf32Pitch] each (CTA),
+  float* Es = Us;                         // then e and ds of its keys [chunk][kTf32Pitch]
+  float* Ds = Es + chunk * kTf32Pitch;
+  float* Ms = Ds + chunk * kTf32Pitch;    // [chunk] m, inv, c of the chunk's rows
+  float* Is = Ms + chunk;
+  float* Cs = Is + chunk;
+  const float* Ks = Us;
+  const float* Vs = Us + 16 * kTf32Strip * kTf32Pitch;
+  const int lane = threadIdx.x & 31, gr = lane >> 2, c = lane & 3;
+  const int b = bh / H, h = bh % H;
+  const float* qp = q + b * sq.b + h * sq.h;
+  const float* kp = k + b * sk.b + h * sk.h;
+  const float* vp = v + b * sv.b + h * sv.h;
+  const float* gp = g + b * sg.b + h * sg.h;
+  float* dqp = dq + b * sdq.b + h * sdq.h;
+  float* dkp = dk + b * sdk.b + h * sdk.h;
+  float* dvp = dv + b * sdv.b + h * sdv.h;
+  const float* bs = bias + (long long)b * Nk;
+  const unsigned mask = live_mask<16>(bs, Nk);   // alike in every warp
+  const int nl = __popc(mask);
+  const unsigned long long idx = tile_list<16>(mask);
+  const int strips = (nl + kTf32Strip - 1) / kTf32Strip;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // keys in no live tile: no row attends them
+  for (int e = gtid; e < Nk * 16; e += gthreads) {
+    const int key = e >> 4, d = 4 * (e & 15);
+    if ((mask >> (key >> 4)) & 1u) continue;
+    *reinterpret_cast<float4*>(dkp + key * sdk.n + d) = zero;
+    *reinterpret_cast<float4*>(dvp + key * sdv.n + d) = zero;
+  }
+  if (strips == 0) {   // no valid key: every gradient of the pair is 0
+    for (int e = gtid; e < Nq * 16; e += gthreads)
+      *reinterpret_cast<float4*>(dqp + (e >> 4) * sdq.n + 4 * (e & 15)) = zero;
+    return;
+  }
+  // the strip's K and V rows, packed (CTA), once the group is done with
+  // what the region held
+  auto stage_kv = [&](int j0, int ns) {
+    if constexpr (kStaged) {
+      group_sync<kWarp>();
+      for (int e = gtid; e < ns * 16 * 16; e += gthreads) {
+        const int r = e >> 4, d = 4 * (e & 15);
+        const int key = 16 * (int)((idx >> (4 * (j0 + (r >> 4)))) & 15ull) + (r & 15);
+        const bool ok = key < Nk;
+        cp_async16(Us + r * kTf32Pitch + d, ok ? kp + key * sk.n + d : kp, ok ? 16 : 0);
+        cp_async16(Us + (16 * kTf32Strip + r) * kTf32Pitch + d, ok ? vp + key * sv.n + d : vp,
+                   ok ? 16 : 0);
+      }
+      cp_async_wait_all();
+      group_sync<kWarp>();
+    }
+  };
+  const float* kb = kStaged ? Ks : kp;
+  const float* vb = kStaged ? Vs : vp;
+  float s[2 * kTf32Strip][4], dp[2 * kTf32Strip][4];
+
+  for (int c0 = 0; c0 < Nq; c0 += chunk) {
+    const int nqc = min(chunk, Nq - c0), n_qt = (nqc + 15) / 16;
+    const int qt = warp;   // this warp's query tile of the chunk
+    const bool mine = qt < n_qt;
+    // stage the chunk (rows past Nq: zeros, and m = inv = 0, so they weigh
+    // nothing) once the previous chunk's key side has read it
+    group_sync<kWarp>();
+    for (int e = gtid; e < 16 * n_qt * 16; e += gthreads) {
+      const int r = e >> 4, d = 4 * (e & 15);
+      const bool ok = r < nqc;
+      cp_async16(Qs + r * kTf32Pitch + d, ok ? qp + (c0 + r) * sq.n + d : qp, ok ? 16 : 0);
+      cp_async16(Gs + r * kTf32Pitch + d, ok ? gp + (c0 + r) * sg.n + d : gp, ok ? 16 : 0);
+    }
+    for (int r = gtid; r < 16 * n_qt; r += gthreads) {
+      Ms[r] = r < nqc ? m_in[(long long)bh * Nq + c0 + r] : 0.f;
+      Is[r] = r < nqc ? inv_in[(long long)bh * Nq + c0 + r] : 0.f;
+    }
+    cp_async_wait_all();
+    group_sync<kWarp>();
+
+    // e = exp(s - m) of an element of the warp's tile accumulator
+    auto e_of = [&](float dot, int x, int col) {
+      const int r = 16 * qt + gr + 8 * (x >> 1);
+      return exp_score(dot, scale, col < Nk ? bs[col] : 0.f, c0 + r, col, Nk, causal, Ms[r]);
+    };
+    if (strips > 1) {   // each row's c over every strip first
+      float cr[2] = {0.f, 0.f};
+      for (int st = 0; st < strips; ++st) {
+        const int j0 = st * kTf32Strip, ns = min(kTf32Strip, nl - j0);
+        stage_kv(j0, ns);
+        if (!mine) continue;
+        tf32_rows_keys<kStaged>(Qs, kb, sk.n, qt, Nk, idx, j0, ns, s);
+        tf32_rows_keys<kStaged>(Gs, vb, sv.n, qt, Nk, idx, j0, ns, dp);
+#pragma unroll
+        for (int jj = 0; jj < kTf32Strip; ++jj)
+          if (jj < ns) {
+            const int t = (int)((idx >> (4 * (j0 + jj))) & 15ull);
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+              for (int x = 0; x < 4; ++x)
+                cr[x >> 1] += dp[2 * jj + u][x] * e_of(s[2 * jj + u][x], x, 16 * t + 8 * u + 2 * c + (x & 1));
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        cr[r] = quad_sum(cr[r]);
+        if (mine && c == 0) Cs[16 * qt + gr + 8 * r] = cr[r] * Is[16 * qt + gr + 8 * r];
+      }
+      __syncwarp();   // a warp reads back only its own rows' c
+    }
+
+    for (int st = 0; st < strips; ++st) {
+      const int j0 = st * kTf32Strip, ns = min(kTf32Strip, nl - j0);
+      stage_kv(j0, ns);
+      // query side: s, dp, c, ds and dq = ds k, e and ds kept in registers
+      if (mine) {
+        tf32_rows_keys<kStaged>(Qs, kb, sk.n, qt, Nk, idx, j0, ns, s);
+        tf32_rows_keys<kStaged>(Gs, vb, sv.n, qt, Nk, idx, j0, ns, dp);
+        const float is[2] = {Is[16 * qt + gr], Is[16 * qt + gr + 8]};
+        float cr[2] = {0.f, 0.f};
+#pragma unroll
+        for (int jj = 0; jj < kTf32Strip; ++jj)
+          if (jj < ns) {
+            const int t = (int)((idx >> (4 * (j0 + jj))) & 15ull);
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+              for (int x = 0; x < 4; ++x) {
+                s[2 * jj + u][x] = e_of(s[2 * jj + u][x], x, 16 * t + 8 * u + 2 * c + (x & 1));
+                cr[x >> 1] += dp[2 * jj + u][x] * s[2 * jj + u][x];
+              }
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          cr[r] = strips == 1 ? quad_sum(cr[r]) * is[r] : Cs[16 * qt + gr + 8 * r];
+#pragma unroll
+        for (int jj = 0; jj < kTf32Strip; ++jj)
+          if (jj < ns)
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+              for (int x = 0; x < 4; ++x)
+                dp[2 * jj + u][x] = s[2 * jj + u][x] * ((dp[2 * jj + u][x] - cr[x >> 1]) * is[x >> 1]);
+        float acc[8][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) acc[j][x] = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < kTf32Strip; ++jj)
+          if (jj < ns) {
+            const int t = (int)((idx >> (4 * (j0 + jj))) & 15ull);
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              uint32_t ab[4], as[4];
+              frag_a_acc(dp[2 * jj + u], ab, as);
+              float r0[8], r1[8];
+              if constexpr (kStaged) {
+                const float* k0 = Ks + (16 * jj + 8 * u + 2 * c) * kTf32Pitch + 8 * gr;
+#pragma unroll
+                for (int i = 0; i < 8; ++i) r0[i] = k0[i], r1[i] = k0[kTf32Pitch + i];
+              } else {
+                const int k0 = 16 * t + 8 * u + 2 * c;
+                load8(r0, kp + k0 * sk.n, k0 < Nk);
+                load8(r1, kp + (k0 + 1) * sk.n, k0 + 1 < Nk);
+              }
+              mma_rows<8>(acc, ab, as, r0, r1);
+            }
+          }
+        float mul[2] = {scale, scale};
+        float* dqc = dqp + c0 * sdq.n;
+        if (st > 0) {   // add the earlier strips' dq, stored by this warp
+          mul[0] = mul[1] = 1.f;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = min(16 * qt + gr + 8 * r, nqc - 1);   // a padded row's sum is not stored
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+              for (int n4 = 0; n4 < 8; n4 += 4) {
+                const float4 pv = *reinterpret_cast<const float4*>(dqc + row * sdq.n + 16 * c + 8 * hh + n4);
+                acc[n4][2 * r + hh] = fmaf(acc[n4][2 * r + hh], scale, pv.x);
+                acc[n4 + 1][2 * r + hh] = fmaf(acc[n4 + 1][2 * r + hh], scale, pv.y);
+                acc[n4 + 2][2 * r + hh] = fmaf(acc[n4 + 2][2 * r + hh], scale, pv.z);
+                acc[n4 + 3][2 * r + hh] = fmaf(acc[n4 + 3][2 * r + hh], scale, pv.w);
+              }
+          }
+        }
+        store_dims<8>(dqc, sdq.n, 16 * qt, nqc, 0, acc, mul);
+      }
+      group_sync<kWarp>();   // every warp is done with the strip's K and V
+      if (mine) {
+#pragma unroll
+        for (int jj = 0; jj < kTf32Strip; ++jj)
+          if (jj < ns)
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int at = (16 * qt + gr + 8 * r) * kTf32Pitch + 16 * jj + 8 * u + 2 * c;
+                *reinterpret_cast<float2*>(Es + at) = make_float2(s[2 * jj + u][2 * r], s[2 * jj + u][2 * r + 1]);
+                *reinterpret_cast<float2*>(Ds + at) = make_float2(dp[2 * jj + u][2 * r], dp[2 * jj + u][2 * r + 1]);
+              }
+      }
+      group_sync<kWarp>();   // e and ds staged
+
+      // key side: items (strip tile jj, dv or dk, dims half) over the warps
+      for (int item = warp; item < 4 * ns; item += (kWarp ? 1 : kTf32BwdWarps)) {
+        const int jj = item >> 2, is_dk = (item >> 1) & 1, hf = item & 1;
+        const int t = (int)((idx >> (4 * (j0 + jj))) & 15ull);
+        const float* S = is_dk ? Ds : Es;
+        const float* B = is_dk ? Qs : Gs;
+        float acc[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) acc[j][x] = 0.f;
+        for (int qq = 0; qq < n_qt; ++qq) {
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            const int q0 = 16 * qq + 8 * ks + 2 * c;   // k index c: row q0, c + 4: row q0 + 1
+            const float* e0 = S + q0 * kTf32Pitch + 16 * jj + gr;
+            const float a[4] = {e0[0], e0[8], e0[kTf32Pitch], e0[kTf32Pitch + 8]};
+            uint32_t ab[4], as[4];
+            split4(a, ab, as);
+            const float w0 = is_dk ? 1.f : Is[q0], w1 = is_dk ? 1.f : Is[q0 + 1];
+            const float4 x = *reinterpret_cast<const float4*>(B + q0 * kTf32Pitch + 8 * gr + 4 * hf);
+            const float4 y = *reinterpret_cast<const float4*>(B + (q0 + 1) * kTf32Pitch + 8 * gr + 4 * hf);
+            const float r0[4] = {x.x * w0, x.y * w0, x.z * w0, x.w * w0};
+            const float r1[4] = {y.x * w1, y.y * w1, y.z * w1, y.w * w1};
+            mma_rows<4>(acc, ab, as, r0, r1);
+          }
+        }
+        float* dst = is_dk ? dkp : dvp;
+        const long long dn = is_dk ? sdk.n : sdv.n;
+        float mul[2] = {is_dk ? scale : 1.f, is_dk ? scale : 1.f};
+        if (c0 > 0) {   // add the earlier chunks' sums, stored by this warp
+          mul[0] = mul[1] = 1.f;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int key = min(16 * t + gr + 8 * r, Nk - 1);   // a key past Nk is not stored
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const float4 pv = *reinterpret_cast<const float4*>(dst + key * dn + 16 * c + 8 * hh + 4 * hf);
+              const float w = is_dk ? scale : 1.f;
+              acc[0][2 * r + hh] = fmaf(acc[0][2 * r + hh], w, pv.x);
+              acc[1][2 * r + hh] = fmaf(acc[1][2 * r + hh], w, pv.y);
+              acc[2][2 * r + hh] = fmaf(acc[2][2 * r + hh], w, pv.z);
+              acc[3][2 * r + hh] = fmaf(acc[3][2 * r + hh], w, pv.w);
+            }
+          }
+        }
+        store_dims<4>(dst, dn, 16 * t, Nk, 4 * hf, acc, mul);
+      }
+    }
+  }
+}
+
+
+// The backward's kernel: a CTA a pair (kWarp false) or, for Nq <= 16, a warp
+// a pair, each warp over its own slice of the CTA's shared memory (the
+// query side of such a pair is one tile: one warp would compute it while
+// the CTA's others waited).
+template <bool kWarp>
+__global__ void __launch_bounds__(kTf32BwdWarps * 32, 2)
+small_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ bias,
+                      const float* __restrict__ g, const float* __restrict__ m_in,
+                      const float* __restrict__ inv_in, float* __restrict__ dq,
+                      float* __restrict__ dk, float* __restrict__ dv, Strides sq, Strides sk,
+                      Strides sv, Strides sg, Strides sdq, Strides sdk, Strides sdv, int BH, int H,
+                      int Nq, int Nk, int causal, float scale) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int warp = threadIdx.x >> 5;
+  if constexpr (kWarp) {
+    const int bh = blockIdx.x * kTf32BwdWarps + warp;
+    if (bh < BH)
+      tf32_bwd_pair<true>(smem_f + warp * kTf32WarpSlice, 0, threadIdx.x & 31, 32, bh, q, k, v,
+                          bias, g, m_in, inv_in, dq, dk, dv, sq, sk, sv, sg, sdq, sdk, sdv, H, Nq,
+                          Nk, causal, scale);
+  } else {
+    tf32_bwd_pair<false>(smem_f, warp, threadIdx.x, blockDim.x, blockIdx.x, q, k, v, bias, g,
+                         m_in, inv_in, dq, dk, dv, sq, sk, sv, sg, sdq, sdk, sdv, H, Nq, Nk,
+                         causal, scale);
+  }
+}
+
+inline int launch_bwd_tf32(const void* q, const void* k, const void* v, const float* bias,
+                           const void* g, const float* m, const float* inv, void* dq, void* dk,
+                           void* dv, const Strides* st, int B, int H, int Nq, int Nk, int causal,
+                           float scale, int device, cudaStream_t stream) {
+  const int BH = B * H;
+  const bool by_warp = Nq <= 16;
+  auto kernel = by_warp ? small_bwd_tf32_kernel<true> : small_bwd_tf32_kernel<false>;
+  cudaError_t err = prepare(kernel, (size_t)kTf32BwdSmem, device);
+  if (err != cudaSuccess) return (int)err;
+  typedef const float* P;
+  const unsigned grid = (unsigned)(by_warp ? (BH + kTf32BwdWarps - 1) / kTf32BwdWarps : BH);
+  kernel<<<grid, kTf32BwdWarps * 32, (size_t)kTf32BwdSmem, stream>>>(
+      (P)q, (P)k, (P)v, bias, (P)g, m, inv, (float*)dq, (float*)dk, (float*)dv, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], BH, H, Nq, Nk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// The kernel family that operands of ``dtype`` take at Dh = 64 (Route,
+// flash_attention_small.cuh): fp32 the TF32 kernel when q, k, v, g, dq, dk
+// and dv all have 16-byte aligned rows (float4 reads and stores); bf16 the
+// mma.sync kernels when q, k, v and g have 16-byte aligned rows and dq, dk,
+// dv 4-byte aligned pairs; else the CUDA-core kernel. The one place this
+// gate lives: the launcher takes it and flash_small_bwd_gate exports it.
+inline int bwd_gate(int dtype, const void* const ops[7], const long long* strides) {
+  bool ok = true;
+  for (int i = 0; i < 7; ++i) {
+    const long long* st = strides + 3 * i;
+    if (dtype == 0)
+      ok = ok && tf32_aligned(ops[i], st);
+    else if (i < 4)
+      ok = ok && mma_aligned(ops[i], st);
+    else
+      ok = ok && (uintptr_t)ops[i] % 4 == 0 && st[0] % 2 == 0 && st[1] % 2 == 0 && st[2] % 2 == 0;
+  }
+  return ok ? (dtype == 0 ? kRouteTf32x3 : kRouteMmaBf16) : kRouteCudaCores;
+}
+
 inline long long bwd_pair_smem(int nqp, int nkp, int skt) {
   return (long long)(3 * nqp + 2 * 16 * skt) * kMP * 2 + 2LL * nqp * (16 * skt + 8) * 2 +
          (2LL * nqp + nkp) * 4;
@@ -855,19 +1280,43 @@ int flash_small_bwd_launch(int dtype, const void* q, const void* k, const void* 
   Strides st[7];
   for (int i = 0; i < 7; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const void* ops[7] = {q, k, v, g, dq, dk, dv};
+  const int route = Dh == kMD ? small::bwd_gate(dtype, ops, strides) : small::kRouteCudaCores;
+  if (route == small::kRouteTf32x3)
+    return small::launch_bwd_tf32(q, k, v, bias, g, m, inv, dq, dk, dv, st, B, H, Nq, Nk, causal, scale, device, s);
+  if (route == small::kRouteMmaBf16)
+    return small::launch_bwd_mma(q, k, v, bias, g, m, inv, dq, dk, dv, st, B, H, Nq, Nk, causal, scale, device, s);
   if (dtype == 0)
     return small::launch_bwd_dp<float>(DP, q, k, v, bias, g, m, inv, dq, dk, dv, st, B, H, Nq, Nk, Dh, causal, scale, device, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  bool mma = Dh == kMD;
-  const void* in[4] = {q, k, v, g};
-  for (int i = 0; i < 4; ++i) mma = mma && mma_aligned(in[i], strides + 3 * i);
-  void* out[3] = {dq, dk, dv};
-  for (int i = 0; i < 3; ++i)
-    mma = mma && (uintptr_t)out[i] % 4 == 0 && strides[12 + 3 * i] % 2 == 0 &&
-          strides[13 + 3 * i] % 2 == 0 && strides[14 + 3 * i] % 2 == 0;
-  if (mma)
-    return small::launch_bwd_mma(q, k, v, bias, g, m, inv, dq, dk, dv, st, B, H, Nq, Nk, causal, scale, device, s);
   return small::launch_bwd_dp<__nv_bfloat16>(DP, q, k, v, bias, g, m, inv, dq, dk, dv, st, B, H, Nq, Nk, Dh, causal, scale, device, s);
+}
+
+// The kernel family that operands of ``dtype`` at these addresses and
+// strides (21, as the launch takes them) take at Dh = 64: 0 = the CUDA-core
+// kernel, 1 = the bf16 mma.sync kernels (flash_small_bwd_route picks
+// among them), 2 = small_bwd_tf32_kernel (fp32).
+int flash_small_bwd_gate(int dtype, const void* q, const void* k, const void* v, const void* g,
+                         const void* dq, const void* dk, const void* dv, const long long* strides,
+                         int Dh) {
+  using namespace flash::small;
+  const void* ops[7] = {q, k, v, g, dq, dk, dv};
+  return Dh == flash::kMD ? bwd_gate(dtype, ops, strides) : kRouteCudaCores;
+}
+
+// The fp32 Dh = 64 kernel's launch on ``device`` (one for every shape):
+// out[0] warps a CTA, out[1] shared memory a CTA in bytes, out[2] CTAs an SM
+// (0 on an error).
+void flash_small_bwd_tf32_plan(int device, long long* out) {
+  using namespace flash;
+  const long long smem = small::kTf32BwdSmem;
+  int per_sm = 0;
+  if (use_device(device) == cudaSuccess &&
+      prepare(small::small_bwd_tf32_kernel<false>, (size_t)smem, device) == cudaSuccess)
+    per_sm = blocks_per_sm(small::small_bwd_tf32_kernel<false>, 32 * small::kTf32BwdWarps,
+                           (size_t)smem, device);
+  const long long vals[3] = {small::kTf32BwdWarps, smem, per_sm};
+  for (int i = 0; i < 3; ++i) out[i] = vals[i];
 }
 
 // The bf16 Dh = 64 kernel that takes an (Nq, Nk) shape of aligned operands:

@@ -57,11 +57,24 @@
 // m16n8k16, fp32 accumulate) from the swizzled tiles of
 // flash_attention_small.cuh.
 //
-// Two variants compute the same function:
+// Three variants compute the same function (fwd_gate picks):
 //   * small_fwd_live_kernel<KT>: the above, for bf16 operands with Dh = 64
-//     whose rows can be copied 16 bytes at a time (the model's case).
-//   * small_fwd_kernel<T, DP>: fp32 operands, other head sizes (Dh <= 128)
-//     and unaligned views: a CTA owns one pair's 64-row query tile, stages
+//     whose rows can be copied 16 bytes at a time (the model's case under
+//     amp).
+//   * small_fwd_tf32_kernel<KT>: fp32 operands with Dh = 64 and 16-byte
+//     aligned rows (every shipped decoder config: they train in fp32). fp32
+//     doubles the bytes and a TF32 product keeps 11 bits of each operand, so
+//     each product is three TF32 mma.sync m16n8k8 (flash_attention_common.cuh:
+//     split_tf32, mma_tf32x3), six times the bf16 kernel's tensor
+//     instructions. A staged design like the one above, in fp32 (TMA copies
+//     of two 32-float halves a row, one or two stages), measured no faster
+//     over a step's shapes on an H100 (PERF.md): its consumer warps are bound
+//     by the products and their operand splits, and fp32 stages leave fewer
+//     of them an SM. So this kernel stages nothing: a warp a (pair, query
+//     tile), the live tiles' K and V read straight into registers, the warps
+//     of a pair sharing them in L1, many warps an SM to hide the loads.
+//   * small_fwd_kernel<T, DP>: other head sizes (Dh <= 128) and unaligned
+//     views, fp32 or bf16: a CTA owns one pair's 64-row query tile, stages
 //     key tiles of 64 in shared memory as fp32 and writes every score of its
 //     rows to a shared-memory row of up to 256 (the fp32 K and V of a whole
 //     pair at Dh = 128 would exceed 227 KB), then the same one-pass softmax
@@ -97,34 +110,6 @@ __device__ __forceinline__ void tensor_copy(void* dst, const CUtensorMap* map, i
 // bring a tensor map's descriptor into the TMA unit's cache ahead of use
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(map) : "memory");
-}
-
-// The live key tiles of a pair from its staged (Nk) key bias, as one warp:
-// bit t when tile t holds a key with a bias above -5e29 (lanes 0-15 look at
-// tile t0, lanes 16-31 at tile t0 + 1); alike in every lane.
-template <int KT>
-__device__ __forceinline__ unsigned live_mask(const float* bs, int Nk) {
-  const int lane = threadIdx.x & 31;
-  unsigned mask = 0u;
-#pragma unroll
-  for (int t0 = 0; t0 < KT; t0 += 2) {
-    const int key = 16 * t0 + lane;
-    const unsigned live = __ballot_sync(kFull, key < Nk && bs[key] > 0.5f * kNegInf);
-    mask |= ((live & 0xffffu) ? 1u : 0u) << t0;
-    mask |= ((live >> 16) ? 1u : 0u) << (t0 + 1);
-  }
-  return mask;
-}
-
-// The indices of mask's set bits, ascending, 4 bits each.
-template <int KT>
-__device__ __forceinline__ unsigned long long tile_list(unsigned mask) {
-  unsigned long long idx = 0ull;
-  int n = 0;
-#pragma unroll
-  for (int t = 0; t < KT; ++t)
-    if ((mask >> t) & 1u) idx |= (unsigned long long)t << (4 * n++);
-  return idx;
 }
 
 // Consumer warps a CTA (one more warp produces): up to 96 keys, six, so
@@ -504,6 +489,169 @@ small_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// The fp32 forward on the tensor cores: a warp a (pair, 16-row query tile),
+// kTf32FwdWarps to a CTA (consecutive tiles of a pair, so they share K and V
+// in L1), no shared memory. The warp reads the pair's key bias, takes the
+// live tiles as the bf16 kernel does (under the cut, those at or below its
+// last row), and runs q k^T and e v over them alone as three TF32 products,
+// its fragments read from global memory (flash_attention_small.cuh); the
+// softmax, m and inv are the bf16 kernel's. Small CTAs and a register cap of
+// 128 keep 16 warps an SM at up to 96 keys: the warps' chains of loads and
+// products are what bound it, so more of them hide more latency.
+constexpr int kTf32FwdWarps = 4;
+
+template <int KT>
+__global__ void __launch_bounds__(kTf32FwdWarps * 32, KT <= 6 ? 4 : 1)
+small_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ bias,
+                      float* __restrict__ o, float* __restrict__ m_out,
+                      float* __restrict__ inv_out, Strides sq, Strides sk, Strides sv, Strides so,
+                      int BH, int H, int Nq, int Nk, int causal, float scale2) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const int n_qt = (Nq + 15) / 16;
+  const long long item = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (item >= (long long)BH * n_qt) return;
+  const int bh = (int)(item / n_qt), qt = (int)(item % n_qt);
+  const int b = bh / H, h = bh % H;
+  const float* bs = bias + (long long)b * Nk;
+  unsigned mask = live_mask<KT>(bs, Nk);
+  if (causal) mask &= (2u << qt) - 1u;
+  const int nl = __popc(mask);
+  const unsigned long long idx = tile_list<KT>(mask);
+  const float* qp = q + b * sq.b + h * sq.h;
+  const float* kp = k + b * sk.b + h * sk.h;
+  const float* vp = v + b * sv.b + h * sv.h;
+  const int row[2] = {16 * qt + g, 16 * qt + g + 8};
+
+  float sc[2 * KT][4];
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+  if (nl > 0) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int d = 16 * kk + 4 * c;
+      uint32_t ab[2][4], as[2][4];
+      frag_a_dims(ldg4(qp + row[0] * sq.n + d, row[0] < Nq), ldg4(qp + row[1] * sq.n + d, row[1] < Nq),
+                  ab, as);
+#pragma unroll
+      for (int jj = 0; jj < KT; ++jj)
+        if (jj < nl) {
+          const int t = (int)((idx >> (4 * jj)) & 15ull);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int key = 16 * t + 8 * u + g;
+            mma_dims(sc[2 * jj + u], ab, as, ldg4(kp + key * sk.n + d, key < Nk));
+          }
+        }
+    }
+  }
+  // scores in log2 units and the whole row's max, as in small_fwd_live_kernel
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int jj = 0; jj < KT; ++jj) {
+    if (jj >= nl) continue;
+    const int t = (int)((idx >> (4 * jj)) & 15ull);
+    const bool edge = 16 * t + 16 > Nk || (causal && t == qt);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int col = 16 * t + 8 * u + 2 * c;
+      const float b2[2] = {col < Nk ? bs[col] * kLog2e : 0.f, col + 1 < Nk ? bs[col + 1] * kLog2e : 0.f};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = fmaf(sc[2 * jj + u][e], scale2, b2[e & 1]);
+        if (edge) {
+          const int key = col + (e & 1);
+          if (key >= Nk) x = -INFINITY;
+          else if (causal && key > row[e >> 1]) x = kNegInf2;
+        }
+        sc[2 * jj + u][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int jj = 0; jj < KT; ++jj) {
+    if (jj >= nl) continue;
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[2 * jj + u][e] = ex2(sc[2 * jj + u][e] - mx[e >> 1]);
+        rs[e >> 1] += sc[2 * jj + u][e];
+      }
+  }
+  bool any[2];
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rs[r] += __shfl_xor_sync(kFull, rs[r], 1);
+    rs[r] += __shfl_xor_sync(kFull, rs[r], 2);
+    any[r] = mx[r] > 0.5f * kNegInf2;   // the row met a valid key
+    inv[r] = any[r] ? 1.f / rs[r] : 0.f;
+  }
+
+  // e v: e from the score accumulator (keys 2 c, 2 c + 1 of each 8 as k
+  // indices c, c + 4), V rows read for all eight n-tiles at once
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < KT; ++jj)
+    if (jj < nl) {
+      const int t = (int)((idx >> (4 * jj)) & 15ull);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        uint32_t ab[4], as[4];
+        frag_a_acc(sc[2 * jj + u], ab, as);
+        const int k0 = 16 * t + 8 * u + 2 * c;
+        float r0[8], r1[8];
+        load8(r0, vp + k0 * sv.n, k0 < Nk);   // a key past Nk reads zeros (its e is 0)
+        load8(r1, vp + (k0 + 1) * sv.n, k0 + 1 < Nk);
+        mma_rows<8>(acc, ab, as, r0, r1);
+      }
+    }
+  store_dims<8>(o + b * so.b + h * so.h, so.n, 16 * qt, Nq, 0, acc, inv);
+  const long long stat0 = (long long)bh * Nq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (c == 0 && row[r] < Nq) {
+      m_out[stat0 + row[r]] = any[r] ? mx[r] * kLn2 : kNegInf;
+      inv_out[stat0 + row[r]] = inv[r];
+    }
+}
+
+inline int launch_fwd_tf32(const void* q, const void* k, const void* v, const float* bias, void* o,
+                           float* m, float* inv, const Strides* st, int B, int H, int Nq, int Nk,
+                           int causal, float scale, cudaStream_t stream) {
+  const long long items = (long long)B * H * ((Nq + 15) / 16);
+  const unsigned grid = (unsigned)((items + kTf32FwdWarps - 1) / kTf32FwdWarps);
+  switch ((Nk + 15) / 16) {
+#define FLASH_SMALL_KT(n)                                                                         \
+  case n: {                                                                                       \
+    small_fwd_tf32_kernel<n><<<grid, kTf32FwdWarps * 32, 0, stream>>>(                            \
+        (const float*)q, (const float*)k, (const float*)v, bias, (float*)o, m, inv, st[0], st[1], \
+        st[2], st[3], B * H, H, Nq, Nk, causal, scale * kLog2e);                                  \
+    return (int)cudaGetLastError();                                                               \
+  }
+    FLASH_SMALL_KT(1) FLASH_SMALL_KT(2) FLASH_SMALL_KT(3) FLASH_SMALL_KT(4)
+    FLASH_SMALL_KT(5) FLASH_SMALL_KT(6) FLASH_SMALL_KT(7) FLASH_SMALL_KT(8)
+    FLASH_SMALL_KT(9) FLASH_SMALL_KT(10) FLASH_SMALL_KT(11) FLASH_SMALL_KT(12)
+    FLASH_SMALL_KT(13) FLASH_SMALL_KT(14) FLASH_SMALL_KT(15) FLASH_SMALL_KT(16)
+#undef FLASH_SMALL_KT
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // cuTensorMapEncodeTiled, looked up once through the runtime (the library
 // links only the CUDA runtime).
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -596,15 +744,20 @@ int launch_fwd_dp(int DP, const void* q, const void* k, const void* v, const flo
   return (int)cudaErrorInvalidValue;
 }
 
-// The bf16 kernel that takes operands at these addresses and strides: the
-// live kernel at Dh = 64 when q, k, v and o are each 16-byte aligned with
-// 16-byte aligned rows (its epilogue stores whole 16-byte output rows), else
-// the CUDA-core kernel. The one place this gate lives: the launcher takes it
-// and flash_small_fwd_route exports it.
-inline bool fwd_live(const void* q, const void* k, const void* v, const void* o,
-                     const long long* strides, int Dh) {
-  return Dh == kMD && mma_aligned(q, strides) && mma_aligned(k, strides + 3) &&
-         mma_aligned(v, strides + 6) && mma_aligned(o, strides + 9);
+// The kernel that takes operands of this dtype at these addresses and
+// strides (Route, flash_attention_small.cuh): at Dh = 64, bf16 operands
+// whose rows are 16-byte aligned take the live kernel (its epilogue stores
+// whole 16-byte output rows) and fp32 ones the TF32 kernel (float4 reads
+// and stores), when q, k, v and o all are; else the CUDA-core kernel. The
+// one place this gate lives: the launcher takes it and
+// flash_small_fwd_route exports it.
+inline int fwd_gate(int dtype, const void* q, const void* k, const void* v, const void* o,
+                    const long long* strides) {
+  const void* ops[4] = {q, k, v, o};
+  bool ok = true;
+  for (int i = 0; i < 4; ++i)
+    ok = ok && (dtype == 0 ? tf32_aligned(ops[i], strides + 3 * i) : mma_aligned(ops[i], strides + 3 * i));
+  return ok ? (dtype == 0 ? kRouteTf32x3 : kRouteMmaBf16) : kRouteCudaCores;
 }
 
 }  // namespace small
@@ -632,11 +785,14 @@ int flash_small_fwd_launch(int dtype, const void* q, const void* k, const void* 
   const Strides st[4] = {{strides[0], strides[1], strides[2]}, {strides[3], strides[4], strides[5]},
                          {strides[6], strides[7], strides[8]}, {strides[9], strides[10], strides[11]}};
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const int route = Dh == kMD ? small::fwd_gate(dtype, q, k, v, o, strides) : small::kRouteCudaCores;
+  if (route == small::kRouteTf32x3)
+    return small::launch_fwd_tf32(q, k, v, bias, o, m, inv, st, B, H, Nq, Nk, causal, scale, s);
+  if (route == small::kRouteMmaBf16)
+    return small::launch_fwd_mma(q, k, v, bias, o, m, inv, st, B, H, Nq, Nk, causal, scale, device, s);
   if (dtype == 0)
     return small::launch_fwd_dp<float>(DP, q, k, v, bias, o, m, inv, st, B, H, Nq, Nk, Dh, causal, scale, device, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (small::fwd_live(q, k, v, o, strides, Dh))
-    return small::launch_fwd_mma(q, k, v, bias, o, m, inv, st, B, H, Nq, Nk, causal, scale, device, s);
   return small::launch_fwd_dp<__nv_bfloat16>(DP, q, k, v, bias, o, m, inv, st, B, H, Nq, Nk, Dh, causal, scale, device, s);
 }
 
@@ -666,11 +822,35 @@ void flash_small_fwd_plan(int BH, int Nq, int Nk, int device, long long* out) {
   for (int i = 0; i < 5; ++i) out[i] = vals[i];
 }
 
-// 1 when bf16 operands at these addresses and strides (12, as the launch
-// takes them) take small_fwd_live_kernel, 0 when the CUDA-core kernel.
-int flash_small_fwd_route(const void* q, const void* k, const void* v, const void* o,
+// The kernel that operands of ``dtype`` at these addresses and strides (12,
+// as the launch takes them) take: 0 = the CUDA-core kernel, 1 =
+// small_fwd_live_kernel (bf16), 2 = small_fwd_tf32_kernel (fp32).
+int flash_small_fwd_route(int dtype, const void* q, const void* k, const void* v, const void* o,
                           const long long* strides, int Dh) {
-  return flash::small::fwd_live(q, k, v, o, strides, Dh) ? 1 : 0;
+  using namespace flash::small;
+  return Dh == flash::kMD ? fwd_gate(dtype, q, k, v, o, strides) : kRouteCudaCores;
+}
+
+// The fp32 Dh = 64 kernel's launch at Nk keys on ``device``: out[0] warps a
+// CTA, out[1] shared memory a CTA in bytes, out[2] CTAs an SM (0 on an error).
+void flash_small_fwd_tf32_plan(int Nk, int device, long long* out) {
+  using namespace flash;
+  int per_sm = 0;
+  if (use_device(device) == cudaSuccess) {
+    switch ((Nk + 15) / 16) {
+#define FLASH_SMALL_KT(n)                                                                      \
+  case n:                                                                                      \
+    per_sm = blocks_per_sm(small::small_fwd_tf32_kernel<n>, 32 * small::kTf32FwdWarps, 0, device); \
+    break;
+      FLASH_SMALL_KT(1) FLASH_SMALL_KT(2) FLASH_SMALL_KT(3) FLASH_SMALL_KT(4)
+      FLASH_SMALL_KT(5) FLASH_SMALL_KT(6) FLASH_SMALL_KT(7) FLASH_SMALL_KT(8)
+      FLASH_SMALL_KT(9) FLASH_SMALL_KT(10) FLASH_SMALL_KT(11) FLASH_SMALL_KT(12)
+      FLASH_SMALL_KT(13) FLASH_SMALL_KT(14) FLASH_SMALL_KT(15) FLASH_SMALL_KT(16)
+#undef FLASH_SMALL_KT
+    }
+  }
+  const long long vals[3] = {small::kTf32FwdWarps, 0, per_sm};
+  for (int i = 0; i < 3; ++i) out[i] = vals[i];
 }
 
 const char* flash_small_fwd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

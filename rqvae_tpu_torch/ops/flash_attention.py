@@ -30,8 +30,12 @@ as ``flash_attention``, over ``flash_attention_small_fwd`` /
 ``csrc/flash_attention_small_bwd.cu``, each with a ``.launches`` count). A
 CTA stages whole (batch, head) pairs, takes one softmax over each query's
 whole row (no online carry, the TPU kernel's order) and the backward is one
-kernel that writes dq, dk and dv with no atomics. The TPU short kernel
-computes the flat kernel's algebra bit for bit, so its twins
+kernel that writes dq, dk and dv with no atomics. At Dh = 64 with 16-byte
+aligned rows they run on the tensor cores (``small_route`` restates the
+libraries' gates; each short wrapper counts its launches by route in
+``route_launches``): bf16 on mma.sync, fp32 (every shipped decoder config)
+as three TF32 mma.sync products a product over the live key tiles only.
+The TPU short kernel computes the flat kernel's algebra bit for bit, so its twins
 ``flash_attention_small_plain`` / ``flash_attention_small_bwd_plain`` are the
 flat twins' arithmetic.
 
@@ -195,8 +199,9 @@ def _c_function(wrapper, suffix: str):
 def _launch(wrapper, *args, route: Optional[str] = None) -> None:
     """Launch the kernel(s) of ``csrc/<wrapper.__name__>.cu`` with ``args``
     (built at first use), raise on the CUDA error code it returns, and count
-    the launch on ``wrapper.launches`` and, for the flat and span wrappers,
-    on ``wrapper.route_launches[route]``."""
+    the launch on ``wrapper.launches`` and, when the caller names the route
+    the library's gate gave these operands, on
+    ``wrapper.route_launches[route]``."""
     name = wrapper.__name__
     argtypes = _C_FUNCTIONS[name][1]
     launch, error = _c_function(wrapper, "launch"), _c_function(wrapper, "error_string")
@@ -326,7 +331,8 @@ def _bias_fwd(wrapper, q, k, v, bias, causal):
     out = _bnhd_empty(b, h, nq, dh, q)
     m = torch.empty((b, h, nq), dtype=torch.float32, device=dev)
     inv = torch.empty_like(m)
-    route = None if wrapper is flash_attention_small_fwd else kernel_route(wrapper, q, k, v, out)
+    route = (small_fwd_kernel_route(q, k, v, out) if wrapper is flash_attention_small_fwd
+             else kernel_route(wrapper, q, k, v, out))
     _launch(wrapper, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr(), out.data_ptr(), m.data_ptr(), inv.data_ptr(), _strides(q, k, v, out),
             b, h, nq, nk, dh, int(causal), 1.0 / math.sqrt(dh), _device_index(q),
@@ -347,12 +353,14 @@ def _bias_bwd(wrapper, q, k, v, g, m, inv, bias, causal):
     _check_kernel_operands((q, k, v, g), ("q", "k", "v", "g"))
     m = m.to(torch.float32).contiguous()
     inv = inv.to(torch.float32).contiguous()
-    scratch, route = (), None
+    scratch = ()
     if wrapper is not flash_attention_small_bwd:
         *scratch, route = _bwd_scratch(wrapper, q, k, v, g, m)
     dq = _bnhd_empty(b, h, nq, dh, q)
     dk = _bnhd_empty(b, h, nk, dh, k)
     dv = _bnhd_empty(b, h, nk, dh, v)
+    if wrapper is flash_attention_small_bwd:
+        route = small_bwd_kernel_gate(q, k, v, g, dq, dk, dv)
     _launch(wrapper, _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr(), g.data_ptr(), m.data_ptr(), inv.data_ptr(), *map(_ptr, scratch),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, g, dq, dk, dv), b, h, nq,
@@ -432,6 +440,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 SMALL_MAX_LEN = 255   # attend's short route sends Nq, Nk < 256
 
+# The kernel family a short call takes, as the libraries' gates decide it
+# (csrc/flash_attention_small.cuh: Route): fp32 or bf16 FMAs on the CUDA
+# cores, bf16 on mma.sync (Dh = 64), fp32 as three TF32 products on
+# mma.sync (Dh = 64). Each short wrapper counts its launches by route in
+# ``route_launches``.
+SMALL_ROUTES = ("cuda_cores", "mma_bf16", "tf32x3")
+
 
 # The TPU short kernel computes the flat kernel's algebra bit for bit (one
 # softmax over the whole row is what the flat twin takes: the key bias, the
@@ -460,6 +475,7 @@ def flash_attention_small_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_small_fwd.launches = 0
+flash_attention_small_fwd.route_launches = dict.fromkeys(SMALL_ROUTES, 0)
 
 
 def flash_attention_small_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
@@ -476,6 +492,7 @@ def flash_attention_small_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_small_bwd.launches = 0
+flash_attention_small_bwd.route_launches = dict.fromkeys(SMALL_ROUTES, 0)
 
 SMALL_BWD_ROUTES = ("rows", "tiles", "strips")
 
@@ -505,18 +522,73 @@ def small_bwd_kernel_route(nq: int, nk: int) -> str:
     return SMALL_BWD_ROUTES[fn(nq, nk)]
 
 
+def _aligned(t: torch.Tensor, elems: int) -> bool:
+    """Whether a (B, H, N, Dh) view's base and (batch, head, seq) strides
+    are multiples of ``elems`` elements (the base of ``elems`` elements'
+    bytes)."""
+    return (t.data_ptr() % (elems * t.element_size()) == 0
+            and all(st % elems == 0 for st in t.stride()[:3]))
+
+
+def small_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, x: torch.Tensor,
+                outs: Tuple[torch.Tensor, ...] = ()) -> str:
+    """The kernel family (``SMALL_ROUTES``) of the short kernels that takes
+    these (B, H, N, Dh) operands: the forward's for ``x`` its output o, the
+    backward's for ``x`` the upstream g and ``outs`` (dq, dk, dv). Restated
+    from the libraries' gates (``fwd_gate`` / ``bwd_gate``) for the CPU
+    tests; ``chip_smoke.py`` holds it against their own answers,
+    ``small_fwd_kernel_route`` and ``small_bwd_kernel_gate``. At Dh = 64,
+    fp32 takes the TF32 kernels when every operand has 16-byte aligned rows
+    (float4 reads and stores); bf16 the mma.sync kernels when q, k, v and
+    o / g have 16-byte aligned rows and dq, dk, dv 4-byte aligned pairs;
+    anything else the CUDA-core kernels."""
+    if q.shape[-1] != 64:
+        return "cuda_cores"
+    if q.dtype == torch.float32:
+        ok = all(_aligned(t, 4) for t in (q, k, v, x) + tuple(outs))
+        return "tf32x3" if ok else "cuda_cores"
+    ok = all(_aligned(t, 8) for t in (q, k, v, x)) and all(_aligned(t, 2) for t in outs)
+    return "mma_bf16" if ok else "cuda_cores"
+
+
 def small_fwd_kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            o: torch.Tensor) -> str:
-    """The bf16 kernel of ``csrc/flash_attention_small_fwd.cu`` that takes
-    (B, H, N, Dh) operands at these addresses and strides, as the library's
-    launcher gates it: ``"live"`` (``small_fwd_live_kernel``) or
-    ``"cuda_cores"`` (built at first use)."""
+    """The kernel family (``SMALL_ROUTES``) of
+    ``csrc/flash_attention_small_fwd.cu`` that takes (B, H, N, Dh) operands
+    of q's dtype at these addresses and strides, as the library's launcher
+    gates it (built at first use): ``"mma_bf16"`` is
+    ``small_fwd_live_kernel``, ``"tf32x3"`` ``small_fwd_tf32_kernel``."""
     fn = _c_function(flash_attention_small_fwd, "route")
     if fn.argtypes is None:
-        fn.argtypes, fn.restype = [_P, _P, _P, _P, _P, _I], ctypes.c_int
-    live = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _strides(q, k, v, o),
-              q.shape[-1])
-    return "live" if live else "cuda_cores"
+        fn.argtypes, fn.restype = [_I] + [_P] * 5 + [_I], ctypes.c_int
+    return SMALL_ROUTES[fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          o.data_ptr(), _strides(q, k, v, o), q.shape[-1])]
+
+
+def small_bwd_kernel_gate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                          dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor) -> str:
+    """The kernel family (``SMALL_ROUTES``) of
+    ``csrc/flash_attention_small_bwd.cu`` that takes these operands and
+    gradients, as the library's launcher gates it (built at first use);
+    within ``"mma_bf16"``, ``small_bwd_kernel_route`` names the kernel."""
+    fn = _c_function(flash_attention_small_bwd, "gate")
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [_I] + [_P] * 8 + [_I], ctypes.c_int
+    return SMALL_ROUTES[fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                          _strides(q, k, v, g, dq, dk, dv), q.shape[-1])]
+
+
+def small_bwd_tf32_plan(device: int = 0) -> dict:
+    """The fp32 Dh = 64 backward kernel's launch (one for every shape), as
+    the kernel library plans it (built at first use): warps and shared
+    memory a CTA, CTAs an SM."""
+    fn = _c_function(flash_attention_small_bwd, "tf32_plan")
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [_I, _P], None
+    out = (ctypes.c_longlong * 3)()
+    fn(device, out)
+    return dict(zip(("warps", "smem_bytes", "ctas_per_sm"), out))
 
 
 def small_fwd_plan(bh: int, nq: int, nk: int, device: int = 0) -> dict:
@@ -529,6 +601,18 @@ def small_fwd_plan(bh: int, nq: int, nk: int, device: int = 0) -> dict:
     out = (ctypes.c_longlong * 5)()
     fn(bh, nq, nk, device, out)
     return dict(zip(("pairs_a_unit", "stages", "warps", "smem_bytes", "ctas_per_sm"), out))
+
+
+def small_fwd_tf32_plan(nk: int, device: int = 0) -> dict:
+    """The fp32 Dh = 64 forward kernel's launch at Nk keys, as the kernel
+    library plans it (built at first use): warps and shared memory a CTA,
+    CTAs an SM."""
+    fn = _c_function(flash_attention_small_fwd, "tf32_plan")
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [_I, _I, _P], None
+    out = (ctypes.c_longlong * 3)()
+    fn(nk, device, out)
+    return dict(zip(("warps", "smem_bytes", "ctas_per_sm"), out))
 
 
 def flash_attention_small(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
