@@ -236,6 +236,16 @@ timed on the first step's layer-0 operands and held on the eval's beam
 search calls, a traced step and a GPU-vs-CPU fp32 step; its rows join the
 short kernels' ``at_shapes`` under an ``fp32`` key.
 
+Phase 36 (``_short_bucket``, after phase 32) runs ML-32M's short length
+bucket on the bf16 short kernels with the short route on: phase 6's
+bucketed step at bench width (the short bucket's encoder 241 x 241 and
+cross 5 x 241 backwards on the strips route, 8 a step, counted by kernel;
+the step timed off / on / on / off and traced) with the strips route held
+and timed on the bucket's own layer-0 operands, and
+``configs/decoder_ml32m.json`` with ``amp=true`` through
+``train_decoder.train``; its rows join the bf16 short kernels'
+``at_shapes``.
+
 TF32 is switched off for matmuls and cuDNN, so fp32 work runs in fp32.
 ``RQVAE_TPU_SHORT_FLASH`` is unset for phases 1-19, so they take
 ``attend``'s default routes.
@@ -246,7 +256,7 @@ Amazon decoder under ``amazon``), a ``{"train_rqvae": {...}}`` line, a
 ``{"wide": {...}}`` line (phase 24), an ``{"offline": {...}}`` line (phase
 25), the ``{"dispatch"}``, ``{"distributed"}``, ``{"observability"}`` and
 ``{"tensor_parallel"}`` lines (phases 26-29), a ``{"movielens": {...}}``
-line (phases 30-34; phase 35 is the ``{"train"}`` line's ``amazon_fp32``), the nvidia-smi line again, a ``{"kernels": [...]}``
+line (phases 30-34 and 36; phase 35 is the ``{"train"}`` line's ``amazon_fp32``), the nvidia-smi line again, a ``{"kernels": [...]}``
 line (nine entries; rq_tokenize's and children_window's also carry phase
 25's launches as ``offline_launches``; phases 30-34's shapes are added to
 the entries' ``at_shapes``, the fp32 kernels' rows under an ``fp32`` key)
@@ -579,13 +589,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         ml_decoder, long_row = _ml_decoder(dev, work, roots, rq32_ckpt)
         torch.cuda.empty_cache()
+        # ---- phase 36: ML-32M's short bucket on the bf16 short kernels ----
+        short_bucket, short_rows = _short_bucket(dev, work, roots, rq32_ckpt)
+        torch.cuda.empty_cache()
         ml_branches, span_shape, packed_row = _ml_branches(dev, work, roots, rq32_ckpt)
         torch.cuda.empty_cache()
         # ---- phase 34: decoder_ml1m.json through train() ----
         ml1m_decoder, ml1m_row = _ml1m_decoder(dev, work, roots, rq1m_ckpt)
     movielens = dict(data=ml_data, tp_1x4=tp4, stage1=ml_stage1, decoder_ml32m=ml_decoder,
-                     branches=ml_branches, decoder_ml1m=ml1m_decoder)
+                     branches=ml_branches, decoder_ml1m=ml1m_decoder, short_bucket=short_bucket)
     by_name = {e["name"]: e for e in kernels}
+    for d in ("fwd", "bwd"):   # the bf16 short kernels on the short bucket's own operands
+        by_name[f"flash_attention_small_{d}"].setdefault("at_shapes", {}).update(short_rows[d])
     for name, shapes in rq_shapes.items():
         by_name[name]["at_shapes"].update(shapes)
     for d in ("fwd", "bwd"):   # the whole heads of one rank at (1, 4)
@@ -826,6 +841,35 @@ def _ml32m_index(rng, dev):
     return semids.build_index(cached, codebook_size=256)
 
 
+def _ml32m_batch(dev):
+    """The ML-32M step's seeded set-up (phases 5-10, 36): the config, the
+    numpy generator (its later draws make phase 9's serving batch), the
+    corpus index, and the batch: item ids (-1 past each crop), targets,
+    user ids, crop lengths and the valid-item mask."""
+    import numpy as np
+
+    cfg = _ml32m_config()
+    rng = np.random.RandomState(SEED)
+    index = _ml32m_index(rng, dev)
+    ids = rng.randint(0, ML_ITEMS, (ML_BATCH, ML_HIST)).astype(np.int32)
+    lengths = _crop_lengths(rng, ML_BATCH, ML_HIST)
+    mask = np.arange(ML_HIST)[None, :] < lengths[:, None]
+    ids = np.where(mask, ids, -1)
+    ids_fut = rng.randint(0, ML_ITEMS, (ML_BATCH, 1)).astype(np.int32)
+    users = np.arange(ML_BATCH, dtype=np.int32)
+    return cfg, rng, index, ids, ids_fut, users, lengths, mask
+
+
+def _ml32m_groups(ids, ids_fut, mask, dev):
+    """Phase 6's two length buckets of the batch: (SeqBatch, rows, items)."""
+    import numpy as np
+
+    from rqvae_tpu_torch.train import train_decoder as td
+
+    return [(_seq_batch(ids[rows, :length], ids_fut[rows], rows.astype(np.int32), dev), len(rows),
+             length) for rows, length in td.bucket_slices(mask.sum(axis=1), 2)]
+
+
 def _ml32m(dev):
     """Phases 5-10: ML-32M decoder training (flat and bucketed), the flash
     kernels against their twins, GPU vs CPU, ML-32M serving and the
@@ -845,15 +889,7 @@ def _ml32m(dev):
     from rqvae_tpu_torch.utils import amp
     from rqvae_tpu_torch.utils.tree import tree_leaves, tree_map
 
-    cfg = _ml32m_config()
-    rng = np.random.RandomState(SEED)
-    index = _ml32m_index(rng, dev)
-    ids = rng.randint(0, ML_ITEMS, (ML_BATCH, ML_HIST)).astype(np.int32)
-    lengths = _crop_lengths(rng, ML_BATCH, ML_HIST)
-    mask = np.arange(ML_HIST)[None, :] < lengths[:, None]
-    ids = np.where(mask, ids, -1)
-    ids_fut = rng.randint(0, ML_ITEMS, (ML_BATCH, 1)).astype(np.int32)
-    users = np.arange(ML_BATCH, dtype=np.int32)
+    cfg, rng, index, ids, ids_fut, users, lengths, mask = _ml32m_batch(dev)
     flat = _seq_batch(ids, ids_fut, users, dev)
     flat = type(flat)(*(t[None] for t in flat))   # the step's leading accum axis
     params = retrieval.init(torch.Generator().manual_seed(SEED), cfg, device=dev)
@@ -896,10 +932,7 @@ def _ml32m(dev):
 
     # ---- phase 6: the same batch, length-bucketed (2 groups) ----
     grad_accum, apply = td.make_bucketed_fns(cfg, opt, index, torch.bfloat16, 4)
-    groups = []
-    for rows, length in td.bucket_slices(mask.sum(axis=1), 2):
-        groups.append((_seq_batch(ids[rows, :length], ids_fut[rows], rows.astype(np.int32), dev),
-                       len(rows), length))
+    groups = _ml32m_groups(ids, ids_fut, mask, dev)
 
     def bucketed_step(params, opt_state, record=None):
         grads = tree_map(torch.zeros_like, params)
@@ -2040,10 +2073,6 @@ def _amazon_decoder(dev, rq_ckpt, work):
           and enc["q"].dtype == torch.bfloat16, f"recorded encoder operands {enc['q'].shape}")
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
 
-    def unit_rms(g):
-        g = g.float()
-        return g / g.pow(2).mean().sqrt()
-
     def rand(*shape):
         return torch.randn(shape, device=dev, generator=gen)
 
@@ -2060,15 +2089,15 @@ def _amazon_decoder(dev, rq_ckpt, work):
     # key valid with probability 1/2
     scatter = (torch.rand((b, n), device=dev, generator=gen) < 0.5) & (
         (torch.arange(n, device=dev) < 16) | (torch.arange(n, device=dev) >= 32))
-    cases = [(kind, e["q"], e["k"], e["v"], unit_rms(e["g"]), e["k_mask"], e["causal"], None)
+    cases = [(kind, e["q"], e["k"], e["v"], _unit_rms(e["g"]), e["k_mask"], e["causal"], None)
              for kind, e in rec.items()]
-    cases += [("encoder_no_valid_key", enc["q"], enc["k"], enc["v"], unit_rms(enc["g"]), holes,
+    cases += [("encoder_no_valid_key", enc["q"], enc["k"], enc["v"], _unit_rms(enc["g"]), holes,
                False, slice(0, 2)),
-              ("encoder_holes", enc["q"], enc["k"], enc["v"], unit_rms(enc["g"]), scatter, False,
+              ("encoder_holes", enc["q"], enc["k"], enc["v"], _unit_rms(enc["g"]), scatter, False,
                None),
-              ("encoder_all_valid", enc["q"], enc["k"], enc["v"], unit_rms(enc["g"]), None, False,
+              ("encoder_all_valid", enc["q"], enc["k"], enc["v"], _unit_rms(enc["g"]), None, False,
                None),
-              ("cross_no_valid_key", cross["q"], cross["k"], cross["v"], unit_rms(cross["g"]),
+              ("cross_no_valid_key", cross["q"], cross["k"], cross["v"], _unit_rms(cross["g"]),
                dead_cross, False, slice(0, 2))]
     cases += [(f"decode_1x{t}", rand(b, h, 1, dh), rand(b, h, t, dh), rand(b, h, t, dh),
                rand(b, h, 1, dh), None, False, None) for t in (1, 2, 3, 4)]
@@ -2082,6 +2111,24 @@ def _amazon_decoder(dev, rq_ckpt, work):
                rand(16, h, 255, dh), ragged(16, 16), True, None),
               ("bucket_241", rand(16, h, 241, dh), rand(16, h, 241, dh), rand(16, h, 241, dh),
                rand(16, h, 241, dh), ragged(16, 241), False, None),
+              # the strips route: the keys mode (Nq <= 16), two query tiles, a causal
+              # full-width shape, batch rows with no valid key, dead middle key tiles
+              ("cross_5x241", rand(16, h, 5, dh), rand(16, h, 241, dh), rand(16, h, 241, dh),
+               rand(16, h, 5, dh), ragged(16, 241), False, None),
+              ("row_1x241", rand(16, h, 1, dh), rand(16, h, 241, dh), rand(16, h, 241, dh),
+               rand(16, h, 1, dh), ragged(16, 241), False, None),
+              ("two_tiles_17x241", rand(16, h, 17, dh), rand(16, h, 241, dh), rand(16, h, 241, dh),
+               rand(16, h, 17, dh), ragged(16, 241), False, None),
+              ("causal_255", rand(16, h, 255, dh), rand(16, h, 255, dh), rand(16, h, 255, dh),
+               rand(16, h, 255, dh), ragged(16, 255), True, None),
+              ("bucket_241_no_valid_key", rand(16, h, 241, dh), rand(16, h, 241, dh),
+               rand(16, h, 241, dh), rand(16, h, 241, dh), ragged(16, 241) & (
+                   torch.arange(16, device=dev) >= 2)[:, None], False, slice(0, 2)),
+              ("bucket_241_dead_middle", rand(16, h, 241, dh), rand(16, h, 241, dh),
+               rand(16, h, 241, dh), rand(16, h, 241, dh),
+               (torch.rand((16, 241), device=dev, generator=gen) < 0.5)
+               & ((torch.arange(241, device=dev) < 16) | (torch.arange(241, device=dev) >= 48)),
+               False, None),
               ("causal_255_dh128", rand(4, h, 255, 128), rand(4, h, 255, 128), rand(4, h, 255, 128),
                rand(4, h, 255, 128), ragged(4, 255), True, None)]
     checks, errs = [], {"fwd": 0.0, "bwd": 0.0}
@@ -2131,6 +2178,19 @@ def _amazon_decoder(dev, rq_ckpt, work):
                 check(False, f"small_bwd_route({nq}, {nk}) = {got_route}, the library's {want_route}")
             routes[want_route] = routes.get(want_route, 0) + 1
     log(f"short backward routes over every (Nq, Nk) <= {fa.SMALL_MAX_LEN}: {routes}")
+    # the strips route's launch plan against its Python restatement
+    plans = {}
+    for nq in (1, 5, 16, 17, 100, 209, 241, 255):
+        for nk in range(1, fa.SMALL_MAX_LEN + 1):
+            if fa.small_bwd_route(nq, nk) != "strips":
+                continue
+            plan = fa.small_bwd_strips_plan(nq, nk)
+            want_smem = fa.small_bwd_strips_smem(nq, nk)
+            check(plan["smem_bytes"] == want_smem and plan["ctas_per_sm"] >= 1
+                  and plan["keys_mode"] == int(nq <= 16),
+                  f"strips plan at {nq} x {nk}: {plan}, restated {want_smem} bytes")
+            plans[f"{nq}x{nk}"] = plan
+    log(f"strips route plans: 241x241 {plans.get('241x241')}, 5x241 {plans.get('5x241')}")
     # the Python restatement of both libraries' gates (``small_route``, which
     # the CPU tests read) against the libraries' own answers, on views of
     # known alignment in both dtypes
@@ -2337,37 +2397,8 @@ def _amazon_decoder(dev, rq_ckpt, work):
     # the twin and SDPA under the same mask (additive bias, causal cut)
     per_kind = model_cfg.n_layers // 2   # a step: 4 encoder self, 4 decoder self, 4 cross
 
-    def time_shape(e):
-        q, k, v, km, causal = e["q"], e["k"], e["v"], e["k_mask"], e["causal"]
-        g = unit_rms(e["g"]).to(q.dtype)
-        sb, sh, nq, sdh = q.shape
-        nk = k.shape[2]
-        _, mm, inv = fa.flash_attention_small_fwd(q, k, v, k_mask=km, causal=causal)
-        fns = {"fwd": lambda: fa.flash_attention_small_fwd(q, k, v, k_mask=km, causal=causal),
-               "bwd": lambda: fa.flash_attention_small_bwd(q, k, v, g, mm, inv, k_mask=km,
-                                                           causal=causal)}
-        plain = {"fwd": lambda: fa.flash_attention_small_plain(q, k, v, k_mask=km, causal=causal),
-                 "bwd": lambda: fa.flash_attention_small_bwd_plain(q, k, v, g, k_mask=km,
-                                                                   causal=causal)}
-        mask = fa._key_masker(fa.mask_bias(km, sb, nk, dev), causal)(
-            torch.zeros((sb, 1, nq, nk), device=dev)).to(q.dtype)
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        lib_f = lambda: F.scaled_dot_product_attention(*leaves, attn_mask=mask)   # noqa: E731
-        lib_fb = lambda: torch.autograd.backward(   # noqa: E731
-            F.scaled_dot_product_attention(*leaves, attn_mask=mask), g)
-        lib = {"fwd": cuda_ms(lib_f, 50), "fb": cuda_ms(lib_fb, 50)}
-        lib_dev = {"fwd": _device_ms(lib_f, 20), "fb": _device_ms(lib_fb, 20)}
-        out = dict(shape=[sb, sh, nq, nk, sdh], causal=causal, launches_per_step=per_kind)
-        for d in ("fwd", "bwd"):
-            bound = _short_bound(q, k, km, causal, d)
-            out[d] = dict(ms=cuda_ms(fns[d], 50), device_ms=_device_ms(fns[d], 20, f"small_{d}"),
-                          plain_ms=cuda_ms(plain[d], 20), **bound,
-                          library_ms=lib["fwd"] if d == "fwd" else lib["fb"] - lib["fwd"],
-                          library_device_ms=(lib_dev["fwd"] if d == "fwd"
-                                             else lib_dev["fb"] - lib_dev["fwd"]))
-        return out
-
-    shapes = {kind: time_shape(rec[kind]) for kind in ("encoder_self", "decoder_self", "cross")}
+    shapes = {kind: _short_times(rec[kind], per_kind) for kind in ("encoder_self", "decoder_self",
+                                                                 "cross")}
     # the forward where nothing can be skipped: the encoder's operands, every key valid
     all_valid = dict(rec["encoder_self"], k_mask=None)
     def fn():
@@ -2395,7 +2426,7 @@ def _amazon_decoder(dev, rq_ckpt, work):
     for e in rec.values():
         _, mm, inv = fa.flash_attention_small_fwd(e["q"], e["k"], e["v"], k_mask=e["k_mask"],
                                                   causal=e["causal"])
-        fa.flash_attention_small_bwd(e["q"], e["k"], e["v"], unit_rms(e["g"]).to(e["q"].dtype), mm,
+        fa.flash_attention_small_bwd(e["q"], e["k"], e["v"], _unit_rms(e["g"]).to(e["q"].dtype), mm,
                                      inv, k_mask=e["k_mask"], causal=e["causal"])
     torch.cuda.synchronize()
     again = {w.__name__: fa.attribute_calls(w) for w in libs}
@@ -2407,7 +2438,7 @@ def _amazon_decoder(dev, rq_ckpt, work):
 
     enc_t = shapes["encoder_self"]
     q, k, v, km = enc["q"], enc["k"], enc["v"], enc["k_mask"]
-    g = unit_rms(enc["g"]).to(q.dtype)
+    g = _unit_rms(enc["g"]).to(q.dtype)
     bnhd = [t.clone().requires_grad_(True).transpose(1, 2) for t in (q, k, v)]
     dense_mask = attn_ops.build_mask(n, n, k_mask=km)
     with torch.no_grad():
@@ -2963,6 +2994,57 @@ def _offline(dev, rq_ckpt, work) -> dict:
         children_window_check=dict(rows_per_level=cw_rows, identical=True),
         gpu_vs_cpu=dict(users=OFFLINE_CPU_USERS, dtype="float32", max_abs_diff=diff,
                         metrics=metric_keys(m_cpu)))
+
+
+def _unit_rms(g):
+    """The loss's upstream gradient scaled to unit RMS, fp32."""
+    g = g.float()
+    return g / g.pow(2).mean().sqrt()
+
+
+def _short_times(e, per_step: int) -> dict:
+    """The bf16 short kernels on a step's recorded operands ``e`` (q, k, v,
+    k_mask, causal, g; g at unit RMS): each direction's CUDA-event ms,
+    profiler device ms, the twin's ms and ``_short_bound``, beside bf16
+    ``F.scaled_dot_product_attention`` under the same mask as an additive
+    bias (timed only: events and device ms, the backward as forward and
+    backward less forward), with the path's launches a step."""
+    import torch
+    import torch.nn.functional as F
+
+    from rqvae_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, km, causal = e["q"], e["k"], e["v"], e["k_mask"], e["causal"]
+    g = _unit_rms(e["g"]).to(q.dtype)
+    sb, sh, nq, sdh = q.shape
+    nk = k.shape[2]
+    _, mm, inv = fa.flash_attention_small_fwd(q, k, v, k_mask=km, causal=causal)
+    fns = {"fwd": lambda: fa.flash_attention_small_fwd(q, k, v, k_mask=km, causal=causal),
+           "bwd": lambda: fa.flash_attention_small_bwd(q, k, v, g, mm, inv, k_mask=km,
+                                                       causal=causal)}
+    plain = {"fwd": lambda: fa.flash_attention_small_plain(q, k, v, k_mask=km, causal=causal),
+             "bwd": lambda: fa.flash_attention_small_bwd_plain(q, k, v, g, k_mask=km,
+                                                               causal=causal)}
+    mask = fa._key_masker(fa.mask_bias(km, sb, nk, q.device), causal)(
+        torch.zeros((sb, 1, nq, nk), device=q.device)).to(q.dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    lib_f = lambda: F.scaled_dot_product_attention(*leaves, attn_mask=mask)   # noqa: E731
+    lib_fb = lambda: torch.autograd.backward(   # noqa: E731
+        F.scaled_dot_product_attention(*leaves, attn_mask=mask), g)
+    lib = {"fwd": cuda_ms(lib_f, 50), "fb": cuda_ms(lib_fb, 50)}
+    # a trace that dropped its device events would make the backward's
+    # difference the forward and backward: read each again once, or fail
+    lib_dev = {"fwd": _device_ms_measured(lib_f, 20), "fb": _device_ms_measured(lib_fb, 20)}
+    out = dict(shape=[sb, sh, nq, nk, sdh], causal=causal, launches_per_step=per_step)
+    for d in ("fwd", "bwd"):
+        bound = _short_bound(q, k, km, causal, d)
+        out[d] = dict(ms=cuda_ms(fns[d], 50),
+                      device_ms=_device_ms_measured(fns[d], 20, f"small_{d}"),
+                      plain_ms=cuda_ms(plain[d], 20), **bound,
+                      library_ms=lib["fwd"] if d == "fwd" else lib["fb"] - lib["fwd"],
+                      library_device_ms=(lib_dev["fwd"] if d == "fwd"
+                                         else lib_dev["fb"] - lib_dev["fwd"]))
+    return out
 
 
 def _short_bound(q, k, k_mask, causal: bool, direction: str) -> dict:
@@ -4373,6 +4455,8 @@ ML_PACK_ROWS = 16          # phase 33 (a): packed rows a step (the config packs 
 ML_BRANCH_ITERS = 10       # phase 33's steps a branch
 ML_CPU_USERS = 2           # phase 32's fp32 steps held against the CPU
 ML1M_DEC_ITERS = 30        # phase 34's steps (decoder_ml1m.json: 100,000)
+SHORT_STEPS = 10           # phase 36 (a): timed steps a turn of the switch A/B
+ML_AMP_ITERS = 20          # phase 36 (b): decoder_ml32m.json steps with amp (the config: 20,000)
 
 
 def _flat_span_wrappers() -> dict:
@@ -5099,6 +5183,225 @@ def _ml1m_decoder(dev, work: str, roots: dict, rq_ckpt: str) -> tuple:
         gg, gc, 1e-3, "phase 34 GPU vs CPU gradients"))
     log(f"phase 34, decoder_ml1m.json through train(): {out}")
     return out, row
+
+
+def _short_bucket(dev, work: str, roots: dict, rq_ckpt: str) -> tuple:
+    """Phase 36: ML-32M's short length bucket on the bf16 short kernels
+    (``RQVAE_TPU_SHORT_FLASH=1`` under bf16 compute), whose backward takes
+    the strips route at Nk > 96.
+
+    (a) Phase 6's bucketed step at bench width (batch 256 of 801 tokens in
+    2 buckets, the short one 128 rows of 241 tokens; width 512, 8 heads,
+    dropout 0.3, bf16 over fp32 AdamW), the switch on: a step's short
+    bucket launches 12 short forwards and 12 short backwards (8 on the
+    strips route: the encoder's 241 x 241 and the cross attention's 5 x 241;
+    4 on the rows kernel: the causal 5 x 5) and no flat kernel; its long
+    bucket 4 + 4 flat launches (the encoder) and 4 + 4 short ones on the rows
+    kernel (the decoder's causal 5 x 5); the loss finite. The step timed with
+    the switch off / on / on / off (SHORT_STEPS steps after 3), one traced
+    step on. Layer 0's encoder and cross operands recorded from a rerun
+    (g at unit RMS), the short backward held against its twin there (bf16
+    2e-2; with two batch rows' keys all masked, their gradients exactly 0)
+    and both short kernels timed there (``_short_times``).
+
+    (b) ``configs/decoder_ml32m.json`` with ``amp=true`` and the switch on
+    through ``train_decoder.train``: ML_AMP_ITERS steps and an eval batch on
+    the ML-32M artifacts over phase 31's RQ-VAE; every short backward of a
+    call with Nk > 96 on the strips route, the loss finite.
+
+    Returns (result, {"fwd" / "bwd": {shape name: at_shapes row}})."""
+    import numpy as np
+    import torch
+
+    from rqvae_tpu_torch.models import retrieval
+    from rqvae_tpu_torch.ops import attention as attn_ops
+    from rqvae_tpu_torch.ops import flash_attention as fa
+    from rqvae_tpu_torch.train import optim
+    from rqvae_tpu_torch.train import train_decoder as td
+    from rqvae_tpu_torch.utils.tree import tree_map
+
+    sfwd, sbwd = fa.flash_attention_small_fwd, fa.flash_attention_small_bwd
+    names = ("small_fwd", "small_bwd", "flat_fwd", "flat_bwd")
+    wrappers = (sfwd, sbwd, fa.flash_attention_fwd, fa.flash_attention_bwd)
+
+    def zero():
+        for w in wrappers:
+            w.launches = 0
+        for w in (sfwd, sbwd):
+            w.route_launches = dict.fromkeys(w.route_launches, 0)
+        sbwd.bf16_launches = dict.fromkeys(sbwd.bf16_launches, 0)
+
+    def counts():
+        out = {n: w.launches for n, w in zip(names, wrappers)}
+        out.update({f"bwd_{r}": n for r, n in sbwd.bf16_launches.items()})
+        out["bwd_mma_bf16"] = sbwd.route_launches["mma_bf16"]
+        return out
+
+    # ---- (a) phase 6's bucketed step, the switch on ----
+    cfg, _, index, ids, ids_fut, _, _, mask = _ml32m_batch(dev)
+    groups = _ml32m_groups(ids, ids_fut, mask, dev)
+    tokens = [4 * length + 1 for _, _, length in groups]
+    check(len(groups) == 2 and tokens[0] >= attn_ops.FLASH_MIN_LEN > tokens[1],
+          f"phase 36 buckets of {tokens} tokens")
+    params = retrieval.init(torch.Generator().manual_seed(SEED), cfg, device=dev)
+    opt = optim.adamw(3e-4, 0.035)
+    opt_state = opt.init(params)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    grad_accum, apply = td.make_bucketed_fns(cfg, opt, index, torch.bfloat16, 4)
+
+    def step(params, opt_state, per_bucket=None):
+        grads = tree_map(torch.zeros_like, params)
+        loss = torch.zeros((), device=dev)
+        loss_d = torch.zeros((4,), device=dev)
+        for batch, _, _ in groups:
+            before = counts()
+            grads, loss, loss_d = grad_accum(params, grads, loss, loss_d, batch, gen, 0.5)
+            if per_bucket is not None:
+                per_bucket.append({k: v - before[k] for k, v in counts().items()})
+        params, opt_state = apply(params, opt_state, grads)
+        return params, opt_state, loss
+
+    with _env(**{SHORT_FLASH_ENV: "1"}):
+        for _ in range(3):
+            params, opt_state, loss = step(params, opt_state)
+        torch.cuda.synchronize()
+        zero()
+        per_bucket, losses = [], []
+        for i in range(SHORT_STEPS):
+            params, opt_state, loss = step(params, opt_state, per_bucket if i == 0 else None)
+            losses.append(float(loss))
+        run = counts()
+    check(all(math.isfinite(x) for x in losses), f"phase 36 losses {losses}")
+    long_b, short_b = per_bucket
+    check(short_b == dict(small_fwd=12, small_bwd=12, flat_fwd=0, flat_bwd=0, bwd_rows=4,
+                          bwd_tiles=0, bwd_strips=8, bwd_mma_bf16=12),
+          f"phase 36 short bucket ({tokens[1]} tokens) launches {short_b}")
+    check(long_b == dict(small_fwd=4, small_bwd=4, flat_fwd=4, flat_bwd=4, bwd_rows=4,
+                         bwd_tiles=0, bwd_strips=0, bwd_mma_bf16=4),
+          f"phase 36 long bucket ({tokens[0]} tokens) launches {long_b}")
+    check(run["bwd_strips"] == 8 * SHORT_STEPS and run["small_bwd"] == 16 * SHORT_STEPS,
+          f"phase 36 launches over {SHORT_STEPS} steps {run}")
+    log(f"phase 36 (a) launches a step: long bucket {long_b}, short bucket {short_b}")
+
+    # the step with the switch off / on / on / off, then one traced step on
+    ab = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        with _env(**{SHORT_FLASH_ENV: "1" if mode == "on" else None}):
+            for _ in range(3):
+                params, opt_state, loss = step(params, opt_state)
+            ab[mode].append(wall_ms(lambda: step(params, opt_state), SHORT_STEPS))
+    with _env(**{SHORT_FLASH_ENV: "1"}):
+        trace = _profile(lambda: step(params, opt_state), top=12)
+    log(f"phase 36 (a) step ms, switch off / on / on / off: {ab}; traced step on: {trace}")
+
+    # layer 0's encoder and cross operands of the short bucket, from a rerun
+    rec = {}
+    real_small = attn_ops.flash_attention_small
+
+    def record(q, k, v, *, k_mask=None, causal=False):
+        out = real_small(q, k, v, k_mask=k_mask, causal=causal)
+        kind = "causal" if causal else ("encoder" if q.shape[2] == k.shape[2] else "cross")
+        if out.requires_grad and kind not in rec and k.shape[2] == tokens[1]:
+            entry = rec[kind] = dict(q=q.detach(), k=k.detach(), v=v.detach(), k_mask=k_mask,
+                                     causal=causal)
+            out.register_hook(lambda g, e=entry: e.__setitem__("g", g.detach()))
+        return out
+
+    attn_ops.flash_attention_small = record
+    try:
+        with _env(**{SHORT_FLASH_ENV: "1"}):
+            step(params, opt_state)
+            torch.cuda.synchronize()
+    finally:
+        attn_ops.flash_attention_small = real_small
+    check({"encoder", "cross"} <= set(rec) and all("g" in rec[k] for k in ("encoder", "cross")),
+          f"phase 36 recorded {sorted(rec)}")
+    held, rows = {}, {"fwd": {}, "bwd": {}}
+    for kind in ("encoder", "cross"):
+        e = rec[kind]
+        q, k, v = e["q"], e["k"], e["v"]
+        g = _unit_rms(e["g"]).to(q.dtype)
+        sb, sh, nq, _ = q.shape
+        nk = k.shape[2]
+        check(q.dtype == torch.bfloat16 and fa.small_bwd_kernel_route(nq, nk) == "strips",
+              f"phase 36 {kind} {tuple(q.shape)} x {nk} {q.dtype}")
+        dead = e["k_mask"].clone()
+        dead[:2] = False   # two batch rows with no valid key
+        for case, km in ((kind, e["k_mask"]), (f"{kind}_no_valid_key", dead)):
+            _, m, inv = fa.flash_attention_small_fwd(q, k, v, k_mask=km)
+            got = fa.flash_attention_small_bwd(q, k, v, g, m, inv, k_mask=km)
+            want = fa.flash_attention_small_bwd_plain(q, k, v, g, k_mask=km)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, x, y in zip(("dq", "dk", "dv"), got, want):
+                x, y = x.float(), y.float()
+                errs[name] = float((x - y).abs().max())
+                check(bool(torch.isfinite(x).all()) and torch.allclose(x, y, rtol=2e-2, atol=2e-2),
+                      f"phase 36 {case} {name} differs from the twin by {errs[name]}")
+            if km is dead:
+                check(all(float(x[:2].abs().max()) == 0.0 for x in got),
+                      f"phase 36 {case}: gradients of rows with no valid key are not 0")
+            held[case] = errs
+        shape = f"ml32m_short_bucket_{kind}_{nq}x{nk}"
+        times = _short_times(e, cfg.n_layers // 2)
+        times["plan"] = fa.small_bwd_strips_plan(nq, nk)
+        times["max_abs_err"] = held[kind]
+        for d in ("fwd", "bwd"):
+            rows[d][shape] = dict(times[d], shape=times["shape"],
+                                  launches_per_step=times["launches_per_step"],
+                                  **({"plan": times["plan"], "max_abs_err": held[kind]}
+                                     if d == "bwd" else {}))
+    del rec
+    log(f"phase 36 (a) strips route on the short bucket's layer-0 operands: {rows['bwd']}; "
+        f"held {held}")
+    bucketed = dict(batch=ML_BATCH, bucket_tokens=tokens,
+                    bucket_rows=[rows_ for _, rows_, _ in groups], losses=losses,
+                    launches_per_step={"long": long_b, "short": short_b},
+                    step_ms=ab, step_mean_ms={k: sum(v) / len(v) for k, v in ab.items()},
+                    traced_step_on=trace, held=held)
+    del params, opt_state, groups
+    torch.cuda.empty_cache()
+
+    # ---- (b) decoder_ml32m.json with amp and the switch on, through train() ----
+    calls = []
+
+    def count_calls(q, k, v, *, k_mask=None, causal=False):
+        if q.requires_grad:
+            calls.append((q.shape[2], k.shape[2]))
+        return real_small(q, k, v, k_mask=k_mask, causal=causal)
+
+    save = f"{work}/decoder_ml32m_amp"
+    cfg_b = _ml_decoder_cfg(roots, rq_ckpt, save, ML_AMP_ITERS, "amp=true")
+    check(cfg_b.amp and cfg_b.attn_embed_dim // cfg_b.attn_heads == 64,
+          f"phase 36 (b) config {cfg_b}")
+    attn_ops.flash_attention_small = count_calls
+    try:
+        with _env(**{SHORT_FLASH_ENV: "1"}):
+            zero()
+            records, launches, wall_s, _ = _ml_train(cfg_b, dev)
+            kernels = dict(sbwd.bf16_launches)
+            routes = dict(sbwd.route_launches)
+    finally:
+        attn_ops.flash_attention_small = real_small
+    logs = [r for r in records if "total_loss" in r]
+    amp_losses = [r["total_loss"] for r in logs]
+    evals = [r for r in records if "eval_loss" in r]
+    long_calls = sum(nk > 96 or nq > 208 for nq, nk in calls)
+    check(all(math.isfinite(x) for x in amp_losses) and len(evals) == 1
+          and math.isfinite(evals[0]["eval_loss"]), f"phase 36 (b) losses {amp_losses}, eval {evals}")
+    check(long_calls > 0 and kernels["strips"] == long_calls
+          and kernels["rows"] + kernels["tiles"] == len(calls) - long_calls
+          and launches.get("flash_attention_small_bwd", 0) == len(calls)
+          and routes["mma_bf16"] == len(calls),
+          f"phase 36 (b) short backward by kernel {kernels}, by route {routes}, launches "
+          f"{launches}, {len(calls)} differentiable short calls, {long_calls} with Nk > 96")
+    amp = dict(batch=cfg_b.batch_size, iterations=ML_AMP_ITERS, wall_s=wall_s,
+               step_ms=_step_ms(records), losses=amp_losses,
+               eval_loss=evals[0]["eval_loss"], launches=launches,
+               short_bwd_by_kernel=kernels, short_calls=len(calls), long_key_calls=long_calls,
+               short_shapes=sorted({f"{nq}x{nk}" for nq, nk in calls}))
+    log(f"phase 36 (b), decoder_ml32m.json with amp=true and the short route: {amp}")
+    return dict(bucketed=bucketed, decoder_ml32m_amp=amp), rows
 
 
 def _tp_one_process(dev):

@@ -388,16 +388,15 @@ inline int dp_for(int Dh) { return Dh <= 32 ? 32 : (Dh <= 64 ? 64 : (Dh <= 128 ?
 //
 // The short kernels' products (flash_attention_small.cuh); the flat and span
 // kernels run on wgmma (below). A warp owns 16 rows of a tile. Tiles are
-// staged in shared memory as bf16 [rows][kMP] (a 144-byte pitch, so the eight
-// 16-byte rows an ldmatrix reads fall in distinct banks) and read into
-// fragments with ldmatrix. Fragment layouts of m16n8k16 (g = lane / 4,
+// staged in shared memory as bf16 rows in a swizzle that puts the eight
+// 16-byte rows an ldmatrix reads in distinct banks, and read into fragments
+// with ldmatrix. Fragment layouts of m16n8k16 (g = lane / 4,
 // c = lane % 4): A (16 x 16) a0a1 = (g, 2c..), a2a3 = (g + 8, 2c..),
 // a4a5 = (g, 2c + 8..), a6a7 = (g + 8, 2c + 8..); B (16 x 8) b0b1 = (k 2c..,
 // n g), b2b3 = (k 2c + 8.., n g); C (16 x 8) c0c1 = (g, 2c..), c2c3 =
 // (g + 8, 2c..).
 constexpr int kMmaThreads = 128;
 constexpr int kMD = 64;        // head dimension of the tensor-core path
-constexpr int kMP = kMD + 8;   // bf16 pitch of a staged tile
 
 __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const __nv_bfloat16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -420,15 +419,6 @@ __device__ __forceinline__ void mma16816(float d[4], const uint32_t a[4], uint32
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragments (16 rows x 64 dims, four k-steps of 16) of a warp's 16 rows
-// starting at ``row0`` of a staged tile.
-__device__ __forceinline__ void load_a_frags(uint32_t f[4][4], const __nv_bfloat16* tile, int row0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-    ldsm_x4(f[s], tile + (row0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kMP + 16 * s + 8 * (lane >> 4));
 }
 
 // ---- wgmma path: 64 x 64 bf16 tiles in the 128-byte swizzle ----

@@ -16,13 +16,11 @@
 // global memory into registers, the backward from fp32 rows it stages (q,
 // g, a strip's K and V, then e and ds).
 //
-// Tensor-core tiles (bf16, Dh = 64): a staged operand of the backward's
-// strip kernel is [rows][kMP] bf16 (flash_attention_common.cuh's 144-byte
-// pitch); the forward and the backward's other kernels use the swizzled
-// 128-byte rows below. Rows are padded to a multiple of 16 with zeros; the
-// e / ds tiles of the backward are [q rows][keys + 8] (an odd number of
-// 16-byte chunks a row, so ldmatrix rows fall in distinct banks). Fragment
-// layouts are those of flash_attention_common.cuh.
+// Tensor-core tiles (bf16, Dh = 64): a staged operand is [rows][64] bf16 in
+// the swizzled 128-byte rows below, padded to a multiple of 16 rows with
+// zeros; the e / ds tiles of the backward are [q rows][keys + 8] (an odd
+// number of 16-byte chunks a row, so ldmatrix rows fall in distinct banks).
+// Fragment layouts are those of flash_attention_common.cuh.
 #pragma once
 
 #include "flash_attention_common.cuh"
@@ -43,20 +41,6 @@ constexpr long long kOneCtaSmem = 232448;   // the shared memory a CTA may take
 // bf16 on mma.sync, fp32 as three TF32 products on mma.sync (Dh = 64).
 enum Route { kRouteCudaCores = 0, kRouteMmaBf16 = 1, kRouteTf32x3 = 2 };
 
-// Issue the copies of rows [r0, r0 + n_pad) of a (n, 64) bf16 slice into
-// dst[n_pad][kMP]; rows past n become zeros. Every thread of the block takes
-// part; cp_async_wait_all() and a barrier make them visible.
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           long long row_stride, int r0, int n, int n_pad) {
-  for (int e = threadIdx.x; e < n_pad * (kMD / 8); e += blockDim.x) {
-    const int r = e / (kMD / 8);
-    const int ch = e % (kMD / 8);
-    const bool ok = r0 + r < n;
-    cp_async16(dst + r * kMP + ch * 8, src + (ok ? (long long)(r0 + r) * row_stride + ch * 8 : 0),
-               ok ? 16 : 0);
-  }
-}
-
 // The masked, scaled score of key ``col`` for query ``row`` (bias: the
 // pair's staged key bias).
 __device__ __forceinline__ float score(float dot, float scale, const float* bias, int row, int col,
@@ -64,55 +48,6 @@ __device__ __forceinline__ float score(float dot, float scale, const float* bias
   if (col >= Nk) return -INFINITY;
   const float s = dot * scale + bias[col];
   return (causal && col > row) ? kNegInf : s;
-}
-
-// acc0 / acc1 (16 x 8 each: keys kr..kr+7 and kr+8..kr+15) += A B with A a
-// warp's 16 x 64 fragments and B[k][n] = tile[kr + n][k] (q k^T, g v^T).
-__device__ __forceinline__ void mma_nt16(float acc0[4], float acc1[4], const uint32_t f[4][4],
-                                         const __nv_bfloat16* tile, int kr) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    uint32_t b[4];
-    ldsm_x4(b, tile + (kr + (lane & 7) + 8 * (lane >> 4)) * kMP + 16 * s + 8 * ((lane >> 3) & 1));
-    mma16816(acc0, f[s], b[0], b[1]);
-    mma16816(acc1, f[s], b[2], b[3]);
-  }
-}
-
-// acc (16 x 64) += P B over one k-step of 16 tile rows: P (16 x 16, fp32 in
-// C layout, keys 0-7 in p0 and 8-15 in p1) rounded to bf16 here, B[k][n] =
-// tile[kr + k][n] (p v, ds k).
-__device__ __forceinline__ void mma_nn16(float acc[8][4], const float p0[4], const float p1[4],
-                                         const __nv_bfloat16* tile, int kr) {
-  const int lane = threadIdx.x & 31;
-  const uint32_t a[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]), pack_bf16(p1[0], p1[1]),
-                         pack_bf16(p1[2], p1[3])};
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
-    uint32_t b[4];
-    ldsm_x4_t(b, tile + (kr + (lane & 7) + 8 * ((lane >> 3) & 1)) * kMP + 16 * jj + 8 * (lane >> 4));
-    mma16816(acc[2 * jj], a, b[0], b[1]);
-    mma16816(acc[2 * jj + 1], a, b[2], b[3]);
-  }
-}
-
-// acc (16 keys x 64) += S^T B over one k-step of 16 query rows: S is a staged
-// [q][key] bf16 tile of pitch sp (e or ds), read transposed, keys
-// [key0, key0 + 16) and rows [q0, q0 + 16); B[k][n] = tile[q0 + k][n]
-// (ds^T q, e^T (g inv)).
-__device__ __forceinline__ void mma_tn16(float acc[8][4], const __nv_bfloat16* S, int sp, int key0,
-                                         int q0, const __nv_bfloat16* tile) {
-  const int lane = threadIdx.x & 31;
-  uint32_t a[4];
-  ldsm_x4_t(a, S + (q0 + (lane & 7) + 8 * (lane >> 4)) * sp + key0 + 8 * ((lane >> 3) & 1));
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
-    uint32_t b[4];
-    ldsm_x4_t(b, tile + (q0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kMP + 16 * jj + 8 * (lane >> 4));
-    mma16816(acc[2 * jj], a, b[0], b[1]);
-    mma16816(acc[2 * jj + 1], a, b[2], b[3]);
-  }
 }
 
 // Store a warp's 16 x 64 fp32 accumulator, times ``mul``, as bf16 rows
@@ -201,32 +136,38 @@ __device__ __forceinline__ uint32_t scale_pair(uint32_t w, float lo, float hi) {
   return pack_bf16(f.x * lo, f.y * hi);
 }
 
-// acc (16 x 64) += A B over one k-step of 16 tile rows: A a packed bf16
-// fragment (registers), B[k][n] = tile[kr + k][n] (ds k, ds^T q, e^T g).
-// kScale: B's row k is first multiplied by rs[kr + k] and rounded to bf16,
-// as bf16(g * inv) is formed for dv, with no third staged copy of g.
+// acc0 / acc1 (16 x 8 each: dims 16 jj .. + 7 and 16 jj + 8 .. + 15) += A
+// B over one k-step of 16 tile rows: A a packed bf16 fragment (registers),
+// B[k][n] = tile[kr + k][16 jj + n] (ds k, ds^T q, e^T g). kScale: B's row
+// k is first multiplied by rs[kr + k] and rounded to bf16, as bf16(g * inv)
+// is formed for dv, with no third staged copy of g.
+template <bool kScale>
+__device__ __forceinline__ void mma_pa_sw_n16(float acc0[4], float acc1[4], const uint32_t a[4],
+                                              const __nv_bfloat16* tile, int kr, const float* rs,
+                                              int jj) {
+  const int lane = threadIdx.x & 31;
+  uint32_t b[4];
+  ldsm_x4_t(b, tile + sw(kr + (lane & 7) + 8 * ((lane >> 3) & 1), 16 * jj + 8 * (lane >> 4)));
+  if (kScale) {   // b[0], b[2]: rows kr + 2c, +1; b[1], b[3]: rows kr + 8 + 2c, +1
+    const int k0 = kr + 2 * (lane & 3);
+    const float f0 = rs[k0], f1 = rs[k0 + 1], f2 = rs[k0 + 8], f3 = rs[k0 + 9];
+    b[0] = scale_pair(b[0], f0, f1);
+    b[2] = scale_pair(b[2], f0, f1);
+    b[1] = scale_pair(b[1], f2, f3);
+    b[3] = scale_pair(b[3], f2, f3);
+  }
+  mma16816(acc0, a, b[0], b[1]);
+  mma16816(acc1, a, b[2], b[3]);
+}
+
+// acc (16 x 64) += A B over one k-step of 16 tile rows, every dim: the four
+// quarters of mma_pa_sw_n16.
 template <bool kScale>
 __device__ __forceinline__ void mma_pa_sw(float acc[8][4], const uint32_t a[4],
                                           const __nv_bfloat16* tile, int kr, const float* rs) {
-  const int lane = threadIdx.x & 31;
-  float f[4];
-  if (kScale) {
-    const int k0 = kr + 2 * (lane & 3);
-    f[0] = rs[k0], f[1] = rs[k0 + 1], f[2] = rs[k0 + 8], f[3] = rs[k0 + 9];
-  }
 #pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
-    uint32_t b[4];
-    ldsm_x4_t(b, tile + sw(kr + (lane & 7) + 8 * ((lane >> 3) & 1), 16 * jj + 8 * (lane >> 4)));
-    if (kScale) {   // b[0], b[2]: rows kr + 2c, +1; b[1], b[3]: rows kr + 8 + 2c, +1
-      b[0] = scale_pair(b[0], f[0], f[1]);
-      b[2] = scale_pair(b[2], f[0], f[1]);
-      b[1] = scale_pair(b[1], f[2], f[3]);
-      b[3] = scale_pair(b[3], f[2], f[3]);
-    }
-    mma16816(acc[2 * jj], a, b[0], b[1]);
-    mma16816(acc[2 * jj + 1], a, b[2], b[3]);
-  }
+  for (int jj = 0; jj < 4; ++jj)
+    mma_pa_sw_n16<kScale>(acc[2 * jj], acc[2 * jj + 1], a, tile, kr, rs, jj);
 }
 
 // The A fragment of a 16 x 16 block from its fp32 C fragments (columns 0-7

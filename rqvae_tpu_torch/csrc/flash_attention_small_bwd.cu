@@ -51,12 +51,44 @@
 //     (the other warps' copies land under its math): s, dp, c, ds
 //     and dq as above, then per key tile dk and dv from the same registers,
 //     e and ds transposed in registers (movmatrix). No barrier but the warp's.
-//   * small_bwd_mma_kernel<SKT, QPW>: the same operands with Nk > 96 (the
-//     241-token ML-32M bucket, 255 x 255), or a tiles-kernel shape whose
-//     query side does not fit shared memory (Nq > 208): one pair a CTA,
-//     keys in strips of 32, c in a first pass over the strips, then per
-//     strip ds and dq on query-owner warps, bf16 e and ds staged in shared
-//     memory, dk and dv on key-owner warps.
+//   * the strips route: the same operands with Nk > 96 (the ML-32M short
+//     bucket's 241 x 241 and its 5 x 241 cross attention, 255 x 255), or a
+//     tiles-kernel shape whose query side does not fit shared memory (Nq >
+//     208). Only live key tiles are copied and computed (the forward's rule,
+//     live_mask / tile_list: a tile whose keys are all masked adds exactly
+//     nothing, so its dk and dv rows are written as zeros), and a (query
+//     tile, key tile) pair past the causal cut is skipped. A CTA a pair, in
+//     one of two modes:
+//     - small_bwd_keys_kernel (Nq <= 16): 4 warps split the pair's live
+//       tiles. Each takes s, dp, e and ds of the 16 rows against its own
+//       tiles in registers; the partial c sums and the dq = ds k partials
+//       are reduced through shared memory in warp order; dk and dv of its
+//       tiles come from the same registers, e and ds transposed there
+//       (movmatrix). Nothing is recomputed and nothing but dq is staged.
+//       71 KB, three CTAs an SM.
+//     - small_bwd_strips_kernel (Nq > 16): 16 warps (8 up to 128 queries),
+//       a warp a 16-row query tile whose q and g fragments it loads once and
+//       keeps in registers (g is then rounded to bf16(g inv) in place, dv's
+//       operand). Strips of four live tiles arrive through a three-stage
+//       cp.async ring, so the next strip's copy lands under this strip's
+//       math. When the live tiles span more than one strip, c comes from a
+//       first sweep over the strips (s and dp computed, e dp summed); with
+//       one strip, from that strip before its ds. Per strip the query warps
+//       take s, dp, ds and dq += ds k (dq in registers across strips) and
+//       stage bf16 e and ds; then the key side splits into (strip tile, dk
+//       or dv, half of the dims) items over the warps. 187 KB at 241 x 241,
+//       one CTA an SM (two at 128 queries or fewer).
+//     What bounds the route on an H100: at 241 x 241 (B = 256, H = 8, ragged
+//     keys, half of them valid) q, g, dq, dk, dv and the live keys' K and V
+//     take 0.115 ms at 3.35 TB/s, the products over the allowed pairs 0.04
+//     at the bf16 peak. On mma.sync every product reads its fragments from
+//     shared memory with ldmatrix, and those reads (not device memory) are
+//     what the kernel waits on: the design reads K and V once per (query
+//     tile, strip) for s and dp and once more for dq, q and g once per
+//     pair, e and ds once per (key tile, query tile, half). The strip kernel
+//     it replaces computed every key tile, ran the query side of an Nq <= 16
+//     pair on one warp and every strip's key side on two, and waited for
+//     each 32-key strip's copy with nothing in flight.
 //   * small_bwd_tf32_kernel<kWarp>: fp32 operands with Dh = 64 and 16-byte
 //     aligned rows (every shipped decoder config), every product as three
 //     TF32 mma.sync m16n8k8: see its note below.
@@ -69,45 +101,13 @@
 #include "flash_attention_bwd.cuh"
 #include "flash_attention_small.cuh"
 
+#include <type_traits>
+
 namespace flash {
 namespace small {
 
 constexpr int kRowKT = 6;          // the tiles / rows kernels hold a whole score row: Nk <= 96
-constexpr int kMultiStripKT = 2;   // wider rows: strips of 2 key tiles (32 keys)
-constexpr int kTileWarps = 6;      // and its warps: two CTAs an SM hold 12 at <= 168 registers
-
-// e (masked, exponentiated against the stored row max) and dp = g v^T of a
-// warp's 16 query rows (tile qt) against key strip st staged in Ks / Vs.
-template <int SKT>
-__device__ __forceinline__ void strip_scores(const __nv_bfloat16* Qs, const __nv_bfloat16* Gs,
-                                             const __nv_bfloat16* Ks, const __nv_bfloat16* Vs,
-                                             const float* ms, const float* bs, int qt, int st,
-                                             int KT, int Nk, int causal, float scale,
-                                             float e[2 * SKT][4], float dp[2 * SKT][4]) {
-  const int lane = threadIdx.x & 31;
-  const int gr = lane >> 2, c = lane & 3;
-  uint32_t qf[4][4], gf[4][4];
-  load_a_frags(qf, Qs, 16 * qt);
-  load_a_frags(gf, Gs, 16 * qt);
-#pragma unroll
-  for (int j = 0; j < 2 * SKT; ++j)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) e[j][x] = dp[j][x] = 0.f;
-#pragma unroll
-  for (int jj = 0; jj < SKT; ++jj)
-    if (st * SKT + jj < KT) {
-      mma_nt16(e[2 * jj], e[2 * jj + 1], qf, Ks, 16 * jj);
-      mma_nt16(dp[2 * jj], dp[2 * jj + 1], gf, Vs, 16 * jj);
-    }
-#pragma unroll
-  for (int j = 0; j < 2 * SKT; ++j)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const int row = 16 * qt + gr + 8 * (x >> 1);
-      const int col = st * 16 * SKT + 8 * j + 2 * c + (x & 1);
-      e[j][x] = expf(score(e[j][x], scale, bs, row, col, Nk, causal) - ms[row]);   // -inf past Nk: 0
-    }
-}
+constexpr int kTileWarps = 6;      // the tiles kernel's warps: two CTAs an SM hold 12 at <= 168 registers
 
 // Sum over the 4 lanes that share a row of an mma C fragment.
 __device__ __forceinline__ float quad_sum(float v) {
@@ -402,149 +402,428 @@ small_bwd_rows_kernel(SMALL_BWD_PARAMS) {
   }
 }
 
-template <int SKT, int QPW>
-__global__ void __launch_bounds__(kMaxWarps * 32)
-small_bwd_mma_kernel(SMALL_BWD_PARAMS) {
+// ---- the strips route (bf16, Dh = 64, Nk > 96 or Nq > 208) ----
+
+constexpr int kMaxKT = 16;         // key tiles of a pair: Nk <= 255
+constexpr int kKeysWarps = 4;      // keys mode (Nq <= 16): warps a CTA
+constexpr int kKeysTiles = kMaxKT / kKeysWarps;   // live tiles a warp holds at most
+constexpr int kDqPitch = 68;       // floats a row of a warp's staged dq partial
+constexpr int kStripWarps = 16;    // strips mode (Nq > 16): warps a CTA, a query tile each (8 at
+                                   // Nq <= 128, so that two CTAs share an SM)
+constexpr int kStripTiles = 4;     // live key tiles a strip
+constexpr int kStripItems = 4 * kStripTiles;   // the key side's: a strip tile, dk or dv, a half
+constexpr int kStripStages = 3;    // the K / V ring: two strips in flight
+constexpr int kStripPitch = 16 * kStripTiles + 8;   // bf16 a row of the staged e / ds (odd 16-byte chunks)
+
+// Live tile j of a tile_list.
+__device__ __forceinline__ int tile_at(unsigned long long idx, int j) { return (int)((idx >> (4 * j)) & 15ull); }
+
+// Zero the dk and dv rows of the keys in no live tile (no row attends them)
+// and, when the pair has no live tile, every dq row too; threads tid of n.
+__device__ __forceinline__ void zero_dead(__nv_bfloat16* dqp, __nv_bfloat16* dkp, __nv_bfloat16* dvp,
+                                          const Strides& sdq, const Strides& sdk, const Strides& sdv,
+                                          unsigned mask, int Nq, int Nk, int tid, int n) {
+  for (int e = tid; e < Nk * 32; e += n) {
+    const int key = e >> 5, d = 2 * (e & 31);
+    if ((mask >> (key >> 4)) & 1u) continue;
+    *reinterpret_cast<uint32_t*>(dkp + key * sdk.n + d) = 0u;
+    *reinterpret_cast<uint32_t*>(dvp + key * sdv.n + d) = 0u;
+  }
+  if (mask == 0u)
+    for (int e = tid; e < Nq * 32; e += n)
+      *reinterpret_cast<uint32_t*>(dqp + (e >> 5) * sdq.n + 2 * (e & 31)) = 0u;
+}
+
+// Start the copies of live tiles j0 .. j0 + nt - 1 (keys past Nk: zeros) of
+// k and v into swizzled [16 nt][64] tiles, packed; threads tid of n.
+__device__ __forceinline__ void fetch_tiles(__nv_bfloat16* Kd, __nv_bfloat16* Vd, const __nv_bfloat16* kp,
+                                            const __nv_bfloat16* vp, const Strides& sk, const Strides& sv,
+                                            unsigned long long idx, int j0, int nt, int Nk, int tid, int n) {
+  for (int e = tid; e < nt * 16 * 8; e += n) {
+    const int r = e >> 3, ch = e & 7;
+    const int key = 16 * tile_at(idx, j0 + (r >> 4)) + (r & 15);
+    const bool ok = key < Nk;
+    cp_async16(Kd + sw(r, 8 * ch), ok ? kp + key * sk.n + 8 * ch : kp, ok ? 16 : 0);
+    cp_async16(Vd + sw(r, 8 * ch), ok ? vp + key * sv.n + 8 * ch : vp, ok ? 16 : 0);
+  }
+}
+
+// e = exp(s - m) and dp = g v^T of 16 staged query rows (A fragments qf, gf)
+// against the 16 keys of tile t staged at Kb / Vb (keys 16 t + 8 u + 2 c
+// (+1) in e[u], dp[u]); the rows' m at ms[rows[r]], the key bias staged at bs.
+__device__ __forceinline__ void tile_scores(const uint32_t qf[4][4], const uint32_t gf[4][4],
+                                            const __nv_bfloat16* Kb, const __nv_bfloat16* Vb,
+                                            const float* ms, const float* bs, const int rows[2], int t,
+                                            int Nk, int causal, float scale, float e[2][4], float dp[2][4]) {
+  const int c = threadIdx.x & 3;
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) e[u][x] = dp[u][x] = 0.f;
+  mma_nt_sw(e[0], e[1], qf, Kb, 0);
+  mma_nt_sw(dp[0], dp[1], gf, Vb, 0);
+  const float m[2] = {ms[rows[0]], ms[rows[1]]};
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int col = 16 * t + 8 * u + 2 * c + (x & 1);
+      e[u][x] = exp_score(e[u][x], scale, bs[col], rows[x >> 1], col, Nk, causal, m[x >> 1]);
+    }
+}
+
+// Store N n-tiles (dims d0 .. d0 + 8 N - 1) of a 16-row accumulator, times
+// ``mul``, as bf16 rows row0 + g and row0 + g + 8 (those < n).
+template <int N>
+__device__ __forceinline__ void store_cols(__nv_bfloat16* dst, long long row_stride, int row0, int n,
+                                           int d0, const float acc[N][4], float mul) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= n) continue;
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      *reinterpret_cast<uint32_t*>(dst + (long long)row * row_stride + d0 + 8 * j + 2 * c) =
+          pack_bf16(acc[j][2 * r] * mul, acc[j][2 * r + 1] * mul);
+  }
+}
+
+// The keys mode's shared memory (one size for every Nk > 96): q, g [16][64]
+// and K, V [16 kMaxKT][64] swizzled bf16 (the dq partials [warps][16][kDqPitch]
+// fp32 go over V once every dp is taken); m, inv [16], the c partials
+// [warps][16] and the key bias [16 kMaxKT] fp32.
+constexpr long long kKeysSmem = (2LL * 16 + 2LL * 16 * kMaxKT) * kMD * 2 + (2 + kKeysWarps + kMaxKT) * 16 * 4;
+static_assert(kKeysWarps * 16 * kDqPitch * 4 <= 16LL * kMaxKT * kMD * 2, "dq partials exceed V's tiles");
+
+__global__ void __launch_bounds__(kKeysWarps * 32, 3)
+small_bwd_keys_kernel(SMALL_BWD_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int skp = 16 * SKT;   // keys of a strip
-  constexpr int ep = skp + 8;     // pitch of the e / ds tiles
-  const int n_qt = (Nq + 15) / 16;
-  const int nqp = 16 * n_qt;
-  const int KT = (Nk + 15) / 16;
-  const int nkp = 16 * KT;
-  const int n_strips = (KT + SKT - 1) / SKT;
-  // the CTA's pair: Q, G, N (= g * inv) [nqp][kMP]; K, V [skp][kMP]; E, D
-  // [nqp][ep]; m, inv [nqp] and the key bias [nkp] fp32
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Gs = Qs + nqp * kMP;
-  __nv_bfloat16* Ns = Gs + nqp * kMP;
-  __nv_bfloat16* Ks = Ns + nqp * kMP;
-  __nv_bfloat16* Vs = Ks + skp * kMP;
-  __nv_bfloat16* Es = Vs + skp * kMP;
-  __nv_bfloat16* Ds = Es + nqp * ep;
-  float* Ms = reinterpret_cast<float*>(Ds + nqp * ep);
+  __nv_bfloat16* Gs = Qs + 16 * kMD;
+  __nv_bfloat16* Ks = Gs + 16 * kMD;   // live tile j at rows 16 j ..
+  __nv_bfloat16* Vs = Ks + 16 * kMaxKT * kMD;
+  float* Ms = reinterpret_cast<float*>(Vs + 16 * kMaxKT * kMD);
+  float* Is = Ms + 16;
+  float* Cp = Is + 16;
+  float* Bs = Cp + kKeysWarps * 16;
+  float* Dq = reinterpret_cast<float*>(Vs);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, gr = lane >> 2, c = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const __nv_bfloat16* kp = k + b * sk.b + h * sk.h;
+  const __nv_bfloat16* vp = v + b * sv.b + h * sv.h;
+  __nv_bfloat16* dqp = dq + b * sdq.b + h * sdq.h;
+  __nv_bfloat16* dkp = dk + b * sdk.b + h * sdk.h;
+  __nv_bfloat16* dvp = dv + b * sdv.b + h * sdv.h;
+  const float* bias_b = bias + (long long)b * Nk;
+  // the query side's copies first: they land while the live tiles are found
+  stage_rows_sw(Qs, q + b * sq.b + h * sq.h, sq.n, Nq, 16, tid, nt);
+  stage_rows_sw(Gs, g + b * sg.b + h * sg.h, sg.n, Nq, 16, tid, nt);
+  stage_floats(Ms, m_in + (long long)bh * Nq, Nq, 16, tid, nt);   // padded rows: m = inv = 0
+  stage_floats(Is, inv_in + (long long)bh * Nq, Nq, 16, tid, nt);
+  stage_floats(Bs, bias_b, Nk, 16 * kMaxKT, tid, nt);
+  const unsigned mask = live_mask<kMaxKT>(bias_b, Nk);   // alike in every warp
+  const int nl = __popc(mask);
+  const unsigned long long idx = tile_list<kMaxKT>(mask);
+  fetch_tiles(Ks, Vs, kp, vp, sk, sv, idx, 0, nl, Nk, tid, nt);
+  zero_dead(dqp, dkp, dvp, sdq, sdk, sdv, mask, Nq, Nk, tid, nt);   // under the copies
+  cp_async_wait_all();   // (also before leaving: no copy may land after the CTA is gone)
+  if (nl == 0) return;
+  __syncthreads();
+
+  // s, dp and e of the 16 rows against this warp's live tiles j = warp + kKeysWarps jj
+  const int rows[2] = {gr, gr + 8};
+  float e[kKeysTiles][2][4], dp[kKeysTiles][2][4];
+  {
+    uint32_t qf[4][4], gf[4][4];
+    load_a_sw(qf, Qs, 0);
+    load_a_sw(gf, Gs, 0);
+#pragma unroll
+    for (int jj = 0; jj < kKeysTiles; ++jj) {
+      const int j = warp + kKeysWarps * jj;
+      if (j < nl)
+        tile_scores(qf, gf, Ks + 16 * j * kMD, Vs + 16 * j * kMD, Ms, Bs, rows, tile_at(idx, j), Nk,
+                    causal, scale, e[jj], dp[jj]);
+    }
+  }
+  float part[2] = {0.f, 0.f};
+#pragma unroll
+  for (int jj = 0; jj < kKeysTiles; ++jj)
+    if (warp + kKeysWarps * jj < nl)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) part[x >> 1] = fmaf(dp[jj][u][x], e[jj][u][x], part[x >> 1]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    part[r] = quad_sum(part[r]);
+    if (c == 0) Cp[warp * 16 + rows[r]] = part[r];
+  }
+  __syncthreads();   // every warp's c partial is staged and its dp taken: V is free
+  const float inv[2] = {Is[rows[0]], Is[rows[1]]};
+  float cr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kKeysWarps; ++w) sum += Cp[w * 16 + rows[r]];   // warp order
+    cr[r] = sum * inv[r];
+  }
+  // ds, the dq partial ds k, and dk = ds^T q, dv = e^T bf16(g inv) of each tile
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[j][x] = 0.f;
+  uint32_t ds_a[kKeysTiles][4], e_a[kKeysTiles][4];
+#pragma unroll
+  for (int jj = 0; jj < kKeysTiles; ++jj) {
+    const int j = warp + kKeysWarps * jj;
+    if (j >= nl) continue;
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        dp[jj][u][x] = e[jj][u][x] * ((dp[jj][u][x] - cr[x >> 1]) * inv[x >> 1]);
+    pack_a(ds_a[jj], dp[jj][0], dp[jj][1]);
+    pack_a(e_a[jj], e[jj][0], e[jj][1]);
+    mma_pa_sw<false>(acc, ds_a[jj], Ks + 16 * j * kMD, 0, nullptr);
+  }
+  float* dqw = Dq + warp * 16 * kDqPitch;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(dqw + rows[r] * kDqPitch + 8 * j + 2 * c) =
+          make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+#pragma unroll
+  for (int jj = 0; jj < kKeysTiles; ++jj) {
+    const int j = warp + kKeysWarps * jj;
+    if (j >= nl) continue;
+    const int t = tile_at(idx, j);
+    uint32_t at[4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[n][x] = 0.f;
+    transpose_a(at, ds_a[jj]);
+    mma_pa_sw<false>(acc, at, Qs, 0, nullptr);
+    store_rows(dkp, sdk.n, 16 * t, Nk, acc, scale);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[n][x] = 0.f;
+    transpose_a(at, e_a[jj]);
+    mma_pa_sw<true>(acc, at, Gs, 0, Is);
+    store_rows(dvp, sdv.n, 16 * t, Nk, acc, 1.f);
+  }
+  __syncthreads();   // every dq partial is staged
+  // dq = the partials summed in warp order, times scale
+  for (int i = tid; i < 16 * 32; i += nt) {
+    const int row = i >> 5, d = 2 * (i & 31);
+    if (row >= Nq) continue;
+    float2 sum = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kKeysWarps; ++w) {
+      const float2 p = *reinterpret_cast<const float2*>(Dq + (w * 16 + row) * kDqPitch + d);
+      sum.x += p.x;
+      sum.y += p.y;
+    }
+    *reinterpret_cast<uint32_t*>(dqp + row * sdq.n + d) = pack_bf16(sum.x * scale, sum.y * scale);
+  }
+}
+
+// The strips mode's shared memory: q, g [nqp][64] swizzled bf16 and m, inv
+// [nqp] fp32; the key bias [nkp]; a ring of kStripStages strips' K, V
+// [16 kStripTiles][64]; one strip's bf16 e, ds [nqp][kStripPitch].
+__host__ __device__ constexpr long long strips_smem_bytes(int nqp, int nkp) {
+  return nqp * (2LL * kMD * 2 + 8) + 4LL * nkp + kStripStages * 2LL * 16 * kStripTiles * kMD * 2 +
+         2LL * nqp * kStripPitch * 2;
+}
+static_assert(strips_smem_bytes(256, 256) <= kOneCtaSmem, "255 x 255 exceeds a CTA's shared memory");
+// The strips mode's warps for n_qt query tiles: one a tile, 8 or 16.
+__host__ __device__ constexpr int strips_warps(int n_qt) { return n_qt <= 8 ? 8 : kStripWarps; }
+
+__global__ void __launch_bounds__(kStripWarps * 32, 1)
+small_bwd_strips_kernel(SMALL_BWD_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kStage = 2 * 16 * kStripTiles * kMD;   // bf16 of a ring stage: K, then V
+  const int n_qt = (Nq + 15) / 16, nqp = 16 * n_qt;
+  const int nkp = 16 * ((Nk + 15) / 16);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Gs = Qs + nqp * kMD;
+  __nv_bfloat16* Ring = Gs + nqp * kMD;
+  __nv_bfloat16* Es = Ring + kStripStages * kStage;
+  __nv_bfloat16* Ds = Es + nqp * kStripPitch;
+  float* Ms = reinterpret_cast<float*>(Ds + nqp * kStripPitch);
   float* Is = Ms + nqp;
   float* Bs = Is + nqp;
-
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, gr = lane >> 2, c = lane & 3;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  auto stage_strip = [&](int st) {
-    stage_rows(Ks, k + b * sk.b + h * sk.h, sk.n, st * skp, Nk, skp);
-    stage_rows(Vs, v + b * sv.b + h * sv.h, sv.n, st * skp, Nk, skp);
+  const __nv_bfloat16* kp = k + b * sk.b + h * sk.h;
+  const __nv_bfloat16* vp = v + b * sv.b + h * sv.h;
+  __nv_bfloat16* dqp = dq + b * sdq.b + h * sdq.h;
+  __nv_bfloat16* dkp = dk + b * sdk.b + h * sdk.h;
+  __nv_bfloat16* dvp = dv + b * sdv.b + h * sdv.h;
+  const float* bias_b = bias + (long long)b * Nk;
+  // the query side's copies first: they land while the live tiles are found
+  stage_rows_sw(Qs, q + b * sq.b + h * sq.h, sq.n, Nq, nqp, tid, nt);
+  stage_rows_sw(Gs, g + b * sg.b + h * sg.h, sg.n, Nq, nqp, tid, nt);
+  stage_floats(Ms, m_in + (long long)bh * Nq, Nq, nqp, tid, nt);   // padded rows: m = inv = 0
+  stage_floats(Is, inv_in + (long long)bh * Nq, Nq, nqp, tid, nt);
+  stage_floats(Bs, bias_b, Nk, nkp, tid, nt);
+  const unsigned mask = live_mask<kMaxKT>(bias_b, Nk);   // alike in every warp
+  const int nl = __popc(mask);
+  const unsigned long long idx = tile_list<kMaxKT>(mask);
+  if (nl == 0) {
+    cp_async_wait_all();   // no copy may land in shared memory after the CTA is gone
+    zero_dead(dqp, dkp, dvp, sdq, sdk, sdv, mask, Nq, Nk, tid, nt);
+    return;
+  }
+
+  // ring steps: when the live tiles span more than one strip, a c sweep
+  // over the strips (steps 0 .. strips - 1) before the main pass; strip
+  // i % strips at step i, in stage i % kStripStages, its copies
+  // kStripStages - 1 steps ahead (one copy group a step, the first with the
+  // query side's)
+  const int strips = (nl + kStripTiles - 1) / kStripTiles;
+  const bool sweep = strips > 1;
+  const int steps = sweep ? 2 * strips : strips;
+  auto fetch = [&](int i) {
+    if (i < steps) {
+      __nv_bfloat16* Kd = Ring + (i % kStripStages) * kStage;
+      const int j0 = (i % strips) * kStripTiles;
+      fetch_tiles(Kd, Kd + kStage / 2, kp, vp, sk, sv, idx, j0, min(kStripTiles, nl - j0), Nk, tid,
+                  nt);
+    }
+    cp_async_commit();
   };
-  stage_rows(Qs, q + b * sq.b + h * sq.h, sq.n, 0, Nq, nqp);
-  stage_rows(Gs, g + b * sg.b + h * sg.h, sg.n, 0, Nq, nqp);
-  for (int j = threadIdx.x; j < nqp; j += blockDim.x) {
-    const bool ok = j < Nq;   // padded rows: m = inv = 0, so they weigh nothing
-    Ms[j] = ok ? m_in[(long long)bh * Nq + j] : 0.f;
-    Is[j] = ok ? inv_in[(long long)bh * Nq + j] : 0.f;
-  }
-  for (int j = threadIdx.x; j < nkp; j += blockDim.x) Bs[j] = j < Nk ? bias[(long long)b * Nk + j] : 0.f;
-  cp_async_wait_all();
-  __syncthreads();
-  for (int e = threadIdx.x; e < nqp * kMD; e += blockDim.x) {   // g * inv as bf16, read after the next barrier
-    const int r = e / kMD, d = e % kMD;
-    Ns[r * kMP + d] = __float2bfloat16(__bfloat162float(Gs[r * kMP + d]) * Is[r]);
-  }
+  for (int i = 0; i < kStripStages - 1; ++i) fetch(i);
+  zero_dead(dqp, dkp, dvp, sdq, sdk, sdv, mask, Nq, Nk, tid, nt);   // under the copies
 
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gr = lane >> 2;
-  const int c = lane & 3;
-
-  float cr[QPW][2];
+  // the warp's query tile: its q and g A fragments stay in registers
+  const int qt = warp;
+  const bool mine = qt < n_qt;
+  const int rows[2] = {16 * qt + gr, 16 * qt + gr + 8};
+  uint32_t qf[4][4], gf[4][4];
+  float dqa[8][4], cr[2] = {0.f, 0.f}, inv[2] = {0.f, 0.f};
 #pragma unroll
-  for (int s = 0; s < QPW; ++s) cr[s][0] = cr[s][1] = 0.f;
-  // c first, over every strip (a recompute of s and dp)
-  for (int st = 0; st < n_strips; ++st) {
-    __syncthreads();   // the previous strip's reads are done
-    stage_strip(st);
-    cp_async_wait_all();
-    __syncthreads();
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int s = 0; s < QPW; ++s) {
-      const int qt = warp + s * nwarps;
-      if (qt >= n_qt) continue;
-      float e[2 * SKT][4], dp[2 * SKT][4];
-      strip_scores<SKT>(Qs, Gs, Ks, Vs, Ms, Bs, qt, st, KT, Nk, causal, scale, e, dp);
-#pragma unroll
-      for (int j = 0; j < 2 * SKT; ++j)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) cr[s][x >> 1] = fmaf(dp[j][x], e[j][x], cr[s][x >> 1]);
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < QPW; ++s) {
-    const int qt = warp + s * nwarps;
-    if (qt >= n_qt) continue;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) cr[s][r] = quad_sum(cr[s][r]) * Is[16 * qt + gr + 8 * r];
-  }
-
-  float dqa[QPW][8][4];
-#pragma unroll
-  for (int s = 0; s < QPW; ++s)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) dqa[s][j][x] = 0.f;
-
-  for (int st = 0; st < n_strips; ++st) {
-    __syncthreads();   // the previous strip's reads (dq, dk, dv) are done
-    stage_strip(st);
-    cp_async_wait_all();
-    __syncthreads();   // the strip is staged and N complete
-
-    // query side: ds, dq += ds k, and bf16(e), bf16(ds) staged for dk / dv
-#pragma unroll
-    for (int s = 0; s < QPW; ++s) {
-      const int qt = warp + s * nwarps;
-      if (qt >= n_qt) continue;
-      float e[2 * SKT][4], dp[2 * SKT][4];
-      strip_scores<SKT>(Qs, Gs, Ks, Vs, Ms, Bs, qt, st, KT, Nk, causal, scale, e, dp);
-      const float inv[2] = {Is[16 * qt + gr], Is[16 * qt + gr + 8]};
-#pragma unroll
-      for (int j = 0; j < 2 * SKT; ++j)
-#pragma unroll
-        for (int x = 0; x < 4; ++x)
-          dp[j][x] = e[j][x] * ((dp[j][x] - cr[s][x >> 1]) * inv[x >> 1]);   // ds
-#pragma unroll
-      for (int t = 0; t < SKT; ++t)
-        if (st * SKT + t < KT) mma_nn16(dqa[s], dp[2 * t], dp[2 * t + 1], Ks, 16 * t);
-#pragma unroll
-      for (int j = 0; j < 2 * SKT; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int off = (16 * qt + gr + 8 * r) * ep + 8 * j + 2 * c;
-          *reinterpret_cast<uint32_t*>(Es + off) = pack_bf16(e[j][2 * r], e[j][2 * r + 1]);
-          *reinterpret_cast<uint32_t*>(Ds + off) = pack_bf16(dp[j][2 * r], dp[j][2 * r + 1]);
-        }
-    }
-    __syncthreads();   // e and ds of every query row of the strip are staged
-
-    // key side: each warp owns 16 keys of the strip; dk, dv over all rows
-    for (int jj = warp; jj < SKT; jj += nwarps) {
-      const int kt = st * SKT + jj;
-      if (kt >= KT) continue;
-      float dka[8][4], dva[8][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) dka[j][x] = dva[j][x] = 0.f;
-      for (int qs = 0; qs < n_qt; ++qs) {
-        mma_tn16(dka, Ds, ep, 16 * jj, 16 * qs, Qs);
-        mma_tn16(dva, Es, ep, 16 * jj, 16 * qs, Ns);
+    for (int x = 0; x < 4; ++x) dqa[j][x] = 0.f;
+  const int nwarps = nt >> 5;
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<kStripStages - 2>();   // this thread's copies of strip i
+    __syncthreads();   // strip i has landed; every warp is done with step i - 1
+    fetch(i + kStripStages - 1);   // into the stage step i - 1 read
+    if (i == 0) {
+      if (mine) {
+        load_a_sw(qf, Qs, 16 * qt);
+        load_a_sw(gf, Gs, 16 * qt);
+        inv[0] = Is[rows[0]];
+        inv[1] = Is[rows[1]];
       }
-      store_rows(dk + b * sdk.b + h * sdk.h, sdk.n, 16 * kt, Nk, dka, scale);
-      store_rows(dv + b * sdv.b + h * sdv.h, sdv.n, 16 * kt, Nk, dva, 1.f);
+      __syncthreads();   // every warp holds its g fragments: g becomes bf16(g inv) in place
+      for (int e = tid; e < nqp * 8; e += nt) {   // dv's B operand, rounded as the product reads it
+        const int r = e >> 3;
+        uint4* p = reinterpret_cast<uint4*>(Gs + r * kMD) + (e & 7);
+        uint4 w = *p;
+        const float f = Is[r];
+        w.x = scale_pair(w.x, f, f);
+        w.y = scale_pair(w.y, f, f);
+        w.z = scale_pair(w.z, f, f);
+        w.w = scale_pair(w.w, f, f);
+        *p = w;
+      }
+    }
+    const int j0 = (i % strips) * kStripTiles, ns = min(kStripTiles, nl - j0);
+    const __nv_bfloat16* Kb = Ring + (i % kStripStages) * kStage;
+    const __nv_bfloat16* Vb = Kb + kStage / 2;
+    const bool main_pass = !sweep || i >= strips;
+    if (mine) {
+      if (sweep && i == strips)   // the sweep is done: c of the tile's rows
+#pragma unroll
+        for (int r = 0; r < 2; ++r) cr[r] = quad_sum(cr[r]) * inv[r];
+      // e and dp of the strip's tiles the rows see; kDs: ds, dq and the
+      // staged e, ds from them; else their sum e dp (the sweep's, or one
+      // strip's c before its ds)
+      auto strip_pass = [&](auto kDs, float part[2]) {
+#pragma unroll
+        for (int jj = 0; jj < kStripTiles; ++jj) {
+          const int t = jj < ns ? tile_at(idx, j0 + jj) : 0;
+          if (jj >= ns || (causal && 16 * qt + 15 < 16 * t)) continue;   // no row sees these keys
+          float e[2][4], dp[2][4];
+          tile_scores(qf, gf, Kb + 16 * jj * kMD, Vb + 16 * jj * kMD, Ms, Bs, rows, t, Nk, causal,
+                      scale, e, dp);
+          if constexpr (!decltype(kDs)::value) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+              for (int x = 0; x < 4; ++x) part[x >> 1] = fmaf(dp[u][x], e[u][x], part[x >> 1]);
+          } else {
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+#pragma unroll
+              for (int x = 0; x < 4; ++x)
+                dp[u][x] = e[u][x] * ((dp[u][x] - cr[x >> 1]) * inv[x >> 1]);
+            uint32_t da[4], ea[4];
+            pack_a(da, dp[0], dp[1]);
+            pack_a(ea, e[0], e[1]);
+            mma_pa_sw<false>(dqa, da, Kb + 16 * jj * kMD, 0, nullptr);
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {   // A fragment x: row + 8 (x & 1), key + 8 (x >> 1)
+              const int off = rows[x & 1] * kStripPitch + 16 * jj + 8 * (x >> 1) + 2 * c;
+              *reinterpret_cast<uint32_t*>(Es + off) = ea[x];
+              *reinterpret_cast<uint32_t*>(Ds + off) = da[x];
+            }
+          }
+        }
+      };
+      if (!main_pass) {
+        strip_pass(std::false_type{}, cr);
+      } else {
+        if (!sweep) {   // one strip: its c first, from the staged strip
+          float part[2] = {0.f, 0.f};
+          strip_pass(std::false_type{}, part);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) cr[r] = quad_sum(part[r]) * inv[r];
+        }
+        strip_pass(std::true_type{}, nullptr);
+      }
+    }
+    if (!main_pass) continue;
+    __syncthreads();   // the strip's e and ds are staged
+    // key side: dk = ds^T q or dv = e^T bf16(g inv) (staged in place of g) of strip tile
+    // ij, dims 32 hf .., over every query tile
+    for (int item = warp; item < kStripItems; item += nwarps) {
+      const int ij = (item >> 1) & 3, hf = item & 1;   // strip tile, half of the dims
+      const bool item_dk = item >= kStripItems / 2;
+      if (ij >= ns) continue;
+      const int t = tile_at(idx, j0 + ij);
+      float acc[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[j][x] = 0.f;
+      const __nv_bfloat16* S = (item_dk ? Ds : Es) + 16 * ij;
+      for (int qs = 0; qs < n_qt; ++qs) {
+        if (causal && 16 * qs + 15 < 16 * t) continue;
+        uint32_t a[4];   // the A fragment of ds^T or e^T (keys x rows)
+        ldsm_x4_t(a, S + (16 * qs + (lane & 7) + 8 * (lane >> 4)) * kStripPitch + 8 * ((lane >> 3) & 1));
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          mma_pa_sw_n16<false>(acc[2 * u], acc[2 * u + 1], a, item_dk ? Qs : Gs, 16 * qs, nullptr,
+                               2 * hf + u);
+      }
+      if (item_dk)
+        store_cols<4>(dkp, sdk.n, 16 * t, Nk, 32 * hf, acc, scale);
+      else
+        store_cols<4>(dvp, sdv.n, 16 * t, Nk, 32 * hf, acc, 1.f);
     }
   }
-
-#pragma unroll
-  for (int s = 0; s < QPW; ++s) {
-    const int qt = warp + s * nwarps;
-    if (qt < n_qt) store_rows(dq + b * sdq.b + h * sdq.h, sdq.n, 16 * qt, Nq, dqa[s], scale);
-  }
+  if (mine) store_rows(dqp, sdq.n, 16 * qt, Nq, dqa, scale);
 }
 
 template <typename T, int DP>
@@ -1157,13 +1436,9 @@ inline int bwd_gate(int dtype, const void* const ops[7], const long long* stride
   return ok ? (dtype == 0 ? kRouteTf32x3 : kRouteMmaBf16) : kRouteCudaCores;
 }
 
-inline long long bwd_pair_smem(int nqp, int nkp, int skt) {
-  return (long long)(3 * nqp + 2 * 16 * skt) * kMP * 2 + 2LL * nqp * (16 * skt + 8) * 2 +
-         (2LL * nqp + nkp) * 4;
-}
-
 // The bf16 Dh = 64 kernel of a shape: a warp a pair (rows), a CTA a pair
-// at a time (tiles) or key strips of 32 (strips). The one place this rule
+// at a time (tiles) or a CTA a pair over its live key tiles (strips: the
+// keys mode at Nq <= 16, else strips of one tile). The one place this rule
 // lives: flash_small_bwd_route exports it.
 enum BwdRoute { kRouteRows = 0, kRouteTiles = 1, kRouteStrips = 2 };
 inline int bwd_route(int Nq, int Nk) {
@@ -1214,13 +1489,17 @@ inline int launch_bwd_mma(const void* q, const void* k, const void* v, const flo
 #undef SMALL_BWD_TILES
     }
   }
-  // key strips of 32, a CTA a pair
-  const int qpw = (n_qt + kMaxWarps - 1) / kMaxWarps;
-  const size_t smem = (size_t)bwd_pair_smem(16 * n_qt, 16 * KT, kMultiStripKT);
-  auto kernel = qpw == 1 ? small_bwd_mma_kernel<kMultiStripKT, 1> : small_bwd_mma_kernel<kMultiStripKT, 2>;
-  cudaError_t err = prepare(kernel, smem, device);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)BH, 32 * kMaxWarps, smem, stream>>>(SMALL_BWD_ARGS);
+  // the live key tiles, a CTA a pair: split over 4 warps (Nq <= 16) or in strips of one
+  if (n_qt == 1) {
+    cudaError_t err = prepare(small_bwd_keys_kernel, (size_t)kKeysSmem, device);
+    if (err != cudaSuccess) return (int)err;
+    small_bwd_keys_kernel<<<(unsigned)BH, 32 * kKeysWarps, (size_t)kKeysSmem, stream>>>(SMALL_BWD_ARGS);
+  } else {
+    const size_t smem = (size_t)strips_smem_bytes(16 * n_qt, 16 * KT);
+    cudaError_t err = prepare(small_bwd_strips_kernel, smem, device);
+    if (err != cudaSuccess) return (int)err;
+    small_bwd_strips_kernel<<<(unsigned)BH, 32 * strips_warps(n_qt), smem, stream>>>(SMALL_BWD_ARGS);
+  }
 #undef SMALL_BWD_ARGS
   return (int)cudaGetLastError();
 }
@@ -1320,9 +1599,31 @@ void flash_small_bwd_tf32_plan(int device, long long* out) {
 }
 
 // The bf16 Dh = 64 kernel that takes an (Nq, Nk) shape of aligned operands:
-// 0 = small_bwd_rows_kernel, 1 = small_bwd_tiles_kernel, 2 =
-// small_bwd_mma_kernel (key strips).
+// 0 = small_bwd_rows_kernel, 1 = small_bwd_tiles_kernel, 2 = the strips
+// route (small_bwd_keys_kernel at Nq <= 16, else small_bwd_strips_kernel).
 int flash_small_bwd_route(int Nq, int Nk) { return flash::small::bwd_route(Nq, Nk); }
+
+// The strips route's launch at (Nq, Nk) on ``device``: out[0] warps a CTA,
+// out[1] shared memory a CTA in bytes, out[2] CTAs an SM (0 on an error),
+// out[3] 1 for the keys mode; all -1 when the shape takes another route.
+void flash_small_bwd_strips_plan(int Nq, int Nk, int device, long long* out) {
+  using namespace flash;
+  using namespace flash::small;
+  for (int i = 0; i < 4; ++i) out[i] = -1;
+  if (Nq < 1 || Nk < 1 || Nq > kMaxLen || Nk > kMaxLen || bwd_route(Nq, Nk) != kRouteStrips) return;
+  const bool keys = Nq <= 16;
+  const int warps = keys ? kKeysWarps : strips_warps((Nq + 15) / 16);
+  const long long smem = keys ? kKeysSmem : strips_smem_bytes(16 * ((Nq + 15) / 16), 16 * ((Nk + 15) / 16));
+  int per_sm = 0;
+  if (use_device(device) == cudaSuccess) {
+    if (keys && prepare(small_bwd_keys_kernel, (size_t)smem, device) == cudaSuccess)
+      per_sm = blocks_per_sm(small_bwd_keys_kernel, 32 * warps, (size_t)smem, device);
+    if (!keys && prepare(small_bwd_strips_kernel, (size_t)smem, device) == cudaSuccess)
+      per_sm = blocks_per_sm(small_bwd_strips_kernel, 32 * warps, (size_t)smem, device);
+  }
+  const long long vals[4] = {warps, smem, per_sm, keys ? 1 : 0};
+  for (int i = 0; i < 4; ++i) out[i] = vals[i];
+}
 
 const char* flash_small_bwd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

@@ -35,6 +35,16 @@ aligned rows they run on the tensor cores (``small_route`` restates the
 libraries' gates; each short wrapper counts its launches by route in
 ``route_launches``): bf16 on mma.sync, fp32 (every shipped decoder config)
 as three TF32 mma.sync products a product over the live key tiles only.
+The bf16 backward is one of three kernels (``small_bwd_route``; its
+launches by kernel in ``bf16_launches``): a warp a pair at Nq <= 16 and Nk
+<= 96, a CTA a pair at a time up to 96 keys, and the strips route for Nk >
+96 or Nq > 208 (ML-32M's short bucket), which copies and computes only the
+live key tiles, a CTA a pair: four warps split the live tiles at Nq <= 16,
+else a warp a query tile takes strips of four live tiles through a
+cp.async ring. Its bytes (0.115 ms at 241 x 241, B = 256, H = 8,
+on an H100) are not what bounds it: every mma.sync product reads its
+fragments from shared memory, so the design reads each operand there as
+few times as its registers allow.
 The TPU short kernel computes the flat kernel's algebra bit for bit, so its twins
 ``flash_attention_small_plain`` / ``flash_attention_small_bwd_plain`` are the
 flat twins' arithmetic.
@@ -366,6 +376,8 @@ def _bias_bwd(wrapper, q, k, v, g, m, inv, bias, causal):
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, g, dq, dk, dv), b, h, nq,
             nk, dh, int(causal), 1.0 / math.sqrt(dh), _device_index(q),
             torch.cuda.current_stream(dev).cuda_stream, route=route)
+    if wrapper is flash_attention_small_bwd and route == "mma_bf16":
+        wrapper.bf16_launches[small_bwd_route(nq, nk)] += 1
     return dq, dk, dv
 
 
@@ -446,6 +458,8 @@ SMALL_MAX_LEN = 255   # attend's short route sends Nq, Nk < 256
 # mma.sync (Dh = 64). Each short wrapper counts its launches by route in
 # ``route_launches``.
 SMALL_ROUTES = ("cuda_cores", "mma_bf16", "tf32x3")
+# The bf16 Dh = 64 backward kernels (``small_bwd_route``)
+SMALL_BWD_ROUTES = ("rows", "tiles", "strips")
 
 
 # The TPU short kernel computes the flat kernel's algebra bit for bit (one
@@ -493,16 +507,39 @@ def flash_attention_small_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_small_bwd.launches = 0
 flash_attention_small_bwd.route_launches = dict.fromkeys(SMALL_ROUTES, 0)
+# the bf16 launches (route "mma_bf16") by kernel: a warp a pair, a CTA a
+# pair at a time, the strips route (``small_bwd_route``)
+flash_attention_small_bwd.bf16_launches = dict.fromkeys(SMALL_BWD_ROUTES, 0)
 
-SMALL_BWD_ROUTES = ("rows", "tiles", "strips")
+
+SMALL_ONE_CTA_SMEM = 232448   # the shared memory a CTA may take (csrc/flash_attention_small.cuh)
+
+
+def small_bwd_strips_smem(nq: int, nk: int) -> int:
+    """Shared memory a CTA of the bf16 strips route takes at (Nq, Nk),
+    restated from ``csrc/flash_attention_small_bwd.cu`` (``kKeysSmem``,
+    ``strips_smem_bytes``): at Nq <= 16 the keys mode's one size (q, g
+    [16][64] and K, V for all 16 key tiles in bf16; m, inv, four warps' c
+    partials and the key bias in fp32), else the strips mode's q, g [nqp][64]
+    bf16 and m, inv fp32, the key bias, a three-stage ring of four live
+    tiles' K and V, and one strip's bf16 e and ds [nqp][72].
+    ``chip_smoke.py`` holds it against the library's
+    ``small_bwd_strips_plan``."""
+    nqp, nkp = 16 * -(-nq // 16), 16 * -(-nk // 16)
+    if nqp == 16:
+        return (2 * 16 + 2 * 16 * 16) * 64 * 2 + (2 + 4 + 16) * 16 * 4
+    return nqp * (2 * 64 * 2 + 8) + 4 * nkp + 3 * 2 * 4 * 16 * 64 * 2 + 2 * nqp * 72 * 2
 
 
 def small_bwd_route(nq: int, nk: int) -> str:
     """The bf16 Dh = 64 kernel of ``csrc/flash_attention_small_bwd.cu`` that
     takes an (Nq, Nk) shape (``SMALL_BWD_ROUTES``: a warp a pair, a CTA a
-    pair at a time, key strips), restated from its dispatcher (``bwd_route``)
-    for the CPU emulation of that kernel's arithmetic. ``chip_smoke.py``
-    holds it against the library's own answer, ``small_bwd_kernel_route``."""
+    pair at a time, a CTA a pair over its live key tiles), restated from
+    its dispatcher (``bwd_route``) for the CPU emulation of that kernel's
+    arithmetic. ``chip_smoke.py`` holds it against the library's own answer,
+    ``small_bwd_kernel_route``. The strips route takes every Nk > 96 and
+    the Nk <= 96 shapes whose tiles-kernel stage exceeds a CTA's shared
+    memory (Nq > 208)."""
     nqp, nkp = 16 * -(-nq // 16), 16 * -(-nk // 16)
     if nkp > 96:
         return "strips"
@@ -510,7 +547,7 @@ def small_bwd_route(nq: int, nk: int) -> str:
         return "rows"
     # two query sides (q, g, m, inv), one key side (k, v, key bias), bf16 e and ds
     smem = 2 * nqp * (4 * 64 + 8) + nkp * (4 * 64 + 4) + 2 * nqp * (nkp + 8) * 2
-    return "tiles" if smem <= 232448 else "strips"
+    return "tiles" if smem <= SMALL_ONE_CTA_SMEM else "strips"
 
 
 def small_bwd_kernel_route(nq: int, nk: int) -> str:
@@ -589,6 +626,19 @@ def small_bwd_tf32_plan(device: int = 0) -> dict:
     out = (ctypes.c_longlong * 3)()
     fn(device, out)
     return dict(zip(("warps", "smem_bytes", "ctas_per_sm"), out))
+
+
+def small_bwd_strips_plan(nq: int, nk: int, device: int = 0) -> dict:
+    """The bf16 strips route's launch at (Nq, Nk), as the kernel library
+    plans it (built at first use): warps and shared memory a CTA, CTAs an
+    SM, and whether it is the keys mode (Nq <= 16); -1 everywhere for a
+    shape on another route."""
+    fn = _c_function(flash_attention_small_bwd, "strips_plan")
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [_I, _I, _I, _P], None
+    out = (ctypes.c_longlong * 4)()
+    fn(nq, nk, device, out)
+    return dict(zip(("warps", "smem_bytes", "ctas_per_sm", "keys_mode"), out))
 
 
 def small_fwd_plan(bh: int, nq: int, nk: int, device: int = 0) -> dict:

@@ -150,6 +150,7 @@ ROUTES = [  # (nq, nk, dh, switch, spans, expected route)
     (81, 81, 32, "1", False, "dense"), (257, 257, 64, "1", False, "flash"),
     (81, 81, 64, None, False, "dense"), (81, 81, 64, "0", False, "dense"),
     (81, 81, 64, "1", True, "dense"), (257, 257, 64, "1", True, "spans"),
+    (5, 120, 64, "1", False, "small"), (120, 120, 64, "1", False, "small"),   # long keys
 ]
 
 
