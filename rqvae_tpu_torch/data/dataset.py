@@ -24,6 +24,7 @@ import torch
 
 from rqvae_tpu_torch import native
 from rqvae_tpu_torch.data.schemas import SeqBatch
+from rqvae_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -92,8 +93,9 @@ class SeqDataset:
                      subsample: bool = False) -> dict:
         """``batch_size`` users drawn uniformly; random crops when
         ``subsample``."""
-        idx = rng.integers(0, len(self), size=(batch_size,))
-        return self.batch_at(idx, rng if subsample else None)
+        with profiling.span("data.sample"):
+            idx = rng.integers(0, len(self), size=(batch_size,))
+            return self._batch_at(idx, rng if subsample else None)
 
     def batch_at(self, idx: np.ndarray, rng: Optional[np.random.Generator] = None) -> dict:
         """A fixed-shape batch of the rows ``idx``: ``user_ids`` (B,),
@@ -101,6 +103,10 @@ class SeqDataset:
         each row is a random crop (the native batcher's, or the Python
         path's under ``RQVAE_TPU_DISABLE_NATIVE=1``); without, the last
         max_seq_len items."""
+        with profiling.span("data.sample"):
+            return self._batch_at(idx, rng)
+
+    def _batch_at(self, idx: np.ndarray, rng: Optional[np.random.Generator]) -> dict:
         user_ids = self.user_ids[idx]
         if rng is not None and native.enabled():
             ids, fut = native.subsample_batch(self.item_ids, self.item_ids_fut, np.asarray(idx),
@@ -131,24 +137,34 @@ def make_seq_batch(batch: dict, item_x: np.ndarray, *, with_features: bool = Tru
     arrays: item features gathered on the host, -1 at pads.
     ``with_features=False`` carries (.., 1) zero placeholders instead: decoder
     training reads only the ids (its tokenization is a cached-id lookup)."""
+    with profiling.span("data.batch"):
+        return _make_seq_batch(batch, item_x, with_features)
+
+
+def _make_seq_batch(batch: dict, item_x: np.ndarray, with_features: bool) -> SeqBatch:
     ids = batch["ids"]
     ids_fut = batch["ids_fut"]
+    seq_mask = ids >= 0
+    if profiling.enabled():
+        profiling.count("data.item_slots", ids.size)
+        profiling.count("data.valid_items", int(seq_mask.sum()))
     if with_features:
         x = item_x[np.maximum(ids, 0)]
-        x = np.where((ids >= 0)[..., None], x, -1.0).astype(np.float32)
+        x = np.where(seq_mask[..., None], x, -1.0).astype(np.float32)
         x_fut = item_x[np.maximum(ids_fut, 0)]
         x_fut = np.where((ids_fut >= 0)[..., None], x_fut, -1.0).astype(np.float32)
     else:
         x = np.zeros(ids.shape + (1,), np.float32)
         x_fut = np.zeros(ids_fut.shape + (1,), np.float32)
     return SeqBatch(user_ids=batch["user_ids"], ids=ids, ids_fut=ids_fut, x=x, x_fut=x_fut,
-                    seq_mask=ids >= 0)
+                    seq_mask=seq_mask)
 
 
 def to_device(batch, device):
     """A batch of numpy arrays (a ``SeqBatch`` or a packed batch) as the
     same NamedTuple of tensors on ``device``."""
-    return type(batch)(*(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in batch))
+    with profiling.span("data.to_device"):
+        return type(batch)(*(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in batch))
 
 
 def load_item_dataset(path: str) -> ItemDataset:

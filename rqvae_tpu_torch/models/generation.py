@@ -28,6 +28,7 @@ from rqvae_tpu_torch.data.schemas import TokenizedSeqBatch
 from rqvae_tpu_torch.models import retrieval
 from rqvae_tpu_torch.models.retrieval import RetrievalConfig
 from rqvae_tpu_torch.tokenizer import semids
+from rqvae_tpu_torch.utils import profiling
 from rqvae_tpu_torch.utils.tree import tree_map
 
 INVALID_PENALTY = -10000.0
@@ -72,47 +73,52 @@ def generate_next_sem_ids(params, cfg: RetrievalConfig, index: semids.CorpusInde
             u = u.to(logp.device)
         return _gumbel_topk_mask(logp, n_candidates, u)
 
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("search"):
         # ---- step 0: encoder once, cross K/V cached, BOS decoded ----
-        bos_batch = batch._replace(sem_ids_fut=None, token_type_ids_fut=None)
-        cache = retrieval.encode_for_generation(params, cfg, bos_batch)
-        logits, self_kv = retrieval.decode_token_cached(params, cfg, cache, None, None, 0,
-                                                        beams=1, n_rows=b)
-        logp = torch.log_softmax(logits.float() / temperature, dim=-1)      # (B, K)
-        dev = logp.device
-        allowed = semids.children_mask(
-            index, torch.zeros((1, 0), dtype=torch.int32, device=dev))       # (1, K)
-        if not exhaustive:
-            allowed = sample_mask(0, logp) & allowed
-        scores = torch.where(allowed, 0.0, INVALID_PENALTY) + logp
-        log_probas, top_idx = torch.topk(scores, k, dim=-1)                 # (B, k)
-        generated = top_idx.to(torch.int32)[..., None]                      # (B, k, 1)
-        # every beam of a row starts from the same BOS self-attention cache
-        self_kv = tree_map(
-            lambda c: c[:, None].expand(b, k, *c.shape[1:]).reshape(b * k, *c.shape[1:]),
-            self_kv,
-        )
+        with profiling.span("search.encode"):
+            bos_batch = batch._replace(sem_ids_fut=None, token_type_ids_fut=None)
+            cache = retrieval.encode_for_generation(params, cfg, bos_batch)
+        with profiling.span("search.level", level=0):
+            logits, self_kv = retrieval.decode_token_cached(params, cfg, cache, None, None, 0,
+                                                            beams=1, n_rows=b)
+            logp = torch.log_softmax(logits.float() / temperature, dim=-1)      # (B, K)
+            dev = logp.device
+            with profiling.span("search.children_mask"):
+                allowed = semids.children_mask(
+                    index, torch.zeros((1, 0), dtype=torch.int32, device=dev))   # (1, K)
+            if not exhaustive:
+                allowed = sample_mask(0, logp) & allowed
+            scores = torch.where(allowed, 0.0, INVALID_PENALTY) + logp
+            log_probas, top_idx = torch.topk(scores, k, dim=-1)                 # (B, k)
+            generated = top_idx.to(torch.int32)[..., None]                      # (B, k, 1)
+            # every beam of a row starts from the same BOS self-attention cache
+            self_kv = tree_map(
+                lambda c: c[:, None].expand(b, k, *c.shape[1:]).reshape(b * k, *c.shape[1:]),
+                self_kv,
+            )
         rows = torch.arange(b, device=dev)[:, None]
 
         # ---- steps 1..D-1: one new token per beam, KV cache reordered ----
         for i in range(1, d):
-            fut = generated.reshape(b * k, i)
-            logits, self_kv = retrieval.decode_token_cached(
-                params, cfg, cache, self_kv, fut[:, -1], i - 1, beams=k, n_rows=b * k)
-            logp = torch.log_softmax(logits.float() / temperature, dim=-1)  # (B*k, K)
-            mask = semids.children_mask(index, fut)                         # (B*k, K)
-            if not exhaustive:
-                mask = mask & sample_mask(i, logp)
-            scores = (torch.where(mask, 0.0, INVALID_PENALTY) + logp
-                      + log_probas.reshape(b * k, 1)).reshape(b, k * n_vocab)
-            log_probas, top_idx = torch.topk(scores, k, dim=-1)            # (B, k)
-            parent = torch.clamp(top_idx // n_vocab, 0, k - 1)
-            winner = (top_idx % n_vocab).to(torch.int32)
-            generated = torch.cat([generated[rows, parent], winner[..., None]], dim=-1)
-            if i < d - 1:
-                # each surviving beam inherits its parent's self-attention cache
-                self_kv = tree_map(
-                    lambda c: c.reshape(b, k, *c.shape[1:])[rows, parent].reshape(c.shape),
-                    self_kv,
-                )
+            with profiling.span("search.level", level=i):
+                fut = generated.reshape(b * k, i)
+                logits, self_kv = retrieval.decode_token_cached(
+                    params, cfg, cache, self_kv, fut[:, -1], i - 1, beams=k, n_rows=b * k)
+                logp = torch.log_softmax(logits.float() / temperature, dim=-1)  # (B*k, K)
+                with profiling.span("search.children_mask"):
+                    mask = semids.children_mask(index, fut)                     # (B*k, K)
+                if not exhaustive:
+                    mask = mask & sample_mask(i, logp)
+                scores = (torch.where(mask, 0.0, INVALID_PENALTY) + logp
+                          + log_probas.reshape(b * k, 1)).reshape(b, k * n_vocab)
+                log_probas, top_idx = torch.topk(scores, k, dim=-1)            # (B, k)
+                parent = torch.clamp(top_idx // n_vocab, 0, k - 1)
+                winner = (top_idx % n_vocab).to(torch.int32)
+                generated = torch.cat([generated[rows, parent], winner[..., None]], dim=-1)
+                if i < d - 1:
+                    # each surviving beam inherits its parent's self-attention cache
+                    self_kv = tree_map(
+                        lambda c: c.reshape(b, k, *c.shape[1:])[rows, parent].reshape(c.shape),
+                        self_kv,
+                    )
     return GenerationOutput(sem_ids=generated, log_probas=log_probas)

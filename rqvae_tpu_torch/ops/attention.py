@@ -58,6 +58,7 @@ import torch
 from rqvae_tpu_torch.ops import dispatch
 from rqvae_tpu_torch.ops.flash_attention import (
     MAX_DH,
+    attention_span,
     flash_attention,
     flash_attention_plain,
     flash_attention_small,
@@ -66,6 +67,7 @@ from rqvae_tpu_torch.ops.flash_attention import (
     flash_attention_spans_plain,
     span_mask,
 )
+from rqvae_tpu_torch.utils import profiling
 
 NEG_INF = -1e30
 FLASH_MIN_LEN = 256   # the JAX package's cut (Nq and Nk), with Dh >= 64
@@ -106,35 +108,52 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
+def route(q: torch.Tensor, k: torch.Tensor, *, causal: bool = False,
+          k_mask: Optional[torch.Tensor] = None, q_spans: Optional[tuple] = None) -> str:
+    """The family of kernels ``attend`` takes for these operands: ``spans``,
+    ``small``, ``flat`` or ``sdpa`` (the module docstring's rules)."""
+    kernel_dh = FLASH_MIN_DH <= q.shape[-1] <= FLASH_MAX_DH and dispatch.kernels_enabled()
+    big = q.shape[1] >= FLASH_MIN_LEN and k.shape[1] >= FLASH_MIN_LEN and kernel_dh
+    if q_spans is not None:
+        return "spans" if big and not causal and k_mask is None else "sdpa"
+    if (q.shape[1] < FLASH_MIN_LEN and k.shape[1] < FLASH_MIN_LEN and kernel_dh
+            and os.environ.get(SHORT_FLASH_ENV, "0") == "1"):
+        return "small"
+    return "flat" if big else "sdpa"
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False,
            k_mask: Optional[torch.Tensor] = None,
            q_spans: Optional[tuple] = None) -> torch.Tensor:
     """Structured-mask attention entry point used by the transformer.
     ``k_mask`` (B, Nk) bool, True = attend; ``q_spans`` (lo, hi, extra),
-    each (B, Nq) int. Routes as the module docstring says; a head wider than
-    ``FLASH_MAX_DH``, or any head with the kernel switch off, takes the dense
-    ``sdpa``."""
-    kernel_dh = FLASH_MIN_DH <= q.shape[-1] <= FLASH_MAX_DH and dispatch.kernels_enabled()
-    big = q.shape[1] >= FLASH_MIN_LEN and k.shape[1] >= FLASH_MIN_LEN and kernel_dh
+    each (B, Nq) int. Routes as the module docstring says (``route``); a
+    head wider than ``FLASH_MAX_DH``, or any head with the kernel switch
+    off, takes the dense ``sdpa``. Recorded as an ``attn.fwd`` span when
+    ``utils/profiling`` records."""
+    family = route(q, k, causal=causal, k_mask=k_mask, q_spans=q_spans)
+    if not profiling.enabled():
+        return _attend(family, q, k, v, causal, k_mask, q_spans)
+    b, nq, h, dh = q.shape
+    with attention_span("attn.fwd", family, b, h, nq, k.shape[1], dh, q.dtype, causal):
+        return _attend(family, q, k, v, causal, k_mask, q_spans)
+
+
+def _attend(family: str, q, k, v, causal: bool, k_mask, q_spans) -> torch.Tensor:
     on_card = q.device.type == "cuda"
-    if q_spans is not None:
-        if big and not causal and k_mask is None:
-            fn = flash_attention_spans if on_card else flash_attention_spans_plain
-            return fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                      *q_spans).transpose(1, 2)
-        mask = build_mask(q.shape[1], k.shape[1], causal=causal, k_mask=k_mask,
-                          q_spans=q_spans, device=q.device)
-        return sdpa(q, k, v, mask)
-    short = (q.shape[1] < FLASH_MIN_LEN and k.shape[1] < FLASH_MIN_LEN and kernel_dh
-             and os.environ.get(SHORT_FLASH_ENV, "0") == "1")
-    if short or big:
+    if family == "spans":
+        fn = flash_attention_spans if on_card else flash_attention_spans_plain
+        return fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  *q_spans).transpose(1, 2)
+    if family in ("small", "flat"):
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        if short:
+        if family == "small":
             fn = flash_attention_small if on_card else flash_attention_small_plain
         else:
             fn = flash_attention if on_card else flash_attention_plain
         return fn(qh, kh, vh, k_mask=k_mask, causal=causal).transpose(1, 2)
-    mask = build_mask(q.shape[1], k.shape[1], causal=causal, k_mask=k_mask, device=q.device)
+    mask = build_mask(q.shape[1], k.shape[1], causal=causal, k_mask=k_mask,
+                      q_spans=q_spans, device=q.device)
     return sdpa(q, k, v, mask)
 
 

@@ -95,6 +95,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from rqvae_tpu_torch.utils import profiling
+
 NEG_INF = -1e30
 MAX_DH = 128   # the widest head the CUDA kernels stage (csrc/flash_attention_common.cuh: dp_for)
 
@@ -411,6 +413,14 @@ flash_attention_bwd.launches = 0
 flash_attention_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
+def attention_span(name: str, family: str, b: int, h: int, nq: int, nk: int, dh: int,
+                   dtype: torch.dtype, causal: bool):
+    """The ``utils/profiling`` span of one attention call (``attn.fwd`` /
+    ``attn.bwd``) with its route family and shapes."""
+    return profiling.span(name, family=family, B=b, H=h, Nq=nq, Nk=nk, Dh=dh,
+                          dtype=str(dtype).removeprefix("torch."), causal=bool(causal))
+
+
 class _FlashAttention(torch.autograd.Function):
     """flash_attention (``small`` False) or flash_attention_small (True):
     the same function and saved statistics, other kernels. The operands are
@@ -429,10 +439,13 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, m, inv = ctx.saved_tensors
-        if g.stride(-1) != 1:
-            g = g.contiguous()  # autograd may hand over any layout; one copy then
-        bwd = flash_attention_small_bwd if ctx.small else flash_attention_bwd
-        dq, dk, dv = _bias_bwd(bwd, q, k, v, g, m, inv, bias, ctx.causal)
+        with (attention_span("attn.bwd", "small" if ctx.small else "flat", *q.shape[:3],
+                             k.shape[2], q.shape[3], q.dtype, ctx.causal)
+              if profiling.enabled() else profiling.OFF):
+            if g.stride(-1) != 1:
+                g = g.contiguous()  # autograd may hand over any layout; one copy then
+            bwd = flash_attention_small_bwd if ctx.small else flash_attention_bwd
+            dq, dk, dv = _bias_bwd(bwd, q, k, v, g, m, inv, bias, ctx.causal)
         return dq, dk, dv, None, None, None
 
 
@@ -779,9 +792,11 @@ class _FlashAttentionSpans(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, lo, hi, extra, m, inv = ctx.saved_tensors
-        if g.stride(-1) != 1:
-            g = g.contiguous()  # autograd may hand over any layout; one copy then
-        dq, dk, dv = flash_attention_spans_bwd(q, k, v, lo, hi, extra, g, m, inv)
+        with (attention_span("attn.bwd", "spans", *q.shape[:3], k.shape[2], q.shape[3], q.dtype,
+                             False) if profiling.enabled() else profiling.OFF):
+            if g.stride(-1) != 1:
+                g = g.contiguous()  # autograd may hand over any layout; one copy then
+            dq, dk, dv = flash_attention_spans_bwd(q, k, v, lo, hi, extra, g, m, inv)
         return dq, dk, dv, None, None, None
 
 

@@ -56,6 +56,7 @@ import torch
 import torch.distributed as dist
 
 from rqvae_tpu_torch.ops import dispatch
+from rqvae_tpu_torch.utils import profiling
 from rqvae_tpu_torch.utils.device import resolve_device
 from rqvae_tpu_torch.utils.tree import tree_leaves_with_path, tree_map, tree_unflatten
 
@@ -228,12 +229,15 @@ def all_reduce_(tensors: List[torch.Tensor], op: str = "mean") -> List[torch.Ten
     if not tensors or not data_parallel():
         return tensors
     mesh = _registered()
-    flat = _flat(tensors)
-    _count()
-    dist.all_reduce(flat, group=mesh.data_group)
-    if op == "mean":
-        flat.div_(mesh.data)
-    _unflat_(tensors, flat)
+    with profiling.span("comm.all_reduce"):
+        flat = _flat(tensors)
+        _count()
+        if profiling.enabled():
+            profiling.count("comm.all_reduce_bytes", flat.numel() * flat.element_size())
+        dist.all_reduce(flat, group=mesh.data_group)
+        if op == "mean":
+            flat.div_(mesh.data)
+        _unflat_(tensors, flat)
     return tensors
 
 

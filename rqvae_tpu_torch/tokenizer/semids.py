@@ -26,6 +26,7 @@ from rqvae_tpu_torch.data.schemas import SeqBatch, TokenizedSeqBatch
 from rqvae_tpu_torch.models import rqvae as rqvae_lib
 from rqvae_tpu_torch.ops import dispatch
 from rqvae_tpu_torch.ops.children_window import children_window_mask, fold_tokens
+from rqvae_tpu_torch.utils import profiling
 
 KEY_DTYPE = torch.int64
 SENTINEL = torch.iinfo(KEY_DTYPE).max
@@ -230,6 +231,11 @@ def max_duplicates(index: CorpusIndex) -> int:
 
 def tokenize_sequences(index: CorpusIndex, batch: SeqBatch) -> TokenizedSeqBatch:
     """Cached-ID gather: item-ID sequences -> semantic-ID token sequences."""
+    with profiling.span("tokenize"):
+        return _tokenize_sequences(index, batch)
+
+
+def _tokenize_sequences(index: CorpusIndex, batch: SeqBatch) -> TokenizedSeqBatch:
     b, n = batch.ids.shape
     d = index.cached_ids.shape[-1]
     n_items = index.cached_ids.shape[0]

@@ -79,6 +79,7 @@ from rqvae_tpu_torch.train import checkpoint as ckpt_lib
 from rqvae_tpu_torch.train import optim
 from rqvae_tpu_torch.utils import amp
 from rqvae_tpu_torch.utils import config as config_lib
+from rqvae_tpu_torch.utils import profiling
 from rqvae_tpu_torch.utils.device import resolve_device
 from rqvae_tpu_torch.utils.logging import MetricsLogger
 from rqvae_tpu_torch.utils.profiling import StepProfiler
@@ -220,9 +221,11 @@ def value_and_grad(loss_fn, params, *args, debug_nans: bool = False):
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     with (torch.autograd.detect_anomaly(check_nan=True) if debug_nans
           else contextlib.nullcontext()):
-        loss, aux = loss_fn(tree_unflatten(params, leaves), *args)
+        with profiling.span("step.forward"):
+            loss, aux = loss_fn(tree_unflatten(params, leaves), *args)
         try:
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with profiling.span("step.backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         except RuntimeError as e:
             if debug_nans and "nan values" in str(e):
                 raise FloatingPointError(
@@ -260,10 +263,11 @@ def _apply_updates(opt, params, opt_state, grads, op: str = "mean", loss=None,
                    debug_nans: bool = False):
     """Reduce the gradients over the data replicas (``op``; an identity on
     one device), check them under ``debug_nans``, then one AdamW update."""
-    mesh_lib.all_reduce_(tree_leaves(grads), op)
-    if debug_nans:
-        check_finite(grads, loss)
-    return params, opt.update(params, opt_state, grads)
+    with profiling.span("step.optimizer"):
+        mesh_lib.all_reduce_(tree_leaves(grads), op)
+        if debug_nans:
+            check_finite(grads, loss)
+        return params, opt.update(params, opt_state, grads)
 
 
 def make_bucketed_fns(model_cfg: RetrievalConfig, opt, index: semids.CorpusIndex,
@@ -290,13 +294,14 @@ def make_bucketed_fns(model_cfg: RetrievalConfig, opt, index: semids.CorpusIndex
 def bucket_slices(lengths: np.ndarray, n_buckets: int, grid: int = 4):
     """Sort rows by length desc, split into equal groups, quantize each
     group's pad length to the grid. Returns [(row indices, pad length)]."""
-    order = np.argsort(-lengths, kind="stable")
-    groups = np.split(order, n_buckets)
-    out = []
-    for rows in groups:
-        lmax = max(1, int(lengths[rows].max()))
-        out.append((rows, int(np.ceil(lmax / grid) * grid)))
-    return out
+    with profiling.span("data.bucket"):
+        order = np.argsort(-lengths, kind="stable")
+        groups = np.split(order, n_buckets)
+        out = []
+        for rows in groups:
+            lmax = max(1, int(lengths[rows].max()))
+            out.append((rows, int(np.ceil(lmax / grid) * grid)))
+        return out
 
 
 def make_packed_step(model_cfg: RetrievalConfig, opt, index: semids.CorpusIndex,
@@ -539,81 +544,85 @@ def train(cfg: DecoderTrainConfig, *, logger: Optional[MetricsLogger] = None, de
 
     for it in range(start_iter, start_iter + cfg.iterations):
         profiler.step(it - start_iter)
-        train_len_metrics = None
-        try:
-            if use_packing:
-                raw, n_ex = packer.next_batch()
-                train_len_metrics = _length_quantiles(
-                    (raw.slot_len[raw.slot_valid] * sem_dim).astype(np.float32), "train")
-                params, opt_state, metrics = packed_step_fn(
-                    params, opt_state, packing_lib.to_device(raw, dev), gen)
-                examples_seen += n_ex
-            elif use_buckets:
-                raw = bundle.train_seqs.sample_batch(host_rng, local_bs,
-                                                     subsample=cfg.train_data_subsample)
-                log_mask = raw["ids"] >= 0
-                grads = tree_map(torch.zeros_like, params)
-                loss_acc = torch.zeros((), device=dev)
-                loss_d_acc = torch.zeros((sem_dim,), device=dev)
-                for rows, length in bucket_slices(log_mask.sum(axis=1), cfg.length_buckets):
-                    sub = {"user_ids": raw["user_ids"][rows], "ids": raw["ids"][rows, :length],
-                           "ids_fut": raw["ids_fut"][rows]}
-                    grads, loss_acc, loss_d_acc = grad_accum_fn(
-                        params, grads, loss_acc, loss_d_acc,
-                        dataset_lib.to_device(seq_batch(sub), dev), gen, 1.0 / cfg.length_buckets)
-                params, opt_state = apply_fn(params, opt_state, grads, loss_acc)
-                metrics = {"total_loss": loss_acc, "loss_d": loss_d_acc}
-            else:
-                host = [seq_batch(bundle.train_seqs.sample_batch(
-                    host_rng, local_bs, subsample=cfg.train_data_subsample)) for _ in range(accum)]
-                stacked = SeqBatch(*(np.stack(xs) for xs in zip(*host)))
-                log_mask = stacked.seq_mask
-                params, opt_state, metrics = step_fn(params, opt_state,
-                                                     dataset_lib.to_device(stacked, dev), gen)
-        except FloatingPointError as e:
-            raise FloatingPointError(f"step {it + 1}: {e}") from e
-        if not use_packing:
-            examples_seen += accum * bs
+        with profiling.span("train.step", step=it):
+            train_len_metrics = None
+            try:
+                if use_packing:
+                    raw, n_ex = packer.next_batch()
+                    train_len_metrics = _length_quantiles(
+                        (raw.slot_len[raw.slot_valid] * sem_dim).astype(np.float32), "train")
+                    params, opt_state, metrics = packed_step_fn(
+                        params, opt_state, packing_lib.to_device(raw, dev), gen)
+                    examples_seen += n_ex
+                elif use_buckets:
+                    raw = bundle.train_seqs.sample_batch(host_rng, local_bs,
+                                                         subsample=cfg.train_data_subsample)
+                    log_mask = raw["ids"] >= 0
+                    grads = tree_map(torch.zeros_like, params)
+                    loss_acc = torch.zeros((), device=dev)
+                    loss_d_acc = torch.zeros((sem_dim,), device=dev)
+                    for rows, length in bucket_slices(log_mask.sum(axis=1), cfg.length_buckets):
+                        sub = {"user_ids": raw["user_ids"][rows], "ids": raw["ids"][rows, :length],
+                               "ids_fut": raw["ids_fut"][rows]}
+                        grads, loss_acc, loss_d_acc = grad_accum_fn(
+                            params, grads, loss_acc, loss_d_acc,
+                            dataset_lib.to_device(seq_batch(sub), dev), gen,
+                            1.0 / cfg.length_buckets)
+                    params, opt_state = apply_fn(params, opt_state, grads, loss_acc)
+                    metrics = {"total_loss": loss_acc, "loss_d": loss_d_acc}
+                else:
+                    host = [seq_batch(bundle.train_seqs.sample_batch(
+                        host_rng, local_bs, subsample=cfg.train_data_subsample))
+                        for _ in range(accum)]
+                    stacked = SeqBatch(*(np.stack(xs) for xs in zip(*host)))
+                    log_mask = stacked.seq_mask
+                    params, opt_state, metrics = step_fn(params, opt_state,
+                                                         dataset_lib.to_device(stacked, dev), gen)
+            except FloatingPointError as e:
+                raise FloatingPointError(f"step {it + 1}: {e}") from e
+            if not use_packing:
+                examples_seen += accum * bs
 
-        if _every(it, cfg.log_every) or it == start_iter:
-            # packed: each rank's loss is its share of the global loss
-            metrics = _replicated(metrics, "sum" if use_packing else "mean")
-            m = {k: v.cpu().numpy() for k, v in metrics.items()}
-            loss_d = m.pop("loss_d")
-            m.update({f"loss_{d}": loss_d[d] for d in range(sem_dim)})
-            m["learning_rate"] = float(schedule(it + 1))
-            seen = examples_seen
-            if use_packing:   # the exact global count
-                seen = int(mesh_lib.all_reduce_sum(torch.tensor(examples_seen, device=dev)))
-            m["examples_per_s"] = seen / (time.monotonic() - t_start)
-            m.update(train_len_metrics if train_len_metrics is not None
-                     else debug_metrics(log_mask, "train", sem_dim))
-            logger.log(it + 1, m, force=True)
+            if _every(it, cfg.log_every) or it == start_iter:
+                # packed: each rank's loss is its share of the global loss
+                metrics = _replicated(metrics, "sum" if use_packing else "mean")
+                m = {k: v.cpu().numpy() for k, v in metrics.items()}
+                loss_d = m.pop("loss_d")
+                m.update({f"loss_{d}": loss_d[d] for d in range(sem_dim)})
+                m["learning_rate"] = float(schedule(it + 1))
+                seen = examples_seen
+                if use_packing:   # the exact global count
+                    seen = int(mesh_lib.all_reduce_sum(torch.tensor(examples_seen, device=dev)))
+                m["examples_per_s"] = seen / (time.monotonic() - t_start)
+                m.update(train_len_metrics if train_len_metrics is not None
+                         else debug_metrics(log_mask, "train", sem_dim))
+                logger.log(it + 1, m, force=True)
 
-        last = it + 1 == start_iter + cfg.iterations
-        n_eval_rows = len(bundle.eval_seqs) if bundle.eval_seqs is not None else 0
-        if n_eval_rows and (_every(it, cfg.partial_eval_every) or last):
-            losses, eval_mask = [], None
-            for eb in range(min(cfg.eval_batches, max(1, n_eval_rows // bs))):
-                # small eval sets wrap modulo the set: near-uniform repeats,
-                # one batch shape; each rank evaluates its block
-                global_idx = np.arange(eb * bs, (eb + 1) * bs) % n_eval_rows
-                b = seq_batch(bundle.eval_seqs.batch_at(mesh_lib.host_block(global_idx, local_bs)))
-                losses.append(eval_loss_fn(params, dataset_lib.to_device(b, dev)))
-                eval_mask = b.seq_mask
-            ev = mesh_lib.all_reduce_([torch.stack(losses).double()], "mean")[0]
-            logger.log(it + 1, {"eval_loss": float(ev.mean()),
-                                **debug_metrics(eval_mask, "eval", sem_dim)}, force=True)
+            last = it + 1 == start_iter + cfg.iterations
+            n_eval_rows = len(bundle.eval_seqs) if bundle.eval_seqs is not None else 0
+            if n_eval_rows and (_every(it, cfg.partial_eval_every) or last):
+                losses, eval_mask = [], None
+                for eb in range(min(cfg.eval_batches, max(1, n_eval_rows // bs))):
+                    # small eval sets wrap modulo the set: near-uniform repeats,
+                    # one batch shape; each rank evaluates its block
+                    global_idx = np.arange(eb * bs, (eb + 1) * bs) % n_eval_rows
+                    b = seq_batch(bundle.eval_seqs.batch_at(
+                        mesh_lib.host_block(global_idx, local_bs)))
+                    losses.append(eval_loss_fn(params, dataset_lib.to_device(b, dev)))
+                    eval_mask = b.seq_mask
+                ev = mesh_lib.all_reduce_([torch.stack(losses).double()], "mean")[0]
+                logger.log(it + 1, {"eval_loss": float(ev.mean()),
+                                    **debug_metrics(eval_mask, "eval", sem_dim)}, force=True)
 
-        if n_eval_rows and (_every(it, cfg.full_eval_every) or last):
-            logger.log(it + 1, run_generative_eval(
-                params, model_cfg, index, bundle.eval_seqs, bundle.items, cfg, gen,
-                n_eval=min(cfg.eval_batches * bs, n_eval_rows), eval_fns=eval_fns), force=True)
+            if n_eval_rows and (_every(it, cfg.full_eval_every) or last):
+                logger.log(it + 1, run_generative_eval(
+                    params, model_cfg, index, bundle.eval_seqs, bundle.items, cfg, gen,
+                    n_eval=min(cfg.eval_batches * bs, n_eval_rows), eval_fns=eval_fns), force=True)
 
-        if _every(it, cfg.save_model_every) or last:
-            ckpt_lib.save(cfg.save_dir_root, it, {"params": params, "opt_state": opt_state},
-                          meta={"config": config_lib.config_to_dict(cfg)},
-                          spec_fn=mesh_lib.retrieval_tp_spec, heads=model_cfg.num_heads)
+            if _every(it, cfg.save_model_every) or last:
+                ckpt_lib.save(cfg.save_dir_root, it, {"params": params, "opt_state": opt_state},
+                              meta={"config": config_lib.config_to_dict(cfg)},
+                              spec_fn=mesh_lib.retrieval_tp_spec, heads=model_cfg.num_heads)
     profiler.close()
     return params
 

@@ -59,6 +59,7 @@ from rqvae_tpu_torch.train.train_decoder import _every, _replicated, check_finit
 from rqvae_tpu_torch.utils import amp
 from rqvae_tpu_torch.utils import config as config_lib
 from rqvae_tpu_torch.utils.device import resolve_device
+from rqvae_tpu_torch.utils import profiling
 from rqvae_tpu_torch.utils.logging import MetricsLogger
 from rqvae_tpu_torch.utils.profiling import StepProfiler
 from rqvae_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -184,10 +185,11 @@ def make_train_step(model_cfg: rqvae_lib.RqVaeConfig, opt, accum: int,
                 norms.append(out.embs_norm.float())
             torch._foreach_div_(tree_leaves(grads), float(accum))
             embs_norm = torch.stack(norms)
-        mesh_lib.all_reduce_(tree_leaves(grads), "mean")
-        if debug_nans:
-            check_finite(grads, loss)
-        opt_state = opt.update(params, opt_state, grads)
+        with profiling.span("step.optimizer"):
+            mesh_lib.all_reduce_(tree_leaves(grads), "mean")
+            if debug_nans:
+                check_finite(grads, loss)
+            opt_state = opt.update(params, opt_state, grads)
         metrics = {
             "total_loss": loss / accum,
             "reconstruction_loss": recon / accum,
@@ -357,70 +359,71 @@ def train(cfg: RqVaeTrainConfig, *, logger: Optional[MetricsLogger] = None, devi
     while it + 1 < start_iter + cfg.iterations:
         it_start = it + 1
         profiler.step(it_start - start_iter)
-        gumbel_t = temp_sched.get_t(it_start)
-        try:
-            if spc > 1:
-                # the very first chunk is a single step, so the step-1 loss is
-                # logged as in the host-fed loop
-                cadences = (cfg.log_every, cfg.eval_every, cfg.save_model_every)
-                bounds = [c - it_start % c for c in cadences if c > 0]
-                if cfg.gumbel_anneal:
-                    # t is read once per chunk: a chunk spans iters sharing get_t
-                    bounds.append(temperature.constant_t_chunk_bound(
-                        it_start, cfg.gumbel_anneal_step_size))
-                n = (min(spc, start_iter + cfg.iterations - it_start, *bounds)
-                     if it_start != first_it else 1)
-                params, opt_state, metrics = get_chunk_fn(n)(params, opt_state, corpus_dev, gen,
-                                                             gumbel_t, index_gen)
-                it = it_start + n - 1
-            else:
-                idx = host_rng.integers(0, train_x.shape[0], size=(accum, local_bs))
-                batch = torch.from_numpy(train_x[idx]).to(dev)
-                params, opt_state, metrics = step_fn(params, opt_state, batch, gen, gumbel_t)
-                it = it_start
-        except FloatingPointError as e:
-            raise FloatingPointError(f"step {it_start + 1}: {e}") from e
-        examples_seen += (it - it_start + 1) * accum * cfg.batch_size
+        with profiling.span("train.step", step=it_start):
+            gumbel_t = temp_sched.get_t(it_start)
+            try:
+                if spc > 1:
+                    # the very first chunk is a single step, so the step-1 loss is
+                    # logged as in the host-fed loop
+                    cadences = (cfg.log_every, cfg.eval_every, cfg.save_model_every)
+                    bounds = [c - it_start % c for c in cadences if c > 0]
+                    if cfg.gumbel_anneal:
+                        # t is read once per chunk: a chunk spans iters sharing get_t
+                        bounds.append(temperature.constant_t_chunk_bound(
+                            it_start, cfg.gumbel_anneal_step_size))
+                    n = (min(spc, start_iter + cfg.iterations - it_start, *bounds)
+                         if it_start != first_it else 1)
+                    params, opt_state, metrics = get_chunk_fn(n)(params, opt_state, corpus_dev, gen,
+                                                                 gumbel_t, index_gen)
+                    it = it_start + n - 1
+                else:
+                    idx = host_rng.integers(0, train_x.shape[0], size=(accum, local_bs))
+                    batch = torch.from_numpy(train_x[idx]).to(dev)
+                    params, opt_state, metrics = step_fn(params, opt_state, batch, gen, gumbel_t)
+                    it = it_start
+            except FloatingPointError as e:
+                raise FloatingPointError(f"step {it_start + 1}: {e}") from e
+            examples_seen += (it - it_start + 1) * accum * cfg.batch_size
 
-        if _every(it, cfg.log_every) or it_start == first_it:
-            m = {k: v.cpu().numpy() for k, v in _replicated(metrics, "mean").items()}
-            embs = m.pop("embs_norm_mean")
-            m.update({f"emb_avg_norm_{i}": embs[i] for i in range(len(embs))})
-            m["examples_per_s"] = examples_seen / (time.monotonic() - t_start)
-            m["temperature"] = gumbel_t
-            m["learning_rate"] = cfg.learning_rate
-            logger.log(it + 1, m, force=True)
+            if _every(it, cfg.log_every) or it_start == first_it:
+                m = {k: v.cpu().numpy() for k, v in _replicated(metrics, "mean").items()}
+                embs = m.pop("embs_norm_mean")
+                m.update({f"emb_avg_norm_{i}": embs[i] for i in range(len(embs))})
+                m["examples_per_s"] = examples_seen / (time.monotonic() - t_start)
+                m["temperature"] = gumbel_t
+                m["learning_rate"] = cfg.learning_rate
+                logger.log(it + 1, m, force=True)
 
-        last = it + 1 == start_iter + cfg.iterations
-        if cfg.do_eval and eval_x.shape[0] and (_every(it, cfg.eval_every) or last):
-            losses = []
-            n_eval_rows = eval_x.shape[0]
-            n_batches = min(cfg.eval_batches, max(1, n_eval_rows // cfg.batch_size))
-            for eb in range(n_batches):
-                lo = eb * cfg.batch_size
-                # small eval sets wrap modulo the set: near-uniform repeats,
-                # one batch shape; each rank evaluates its block
-                rows = mesh_lib.host_block(np.arange(lo, lo + cfg.batch_size) % n_eval_rows,
-                                           local_bs)
-                xe = torch.from_numpy(eval_x[rows]).to(dev)
-                losses.append(torch.stack([v.double() for v in eval_fn(params, xe)]))
-            ev = mesh_lib.all_reduce_([torch.stack(losses)], "mean")[0].mean(dim=0).tolist()
-            # corpus re-tokenization on rank 0 only, as the reference does,
-            # on the whole parameters (the gather is a collective)
-            whole = mesh_lib.gather_params(params, mesh_lib.rqvae_tp_spec)
-            div = {}
-            if rank == 0:
-                with dispatch.local_execution():
-                    div = id_diversity_metrics(whole, model_cfg,
-                                               torch.from_numpy(index_x).to(dev))
-            del whole
-            logger.log(it + 1, {"eval_total_loss": ev[0], "eval_reconstruction_loss": ev[1],
-                                "eval_rqvae_loss": ev[2], **div}, force=True)
+            last = it + 1 == start_iter + cfg.iterations
+            if cfg.do_eval and eval_x.shape[0] and (_every(it, cfg.eval_every) or last):
+                losses = []
+                n_eval_rows = eval_x.shape[0]
+                n_batches = min(cfg.eval_batches, max(1, n_eval_rows // cfg.batch_size))
+                for eb in range(n_batches):
+                    lo = eb * cfg.batch_size
+                    # small eval sets wrap modulo the set: near-uniform repeats,
+                    # one batch shape; each rank evaluates its block
+                    rows = mesh_lib.host_block(np.arange(lo, lo + cfg.batch_size) % n_eval_rows,
+                                               local_bs)
+                    xe = torch.from_numpy(eval_x[rows]).to(dev)
+                    losses.append(torch.stack([v.double() for v in eval_fn(params, xe)]))
+                ev = mesh_lib.all_reduce_([torch.stack(losses)], "mean")[0].mean(dim=0).tolist()
+                # corpus re-tokenization on rank 0 only, as the reference does,
+                # on the whole parameters (the gather is a collective)
+                whole = mesh_lib.gather_params(params, mesh_lib.rqvae_tp_spec)
+                div = {}
+                if rank == 0:
+                    with dispatch.local_execution():
+                        div = id_diversity_metrics(whole, model_cfg,
+                                                   torch.from_numpy(index_x).to(dev))
+                del whole
+                logger.log(it + 1, {"eval_total_loss": ev[0], "eval_reconstruction_loss": ev[1],
+                                    "eval_rqvae_loss": ev[2], **div}, force=True)
 
-        if _every(it, cfg.save_model_every) or last:
-            ckpt_lib.save(cfg.save_dir_root, it, {"params": params, "opt_state": opt_state},
-                          meta={"config": config_lib.config_to_dict(cfg)},
-                          spec_fn=mesh_lib.rqvae_tp_spec)
+            if _every(it, cfg.save_model_every) or last:
+                ckpt_lib.save(cfg.save_dir_root, it, {"params": params, "opt_state": opt_state},
+                              meta={"config": config_lib.config_to_dict(cfg)},
+                              spec_fn=mesh_lib.rqvae_tp_spec)
     profiler.close()
     return params
 

@@ -15,7 +15,9 @@ process over the whole batch.
   equal across the ranks to ``rtol=1e-6``, checkpoints written by rank 0
   only, ``rqvae_entropy`` logged by rank 0 only (JAX's
   ``tests/test_multiprocess.py``), then ``run_eval`` over the two ranks equal
-  to one process with exhaustive candidates to 1e-6.
+  to one process with exhaustive candidates to 1e-6;
+* with span recording on, ``all_reduce_`` records a ``comm.all_reduce`` span
+  and counts the bytes it reduced, and nothing when no data mesh acts.
 
 Run alone: ``python -m pytest tests/test_torch_distributed.py -q`` (~30 s).
 """
@@ -38,6 +40,7 @@ from rqvae_tpu_torch.data.schemas import SeqBatch  # noqa: E402
 from rqvae_tpu_torch.evaluate import run_eval  # noqa: E402
 from rqvae_tpu_torch.models import retrieval, rqvae  # noqa: E402
 from rqvae_tpu_torch.parallel import mesh  # noqa: E402
+from rqvae_tpu_torch.utils import profiling  # noqa: E402
 from rqvae_tpu_torch.tokenizer import semids  # noqa: E402
 from rqvae_tpu_torch.train import checkpoint, optim  # noqa: E402
 from rqvae_tpu_torch.train import train_decoder as ttd  # noqa: E402
@@ -179,6 +182,13 @@ def _worker_steps(out_dir: pathlib.Path):
         mesh.all_reduce_([torch.ones(3)], "sum")
         mesh.barrier()
     res["local_collectives"] = mesh.collective_calls
+    profiling.enable()
+    mesh.all_reduce_([torch.ones(3), torch.ones(2)], "sum")
+    with mesh.dispatch.local_execution():
+        mesh.all_reduce_([torch.ones(3)], "sum")
+    got = profiling.collect()
+    profiling.disable()
+    res["recorded"] = ([s[0] for s in got["spans"]], got["counters"])
     torch.save(res, out_dir / f"steps_r{r}.pt")
 
 
@@ -273,6 +283,15 @@ def test_init_from_the_environment_and_mesh_refusals(step_runs):
         assert res["tp_mesh"][:3] == (1, 2, 2) and res["tp_mesh"][4] == 2
         assert len(res["refusals"]) == 1 and "(4, 1)" in res["refusals"][0]
         assert res["local_collectives"] == 0     # identities under local_execution
+
+
+def test_all_reduce_records_its_span_and_bytes(step_runs):
+    """Recording on: the data mesh's all-reduce of 5 fp32 values records one
+    ``comm.all_reduce`` span and 20 bytes; under ``local_execution``, where
+    no data mesh acts, it records nothing."""
+    ranks, _ = step_runs
+    for res in ranks:
+        assert res["recorded"] == (["comm.all_reduce"], {"comm.all_reduce_bytes": 20})
 
 
 @pytest.mark.parametrize("name", ["flat", "bucketed", "packed", "stage1", "chunk"])

@@ -114,6 +114,22 @@ def test_profile_dir_run_writes_a_trace_of_the_window(tmp_path):
     assert "aten::mm" in names or "aten::addmm" in names
     # two steps: AdamW's foreach update ran twice in the window
     assert sum(e.get("name") == "aten::_foreach_add_" for e in events) >= 2
+    # the window's program spans, on the trace's clock: two train.step roots,
+    # each holding its forward, backward and optimizer in time on its thread
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    roots = [e for e in spans if e["name"] == "train.step"]
+    assert [e["args"]["step"] for e in roots] == [2, 3]
+    for root in roots:
+        inner = [e for e in spans if e["args"]["request_id"] == root["args"]["span_id"]
+                 and e is not root]
+        assert [e["name"] for e in inner if e["name"].startswith("step.")] == [
+            "step.forward", "step.backward", "step.optimizer"]
+        for e in inner:
+            assert e["tid"] == root["tid"]
+            assert root["ts"] <= e["ts"] and e["ts"] + e["dur"] <= root["ts"] + root["dur"]
+    ops = [e for e in events if e.get("cat") == "cpu_op" and e["name"] == "aten::_foreach_add_"]
+    assert any(root["ts"] <= e["ts"] <= root["ts"] + root["dur"] for e in ops for root in roots)
+    assert not profiling.enabled() and profiling.collect()["spans"] == []
 
 
 def test_no_profile_dir_writes_nothing(tmp_path, monkeypatch):
