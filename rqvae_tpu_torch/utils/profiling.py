@@ -44,7 +44,21 @@ The vocabulary, by layer:
   ``search.encode`` (the encoder and its cached cross K / V),
   ``search.level`` (arg ``level``: one decoded token, 0 the BOS step: the
   cached decode, log-softmax, mask, top-k and the KV reorder),
-  ``search.children_mask`` (inside its level);
+  ``search.children_mask`` (inside its level); for the decoder-only model
+  ``search.prefill`` (the histories' prefill, before level 0, in place of
+  ``search.encode``);
+* model layers of the decoder-only model (``models/mla``, ``models/moe``):
+  ``mla.prefill`` and ``mla.decode`` (a layer's latent attention, its
+  projections included, at prefill and at a decode step; counter
+  ``mla.cache_tokens``, the latent-cache tokens the decode steps attend,
+  the history's once a user and each beam row's own, summed over layers),
+  ``moe.route`` (router, top-k and the pairs' sort by expert with each
+  expert's row range, on the device), ``moe.experts`` (the routed pairs' expert
+  products and their weighted sum), ``moe.shared`` and ``mlp.dense``
+  (counters ``moe.pairs``, the routed (token, expert) pairs,
+  ``moe.expert_pairs_max``, the busiest expert's pairs, and
+  ``moe.experts_touched``, the experts given any pair, each summed over
+  layer calls);
 * kernels: ``attn.fwd`` (``ops/attention.attend``) and ``attn.bwd`` (the
   backward of the flash autograd functions), args ``family`` (``flat``,
   ``small``, ``spans``, ``sdpa``), ``B``, ``H``, ``Nq``, ``Nk``, ``Dh``,
@@ -84,8 +98,10 @@ SPAN_FIELDS = ("name", "start_ns", "end_ns", "id", "parent", "request", "tid", "
 VOCABULARY = ("data.sample", "data.bucket", "data.batch", "data.to_device", "train.step",
               "step.forward", "step.backward", "step.optimizer", "comm.all_reduce",
               "tokenize", "search", "search.encode", "search.level",
-              "search.children_mask", "attn.fwd", "attn.bwd")
-COUNTERS = ("data.item_slots", "data.valid_items", "comm.all_reduce_bytes")
+              "search.children_mask", "attn.fwd", "attn.bwd", "search.prefill", "mla.prefill",
+              "mla.decode", "moe.route", "moe.experts", "moe.shared", "mlp.dense")
+COUNTERS = ("data.item_slots", "data.valid_items", "comm.all_reduce_bytes", "moe.pairs",
+            "moe.expert_pairs_max", "moe.experts_touched", "mla.cache_tokens")
 
 _on = False
 _spans: list = []
@@ -157,7 +173,9 @@ def span(name: str, **args):
 
 
 def count(name: str, n=1) -> None:
-    """Add ``n`` to the counter ``name`` (nothing when off)."""
+    """Add ``n`` to the counter ``name`` (nothing when off). ``n`` may be a
+    0-d tensor on the device: the sum then stays there, and is read once,
+    when collected, so a site need not wait for the device."""
     if not _on:
         return
     with _lock:
@@ -198,6 +216,7 @@ def collect() -> dict:
     with _lock:
         spans, counters = _spans, _counters
         _spans, _counters = [], {}
+    counters = {k: v.item() if isinstance(v, torch.Tensor) else v for k, v in counters.items()}
     now = _now()
     p0, u0 = _anchor or now
     p1, u1 = now
